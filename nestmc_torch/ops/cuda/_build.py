@@ -1,0 +1,116 @@
+"""Build the CUDA sources in ``nestmc_torch/csrc`` and load them with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface, specialised to one covariate count p
+(``-DNESTMC_P=p``: the per-cell arrays of the kernels are sized at compile
+time so they stay in registers). The library goes to ``nestmc_torch/_build/``
+(git-ignored), named by a hash of the sources, the flags and p, so a changed
+source rebuilds and an unchanged one loads at once. Nothing is built when
+the package is imported: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_SIGNATURES = {
+    "nestmc_logp_grad": [_P] * 7 + [_I] * 3 + [_P],
+    "nestmc_newton_step": [_P] * 21 + [_F] * 4 + [_I] * 3 + [_U] * 2
+    + [_I, _P],
+    "nestmc_philox_probe": [_P, _P, _I, _U, _U, _P],
+}
+
+_libs: dict = {}
+build_info: dict = {}  # p -> {"path", "seconds", "log"} of builds this process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")), sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path(p: int) -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + f"p={p}".encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libnestmc_p{p}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(p: int, out: Path) -> None:
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-DNESTMC_P={p}", f"-I{SRC_DIR}",
+           "-o", tmp, *map(str, cu)]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a reader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_info[p] = {
+        "path": str(out),
+        "seconds": time.perf_counter() - t0,
+        "log": r.stderr,
+    }
+
+
+def library(p: int) -> ctypes.CDLL:
+    """The kernel library for covariate count p, built on first use."""
+    lib = _libs.get(p)
+    if lib is not None:
+        return lib
+    if not 1 <= p <= 8:
+        raise ValueError(f"the CUDA kernels take 1 <= p <= 8, got p={p}")
+    out = library_path(p)
+    if not out.exists():
+        _compile(p, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _libs[p] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

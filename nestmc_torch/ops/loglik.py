@@ -1,0 +1,72 @@
+"""Plain PyTorch references of the padded Bernoulli-logit obs passes.
+
+Port of the padded logistic functions of :mod:`nestmc.ops.loglik`. These
+are the plain versions the CUDA obs-pass kernels (ops/cuda/loglik_logistic)
+are held against, and what those wrappers run on CPU tensors.
+
+Shapes:
+  beta: (C, G, p)   x: (G, n, p)   y, mask: (G, n)
+  loglik (C, G), grad (C, G, p), packed -Hessian (C, G, T), T = p(p+1)/2.
+
+The per-observation terms use one exp and one log1p, e = exp(-|eta|):
+softplus(eta) = max(eta, 0) + log1p(e), sigmoid(eta) = 1/(1+e) or e/(1+e)
+by sign, w = sigmoid (1 - sigmoid) = e/(1+e)^2 — the same numbers the
+kernels compute (csrc/logistic_terms.cuh). The gradient x.(y - sigmoid) is
+closed form where the reference takes jax.vjp. Outputs are contiguous, so
+they can feed the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _eta(beta, x):
+    return torch.einsum("cgp,gnp->cgn", beta, x)
+
+
+def _terms(eta, y, mask):
+    """(ll, resid, w) per observation, masked."""
+    e = torch.exp(-eta.abs())
+    sp = eta.clamp_min(0.0) + torch.log1p(e)
+    inv = 1.0 / (1.0 + e)
+    sig = torch.where(eta >= 0.0, inv, e * inv)
+    ll = (y * eta - sp) * mask
+    resid = (y - sig) * mask
+    w = e * inv * inv * mask
+    return ll, resid, w
+
+
+def xx_packed(x):
+    """(G, n, T) products x_i x_j for the packed lower-triangle pairs."""
+    p = x.shape[-1]
+    return torch.stack(
+        [x[..., i] * x[..., j] for i in range(p) for j in range(i + 1)],
+        dim=-1,
+    )
+
+
+def logistic_loglik_padded(beta, x, y, mask):
+    """sum_i mask * [y*eta - softplus(eta)] -> (C, G)."""
+    ll, _, _ = _terms(_eta(beta, x), y, mask)
+    return ll.sum(dim=-1)
+
+
+def logistic_logp_grad_padded(beta, x, y, mask):
+    """((C, G) loglik, (C, G, p) grad wrt beta)."""
+    ll, resid, _ = _terms(_eta(beta, x), y, mask)
+    return (
+        ll.sum(dim=-1),
+        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
+    )
+
+
+def logistic_logp_grad_hess_padded(beta, x, y, mask):
+    """((C, G) loglik, (C, G, p) grad, (C, G, T) packed -Hessian
+    sum_i mask w x_i x_i^T)."""
+    ll, resid, w = _terms(_eta(beta, x), y, mask)
+    return (
+        ll.sum(dim=-1),
+        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
+        torch.einsum("cgn,gnt->cgt", w, xx_packed(x)).contiguous(),
+    )

@@ -1,0 +1,22 @@
+"""nestmc_torch.prof at a tiny size on the CPU: both phases report every
+field, and the per-block times cover each block of the sweep."""
+
+import json
+
+from nestmc_torch import prof
+
+
+def test_profile_reports_both_phases(tmp_path, capsys):
+    out = tmp_path / "tables.txt"
+    assert prof.main(["--device", "cpu", "--chains", "4", "--groups", "3",
+                      "--sweeps", "2", "--repeats", "1",
+                      "--out", str(out)]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for phase in ("warmup", "sampling"):
+        r = report[phase]
+        assert len(r["wall_ms"]) == 1 and r["wall_ms"][0] > 0
+        assert r["device_busy_ms"] is None and r["idle_share"] is None
+        assert set(r["block_ms"]) == {
+            "newton beta", "gibbs mu", "gibbs log_tau", "move asis_tau"}
+        assert any("asis_tau_move" in k for k in r["host_top"])
+    assert "== sampling ==" in out.read_text()
