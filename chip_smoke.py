@@ -4,19 +4,41 @@ Needs one CUDA card and this checkout (it builds the kernels from
 ``nestmc_torch/csrc``). Phases, one line or more each:
 
 1. the card: nvidia-smi's name and power limit, torch's device name;
-2. the kernel build (nvcc, sm_90a) and its seconds;
-3. each kernel vs its plain PyTorch version at the judged shape (C=1024,
-   G=1000, n=50, p=4): max error against the stated tolerance and both
-   times (CUDA events; median over 7 batches of 10 back-to-back launches,
-   after warm-up);
+2. the kernel build (nvcc, sm_90a) for p=4 and p=3 at once, seconds each;
+3. each kernel vs its plain PyTorch version, with external noise, at the
+   shapes its paths give it: the judged shape (C=1024, G=1000, n=50, p=4)
+   for the Newton path's kernels; the mala-100k shape (C=512, G=100,000,
+   n=20, p=3) for mala_step, logp_grad, rwmh_step and loglik, where the
+   outputs are compared with the plain version on the first 64 chains
+   (cells are independent per chain, so the comparison is exact; the plain
+   version's (C, G, n) temporaries are 4.1 GB each at full width); the RW
+   preset's shape (C=64, G=100, n=50, p=4) for rwmh_step and loglik. Dense
+   and masked data, with and without the R-hat fold. Each line: the max
+   error against the stated tolerance, the accept decisions that differ
+   (all must lie within |log alpha - log u| < 1e-3), both times (CUDA
+   events; median over 7 batches of 10 back-to-back launches, after
+   warm-up; the plain version at full width unless it runs out of memory,
+   then on the slice, which the line says) and the bound (below);
 4. the moments of the in-kernel Philox normals and uniforms;
-5. a small-input reference: the sampler on the card vs its plain version
-   on the CPU at a small size (posterior means within 4 combined MCSEs);
-6. the judged config end to end through nestmc_torch.bench at full width
-   (cut in draws/warmup only if the time budget requires, and then said).
-   Launch counters are reset just before and read just after; every kernel
-   must have run, the worst all-parameter R-hat must be < 1.01, beta's
-   sampling acceptance > 0.5, and nothing NaN.
+5. small-input references: the Newton, MALA and RW-MH samplers on the card
+   vs their plain versions on the CPU (posterior means of mu and log_tau
+   within 4 combined MCSEs, mean beta acceptance within 0.05);
+6. the end-to-end paths through nestmc_torch.bench at full width, launch
+   counters reset just before each and read just after: the RW-MH preset
+   (hier-logistic-100-rw, streamed R-hat switched on), config 5
+   (mala-100k) and the judged config. Each must launch exactly its
+   kernels, as many times as its schedule implies, reach worst
+   all-parameter R-hat < 1.01, a plausible beta acceptance and no NaN.
+   Only the judged run is cut in depth if the time budget requires (its
+   R-hat line is then printed, not asserted, and the script says so);
+   mala-100k's draws are cut only if even a minimal judged run would not
+   fit, and the script says so.
+
+Bound: the least time the card could take for a call, the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s (the H100 SXM data sheet), with
+each operation counted once (exp and log1p as one each, so the operation
+count is a floor).
 
 Any failed check exits non-zero. The last lines are a JSON object of the
 kernels, the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -31,8 +53,28 @@ import time
 
 T_START = time.perf_counter()
 BUDGET_S = 1200.0           # the whole script, build included
-JUDGED_SCHEDULE = (1500, 4096)
-C, G, N, P = 1024, 1000, 50, 4
+HBM_BPS = 3.35e12           # H100 SXM memory rate, bytes/s
+FP32_OPS = 67e12            # H100 SXM float32 rate outside the tensor cores
+JUDGED = (1024, 1000, 50, 4)        # C, G, n, p
+M100K = (512, 100_000, 20, 3)
+RW = (64, 100, 50, 4)
+SLICE = 64                  # chains the plain versions run on at M100K
+SRC = {
+    "loglik": ("nestmc_torch/csrc/loglik_logistic.cu",
+               "nestmc/ops/pallas/loglik_logistic.py:191"),
+    "logp_grad": ("nestmc_torch/csrc/loglik_logistic.cu",
+                  "nestmc/ops/pallas/loglik_logistic.py:343"),
+    "logp_grad_hess": ("nestmc_torch/csrc/loglik_logistic.cu",
+                       "nestmc/ops/pallas/loglik_logistic.py:289"),
+    "newton_step_refresh": ("nestmc_torch/csrc/newton_accept.cu",
+                            "nestmc/ops/pallas/newton_accept.py:392"),
+    "newton_step_frozen": ("nestmc_torch/csrc/newton_accept.cu",
+                           "nestmc/ops/pallas/newton_accept.py:392"),
+    "mala_step": ("nestmc_torch/csrc/mala_accept.cu",
+                  "nestmc/ops/pallas/mala_accept.py:275"),
+    "rwmh_step": ("nestmc_torch/csrc/mh_accept.cu",
+                  "nestmc/ops/pallas/mh_accept.py:168"),
+}
 
 
 def fail(msg: str) -> None:
@@ -42,6 +84,50 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
+
+
+def left_s() -> float:
+    return BUDGET_S - (time.perf_counter() - T_START)
+
+
+def work(kernel: str, C: int, G: int, n: int, p: int, noise: bool = True,
+         fold: bool = False):
+    """(bytes, float32 operations) one call needs: each input read and
+    each output written once; per obs-cell 2p (eta) + 9 (value terms)
+    [+ 2p + 8 (gradient terms)] [+ 3T (Hessian)] operations, per cell the
+    step's own algebra."""
+    T = p * (p + 1) // 2
+    cells, obs = C * G, C * G * n
+    data = 4 * G * n * (p + 2)
+    hyper = 4 * 2 * C * p
+    f = 4 * 2 * G * p * C if fold else 0          # one (2, G, p, C) array
+    nz = 4 * cells * (p + 1) if noise else 0
+    val_ops = 2 * p + 9
+    grad_ops = val_ops + 2 * p + 8
+    if kernel == "loglik":
+        return data + 4 * cells * (p + 1), obs * val_ops
+    if kernel == "logp_grad":
+        return data + 4 * cells * (2 * p + 1), obs * grad_ops
+    if kernel == "logp_grad_hess":
+        return (data + 4 * cells * (2 * p + 1 + T),
+                obs * (grad_ops + 3 * T))
+    if kernel == "rwmh_step":
+        return (data + hyper + nz + 4 * cells * (2 * p + 4),
+                obs * val_ops + cells * (8 * p + 6))
+    if kernel == "mala_step":
+        return (data + hyper + nz + 4 * f + 4 * cells * (4 * p + 4),
+                obs * grad_ops + cells * (16 * p + 12 + (8 * p if fold
+                                                          else 0)))
+    frozen = kernel == "newton_step_frozen"
+    h = 0 if frozen else 4 * cells * T
+    return (data + hyper + nz + 4 * f + 4 * cells * (4 * p + 4 + T) + h,
+            obs * (grad_ops + (0 if frozen else 3 * T))
+            + cells * (4 * p ** 3 + 30 * p + (8 * p if fold else 0)))
+
+
+def bound(nbytes: float, ops: float):
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def main() -> int:
@@ -60,8 +146,17 @@ def main() -> int:
     from nestmc_torch.ops import loglik
     from nestmc_torch.ops.cuda import _build, launch_counts, reset_launch_counts
     from nestmc_torch.ops.cuda.loglik_logistic import (
+        logistic_loglik,
         logistic_logp_grad,
         logistic_logp_grad_hess,
+    )
+    from nestmc_torch.ops.cuda.mala_accept import (
+        fused_mala_logistic_step,
+        fused_mala_logistic_step_plain,
+    )
+    from nestmc_torch.ops.cuda.mh_accept import (
+        fused_rwmh_logistic_step,
+        fused_rwmh_logistic_step_plain,
     )
     from nestmc_torch.ops.cuda.newton_accept import (
         fused_newton_logistic_step,
@@ -81,35 +176,18 @@ def main() -> int:
         f"device_count {count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # ---- 2. build ----
+    # ---- 2. build, p=4 and p=3 at once ----
     t0 = time.perf_counter()
-    _build.library(P)
-    build_s = time.perf_counter() - t0
-    info = _build.build_info.get(P, {})
-    ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    say(f"build: p={P} in {build_s:.1f} s "
-        f"({'compiled' if info else 'cached'}) -> "
-        f"{_build.library_path(P).name}")
-    for ln in ptxas:
-        say(f"  ptxas: {ln}")
-
-    # ---- 3. kernels vs plain at the judged shape ----
-    data, _ = synth_logistic(2000, G=G, n=N, p=P, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    beta = 0.5 * torch.randn(C, G, P, generator=gen, device=dev)
-    mu = 0.3 * torch.randn(C, P, generator=gen, device=dev)
-    lt = -0.7 + 0.2 * torch.randn(C, P, generator=gen, device=dev)
-    eps = torch.randn(C, G, P, generator=gen, device=dev)
-    logu = torch.log(torch.rand(C, G, generator=gen, device=dev)
-                     .clamp_min(1e-38))
-    ls = torch.zeros(C, G, device=dev)
-    masked_y = data.y.clone()
-    masked_m = data.mask.clone()
-    masked_m[:, N - 7:] = 0.0
-    masked_y *= masked_m
-    datasets = {"dense": (data.x, data.y, data.mask),
-                "masked": (data.x, masked_y, masked_m)}
+    _build.build([4, 3])
+    say(f"build: p=4 and p=3 in {time.perf_counter() - t0:.1f} s")
+    for p in (4, 3):
+        info = _build.build_info.get(p, {})
+        say(f"  p={p}: "
+            f"{'%.1f s' % info['seconds'] if info else 'cached'} -> "
+            f"{_build.library_path(p).name}")
+        for ln in info.get("log", "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                say(f"    ptxas: {ln.strip()}")
 
     def timed(fn, batches=7, per=10):
         """ms per call: the median over batches of the mean of `per`
@@ -131,25 +209,88 @@ def main() -> int:
         times.sort()
         return times[len(times) // 2]
 
+    def timed_plain(fn, fn_slice):
+        """The plain version's ms at full width, or on the chain slice if
+        full width runs out of memory (then said)."""
+        try:
+            return timed(fn), ""
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            return timed(fn_slice), f" (on {SLICE} chains: full width OOM)"
+
     def max_err(a, b, rtol):
         """max |a-b| and whether |a-b| <= 1e-3 + rtol |b| everywhere."""
         d = (a - b).abs()
+        if d.numel() == 0:
+            return 0.0, True
         return float(d.max()), bool((d <= 1e-3 + rtol * b.abs()).all())
 
     kernels = {}
 
-    def record(name, err, ms, plain_ms):
+    def record(name, err, ms=None, plain_ms=None, shape=None, w=None):
         k = kernels.setdefault(name, {"max_abs_err": 0.0})
         k["max_abs_err"] = max(k["max_abs_err"], err)
         if ms is not None:
-            k["ms"], k["plain_ms"] = ms, plain_ms
+            b_ms, by = bound(*w)
+            k.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                     shape=shape)
 
+    def bound_str(w):
+        b_ms, by = bound(*w)
+        return (f"bound {b_ms:.4f} ms by {by} ({w[0] / 1e6:.1f} MB, "
+                f"{w[1] / 1e9:.2f} G ops)")
+
+    def step_check(out, ref, beta, logu, alpha_i, tol_alpha=2e-3):
+        """(max err, ok, differing decisions, outside the 1e-3 band)."""
+        acc_k = (out[0] != beta).any(-1)
+        acc_p = (ref[0] != beta).any(-1)
+        near = (torch.log(ref[alpha_i]) - logu).abs() < 1e-3
+        differ = acc_k != acc_p
+        n_bad = int((differ & ~near).sum())
+        same = ~differ
+        errs = []
+        for i in range(len(out)):
+            a, b = out[i], ref[i]
+            if i <= alpha_i:
+                m = same if a.dim() == 2 else same[..., None]
+                a, b = a[m.expand_as(a)], b[m.expand_as(b)]
+            errs.append(max_err(a, b, tol_alpha if i == alpha_i else 1e-4))
+        err = max(e for e, _ in errs)
+        return err, all(o for _, o in errs) and n_bad == 0, \
+            int(differ.sum()), n_bad
+
+    def inputs(shape, data_seed, seed):
+        C_, G_, N_, P_ = shape
+        data, _ = synth_logistic(data_seed, G=G_, n=N_, p=P_, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        r = {
+            "beta": 0.5 * torch.randn(C_, G_, P_, generator=gen, device=dev),
+            "mu": 0.3 * torch.randn(C_, P_, generator=gen, device=dev),
+            "lt": -0.7 + 0.2 * torch.randn(C_, P_, generator=gen,
+                                           device=dev),
+            "eps": torch.randn(C_, G_, P_, generator=gen, device=dev),
+            "logu": torch.log(torch.rand(C_, G_, generator=gen, device=dev)
+                              .clamp_min(1e-38)),
+            "gen": gen,
+        }
+        masked_m = data.mask.clone()
+        masked_m[:, N_ - 7:] = 0.0
+        r["datasets"] = {"dense": (data.x, data.y, data.mask),
+                         "masked": (data.x, data.y * masked_m, masked_m)}
+        return r
+
+    # ---- 3a. the Newton path's kernels at the judged shape ----
+    C, G, N, P = JUDGED
+    d = inputs(JUDGED, 2000, 7)
+    beta, mu, lt, eps, logu = (d[k] for k in ("beta", "mu", "lt", "eps",
+                                              "logu"))
+    ls = torch.zeros(C, G, device=dev)
     for name, kern, plain in (
         ("logp_grad", logistic_logp_grad, loglik.logistic_logp_grad_padded),
         ("logp_grad_hess", logistic_logp_grad_hess,
          loglik.logistic_logp_grad_hess_padded),
     ):
-        for dname, (x, y, m) in datasets.items():
+        for dname, (x, y, m) in d["datasets"].items():
             out, ref = kern(beta, x, y, m), plain(beta, x, y, m)
             torch.cuda.synchronize()
             errs = [max_err(a, b, 1e-4) for a, b in zip(out, ref)]
@@ -157,21 +298,26 @@ def main() -> int:
             ok = all(o for _, o in errs)
             ms = timed(lambda: kern(beta, x, y, m))
             pms = timed(lambda: plain(beta, x, y, m))
-            say(f"kernel {name} [{dname}]: max_abs_err {err:.3e} "
-                f"(tol 1e-3 + 1e-4|ref|) {'ok' if ok else 'FAIL'}; "
-                f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            w = work(name, C, G, N, P)
+            say(f"kernel {name} [{dname}, C={C} G={G} n={N} p={P}]: "
+                f"max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|) "
+                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms; {bound_str(w)}")
             if not ok:
                 fail(f"{name} [{dname}] disagrees with its plain version")
-            record(name, err, ms if dname == "dense" else None, pms)
+            main = dname == "dense"
+            record(name, err, ms if main else None, pms, JUDGED, w)
 
     for frozen in (False, True):
         for fold in (False, True):
-            for dname, (x, y, m) in datasets.items():
+            for dname, (x, y, m) in d["datasets"].items():
                 v, g, h = loglik.logistic_logp_grad_hess_padded(beta, x, y, m)
                 rf = None
                 if fold:
-                    rf = (torch.randn(2, G, P, C, generator=gen, device=dev),
-                          torch.rand(2, G, P, C, generator=gen, device=dev),
+                    rf = (torch.randn(2, G, P, C, generator=d["gen"],
+                                      device=dev),
+                          torch.rand(2, G, P, C, generator=d["gen"],
+                                     device=dev),
                           fold_rhat_scalars([11.0, 0.0], 11, 2048))
                 args = (beta, v, g, h, ls, mu, lt, x, y, m)
                 out = fused_newton_logistic_step(
@@ -179,50 +325,172 @@ def main() -> int:
                 ref = fused_newton_logistic_step_plain(
                     *args, (eps, logu), frozen=frozen, rhat_fold=rf)
                 torch.cuda.synchronize()
-                acc_k = (out[0] != beta).any(-1)
-                acc_p = (ref[0] != beta).any(-1)
-                near = (torch.log(ref[4]) - logu).abs() < 1e-3
-                differ = acc_k != acc_p
-                n_near = int(near.sum())
-                n_bad = int((differ & ~near).sum())
-                same = ~differ
-                errs = []
-                for i in range(len(out)):
-                    if i == 3 and frozen:
-                        if out[3] is not h:
-                            fail("frozen newton_step must return h itself")
-                        continue
-                    a, b = out[i], ref[i]
-                    if i < 5:
-                        msk = same if a.dim() == 2 else same[..., None]
-                        a, b = a[msk.expand_as(a)], b[msk.expand_as(b)]
-                    errs.append(max_err(a, b, 2e-3 if i == 4 else 1e-4))
-                err = max(e for e, _ in errs)
-                ok = all(o for _, o in errs) and n_bad == 0
+                if frozen and out[3] is not h:
+                    fail("frozen newton_step must return h itself")
+                keep = [i for i in range(len(out)) if not (frozen and i == 3)]
+                err, ok, n_diff, n_bad = step_check(
+                    [out[i] for i in keep], [ref[i] for i in keep], beta,
+                    logu, keep.index(4))
                 ms = timed(lambda: fused_newton_logistic_step(
                     *args, noise=(eps, logu), frozen=frozen, rhat_fold=rf))
                 pms = timed(lambda: fused_newton_logistic_step_plain(
                     *args, (eps, logu), frozen=frozen, rhat_fold=rf))
+                kname = ("newton_step_frozen" if frozen
+                         else "newton_step_refresh")
+                w = work(kname, C, G, N, P, fold=fold)
                 case = (f"{'frozen' if frozen else 'refresh'}"
                         f"{'+fold' if fold else ''} [{dname}]")
                 say(f"kernel newton_step {case}: max_abs_err {err:.3e} "
                     f"(tol 1e-3 + 1e-4|ref|, alpha 2e-3|ref|); accept "
-                    f"decisions differ in {int(differ.sum())} cells, all "
-                    f"within |log a - log u| < 1e-3 ({n_near} such cells, "
-                    f"{n_bad} outside) {'ok' if ok else 'FAIL'}; "
-                    f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                    f"decisions differ in {n_diff} cells, {n_bad} outside "
+                    f"|log a - log u| < 1e-3 {'ok' if ok else 'FAIL'}; "
+                    f"kernel {ms:.4f} ms, plain {pms:.4f} ms; "
+                    f"{bound_str(w)}")
                 if not ok:
-                    fail(f"newton_step {case} disagrees with its plain version")
+                    fail(f"newton_step {case} disagrees with its plain "
+                         "version")
                 # the main path's cases: refresh without fold (warmup) and
-                # frozen with fold (sampling), on the judged dense data
-                main_case = dname == "dense" and fold == frozen
-                record("newton_step_frozen" if frozen
-                       else "newton_step_refresh", err,
-                       ms if main_case else None, pms)
+                # frozen with fold (sampling), on the dense judged data
+                main = dname == "dense" and fold == frozen
+                record(kname, err, ms if main else None, pms, JUDGED, w)
                 del out, ref
+    del d, beta, mu, lt, eps, logu, ls, v, g, h, rf, args
+    torch.cuda.empty_cache()
+
+    # ---- 3b. the MALA path's kernels at the mala-100k shape ----
+    C, G, N, P = M100K
+    S = SLICE
+    d = inputs(M100K, 5000, 8)
+    beta, mu, lt, eps, logu = (d[k] for k in ("beta", "mu", "lt", "eps",
+                                              "logu"))
+    ls = torch.full((C, G), -1.3, device=dev)
+    sl = (beta[:S], mu[:S], lt[:S], eps[:S], logu[:S], ls[:S])
+    for dname, (x, y, m) in d["datasets"].items():
+        out = logistic_logp_grad(beta, x, y, m)
+        ref = loglik.logistic_logp_grad_padded(beta[:S], x, y, m)
+        torch.cuda.synchronize()
+        errs = [max_err(a[:S], b, 1e-4) for a, b in zip(out, ref)]
+        err = max(e for e, _ in errs)
+        ok = all(o for _, o in errs)
+        ms = timed(lambda: logistic_logp_grad(beta, x, y, m))
+        pms, note = timed_plain(
+            lambda: loglik.logistic_logp_grad_padded(beta, x, y, m),
+            lambda: loglik.logistic_logp_grad_padded(beta[:S], x, y, m))
+        say(f"kernel logp_grad [{dname}, C={C} G={G} n={N} p={P}, parity on "
+            f"{S} chains]: max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|) "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms{note}; {bound_str(work('logp_grad', *M100K))}")
+        if not ok:
+            fail(f"logp_grad [{dname}] at the mala-100k shape disagrees")
+        record("logp_grad", err)
+        del out, ref
+        v, g = logistic_logp_grad(beta, x, y, m)
+        for fold in (False, True):
+            rf = rf_s = None
+            if fold:
+                fmean = torch.randn(2, G, P, C, generator=d["gen"],
+                                    device=dev)
+                fm2 = torch.rand(2, G, P, C, generator=d["gen"], device=dev)
+                sc = fold_rhat_scalars([11.0, 0.0], 11, 512)
+                rf, rf_s = (fmean, fm2, sc), (fmean[..., :S], fm2[..., :S],
+                                              sc)
+            args = (beta, v, g, ls, mu, lt, x, y, m)
+            out = fused_mala_logistic_step(*args, noise=(eps, logu),
+                                           rhat_fold=rf)
+            ref = fused_mala_logistic_step_plain(
+                sl[0], v[:S], g[:S], sl[5], sl[1], sl[2], x, y, m,
+                (sl[3], sl[4]), rhat_fold=rf_s)
+            torch.cuda.synchronize()
+            out_s = [o[:S] for o in out[:4]] + [o[..., :S] for o in out[4:]]
+            err, ok, n_diff, n_bad = step_check(out_s, ref, sl[0], sl[4], 3)
+            ms = timed(lambda: fused_mala_logistic_step(
+                *args, noise=(eps, logu), rhat_fold=rf))
+            pms, note = timed_plain(
+                lambda: fused_mala_logistic_step_plain(
+                    *args, (eps, logu), rhat_fold=rf),
+                lambda: fused_mala_logistic_step_plain(
+                    sl[0], v[:S], g[:S], sl[5], sl[1], sl[2], x, y, m,
+                    (sl[3], sl[4]), rhat_fold=rf_s))
+            w = work("mala_step", C, G, N, P, fold=fold)
+            case = f"{'fold' if fold else 'no fold'} [{dname}]"
+            say(f"kernel mala_step {case}, C={C} G={G} n={N} p={P}, parity "
+                f"on {S} chains: max_abs_err {err:.3e} (tol 1e-3 + "
+                f"1e-4|ref|, alpha 2e-3|ref|); accept decisions differ in "
+                f"{n_diff} of {S * G} cells, {n_bad} outside |log a - log u|"
+                f" < 1e-3 {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms{note}; {bound_str(w)}")
+            if not ok:
+                fail(f"mala_step {case} disagrees with its plain version")
+            # the main path's case: no fold (thin 4), dense data
+            main = dname == "dense" and not fold
+            record("mala_step", err, ms if main else None, pms, M100K, w)
+            del out, ref, out_s, rf, rf_s
+            torch.cuda.empty_cache()
+        del v, g
+
+    # rwmh_step and loglik at the mala-100k shape, then at the RW preset's
+    for shape in (M100K, RW):
+        C, G, N, P = shape
+        S = min(SLICE, C)
+        if shape == RW:
+            del d, beta, mu, lt, eps, logu, ls, sl
+            torch.cuda.empty_cache()
+            d = inputs(RW, 1000, 9)
+            beta, mu, lt, eps, logu = (d[k] for k in ("beta", "mu", "lt",
+                                                      "eps", "logu"))
+        ls = torch.full((C, G), -1.6, device=dev)
+        sl = (beta[:S], mu[:S], lt[:S], eps[:S], logu[:S], ls[:S])
+        main = shape == RW
+        for dname, (x, y, m) in d["datasets"].items():
+            out = logistic_loglik(beta, x, y, m)
+            ref = loglik.logistic_loglik_padded(sl[0], x, y, m)
+            torch.cuda.synchronize()
+            err, ok = max_err(out[:S], ref, 1e-4)
+            ms = timed(lambda: logistic_loglik(beta, x, y, m))
+            pms, note = timed_plain(
+                lambda: loglik.logistic_loglik_padded(beta, x, y, m),
+                lambda: loglik.logistic_loglik_padded(sl[0], x, y, m))
+            w = work("loglik", C, G, N, P)
+            say(f"kernel loglik [{dname}, C={C} G={G} n={N} p={P}, parity on "
+                f"{S} chains]: max_abs_err {err:.3e} (tol 1e-3 + "
+                f"1e-4|ref|) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms{note}; {bound_str(w)}")
+            if not ok:
+                fail(f"loglik [{dname}] disagrees with its plain version")
+            record("loglik", err, ms if main and dname == "dense" else None,
+                   pms, shape, w)
+            lik = out
+            args = (beta, lik, ls, mu, lt, x, y, m)
+            out = fused_rwmh_logistic_step(*args, noise=(eps, logu))
+            ref = fused_rwmh_logistic_step_plain(
+                sl[0], lik[:S], sl[5], sl[1], sl[2], x, y, m, (sl[3], sl[4]))
+            torch.cuda.synchronize()
+            err, ok, n_diff, n_bad = step_check(
+                [o[:S] for o in out], ref, sl[0], sl[4], 2)
+            ms = timed(lambda: fused_rwmh_logistic_step(
+                *args, noise=(eps, logu)))
+            pms, note = timed_plain(
+                lambda: fused_rwmh_logistic_step_plain(*args, (eps, logu)),
+                lambda: fused_rwmh_logistic_step_plain(
+                    sl[0], lik[:S], sl[5], sl[1], sl[2], x, y, m,
+                    (sl[3], sl[4])))
+            w = work("rwmh_step", C, G, N, P)
+            say(f"kernel rwmh_step [{dname}, C={C} G={G} n={N} p={P}, parity "
+                f"on {S} chains]: max_abs_err {err:.3e} (tol 1e-3 + "
+                f"1e-4|ref|, alpha 2e-3|ref|); accept decisions differ in "
+                f"{n_diff} of {S * G} cells, {n_bad} outside |log a - log u|"
+                f" < 1e-3 {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms{note}; {bound_str(w)}")
+            if not ok:
+                fail(f"rwmh_step [{dname}] disagrees with its plain version")
+            record("rwmh_step", err, ms if main and dname == "dense" else None,
+                   pms, shape, w)
+            del out, ref, lik, args
+    del d, beta, mu, lt, eps, logu, ls, sl
+    torch.cuda.empty_cache()
 
     # ---- 4. Philox moments ----
-    nrm, uni = philox_probe(512 * 256, (1234, 99), dev, p=P)
+    nrm, uni = philox_probe(512 * 256, (1234, 99), dev, p=4)
     x = nrm.double().cpu()
     n = x.numel()
     mean, std = float(x.mean()), float(x.std())
@@ -244,101 +512,150 @@ def main() -> int:
     if not all(checks):
         fail("Philox moments")
 
-    # ---- 5. small-input reference: card (kernels) vs CPU (plain) ----
-    small = {}
-    for d in ("cuda", "cpu"):
-        sd, _ = synth_logistic(5, G=16, n=20, p=3, device=d)
-        small[d] = sample(
-            make_hier_logistic(sd, tau_prior="invgamma"), sd,
-            SamplerConfig(
-                kernel=KernelConfig(algorithm="newton", fused_accept=True),
-                run=RunConfig(chains=32, warmup=200, draws=400, seed=3,
-                              full_rhat=True, log_every_segment=False,
-                              collect={"mu": None, "log_tau": None}),
-            ),
-        )
-    for name in ("mu", "log_tau"):
-        dk = small["cuda"].diagnostics()[name]
-        dp = small["cpu"].diagnostics()[name]
-        se = (dk["mcse_mean"].cpu() ** 2 + dp["mcse_mean"] ** 2).sqrt()
-        gap = (dk["mean"].cpu() - dp["mean"]).abs()
-        ok = bool((gap < 4 * se).all())
-        say(f"small reference {name}: card {dk['mean'].cpu().tolist()} vs "
-            f"cpu {dp['mean'].tolist()}, max gap/MCSE "
-            f"{float((gap / se).max()):.2f} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"small-input posterior of {name} disagrees with the CPU")
-    ak = float(small["cuda"].accept_rates["beta"].mean())
-    ap = float(small["cpu"].accept_rates["beta"].mean())
-    say(f"small reference beta acceptance: card {ak:.4f} cpu {ap:.4f}")
-    if abs(ak - ap) >= 0.05:
-        fail("small-input beta acceptance disagrees with the CPU")
+    # ---- 5. small-input references: card (kernels) vs CPU (plain) ----
+    for algorithm, tau_prior in (("newton", "invgamma"),
+                                 ("mala", "halfnormal"),
+                                 ("rwmh", "halfnormal")):
+        small = {}
+        for dv in ("cuda", "cpu"):
+            sd, _ = synth_logistic(5, G=16, n=20, p=3, device=dv)
+            small[dv] = sample(
+                make_hier_logistic(sd, tau_prior=tau_prior), sd,
+                SamplerConfig(
+                    kernel=KernelConfig(algorithm=algorithm),
+                    run=RunConfig(chains=32, warmup=200, draws=400, seed=3,
+                                  full_rhat=True, log_every_segment=False,
+                                  collect={"mu": None, "log_tau": None}),
+                ),
+            )
+        for name in ("mu", "log_tau"):
+            dk = small["cuda"].diagnostics()[name]
+            dp = small["cpu"].diagnostics()[name]
+            se = (dk["mcse_mean"].cpu() ** 2 + dp["mcse_mean"] ** 2).sqrt()
+            gap = (dk["mean"].cpu() - dp["mean"]).abs()
+            ok = bool((gap < 4 * se).all())
+            say(f"small reference {algorithm} {name}: card "
+                f"{dk['mean'].cpu().tolist()} vs cpu {dp['mean'].tolist()}, "
+                f"max gap/MCSE {float((gap / se).max()):.2f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"small-input {algorithm} posterior of {name} "
+                     "disagrees with the CPU")
+        ak = float(small["cuda"].accept_rates["beta"].mean())
+        ap = float(small["cpu"].accept_rates["beta"].mean())
+        say(f"small reference {algorithm} beta acceptance: card {ak:.4f} "
+            f"cpu {ap:.4f}")
+        if abs(ak - ap) >= 0.05:
+            fail(f"small-input {algorithm} beta acceptance disagrees")
 
-    # ---- 6. the judged config end to end ----
-    warmup, draws = JUDGED_SCHEDULE
-    # a short run at full width prices a sweep (data, set-up and the
-    # diagnostics included, so the estimate errs long)
-    probe_sweeps = 40
-    t0 = time.perf_counter()
-    bench.run(chains=C, warmup=probe_sweeps // 2, draws=probe_sweeps // 2)
-    per_sweep = (time.perf_counter() - t0) / probe_sweeps
-    left = BUDGET_S - (time.perf_counter() - T_START) - 90.0
-    need = per_sweep * (warmup + draws) * 1.15
-    if need > left:
-        scale = left / need
-        cut = (max(300, int(warmup * scale)),
-               max(512, int(draws * scale) // 2 * 2))
-        say(f"CUT: the schedule {warmup}/{draws} needs ~{need:.0f} s at "
-            f"{per_sweep * 1e3:.1f} ms/sweep, {left:.0f} s left: running "
-            f"warmup {cut[0]}, draws {cut[1]} at full width")
-        warmup, draws = cut
-    reset_launch_counts()
-    result, post, run_info = bench.run(chains=C, warmup=warmup, draws=draws)
-    launches = launch_counts()
-    say(f"judged run: {json.dumps(run_info)}")
-    print(json.dumps(result), flush=True)
-    say(f"launches in the judged run: {launches}")
-    for k, nl in launches.items():
-        if nl <= 0:
-            fail(f"kernel {k} was not launched on the main path")
-    worst = post.worst_rhat()
-    acc = float(post.accept_rates["beta"].mean())
-    say(f"worst all-param R-hat {worst:.5f} (gate < 1.01); beta sampling "
-        f"acceptance {acc:.4f} (> 0.5); ESS/s/GPU {result['value']} "
-        f"min-ESS/s {result['min_ess_per_sec_per_chip']} on '{smi}'")
-    if not worst < 1.01:
-        fail(f"worst R-hat {worst}")
-    if not acc > 0.5:
-        fail(f"beta acceptance {acc}")
-    finite = all(bool(torch.isfinite(v).all()) for v in post.draws.values())
-    finite &= all(
-        bool(torch.isfinite(v).all())
-        for v in post.final_state.position.values()
-    )
-    if not finite:
-        fail("NaN or inf in the draws or the final state")
-    shapes = {k: tuple(v.shape) for k, v in post.draws.items()}
-    expect = {"mu": (C, draws, P), "log_tau": (C, draws, P),
-              "beta": (C, draws, 8, P)}
-    if shapes != expect:
-        fail(f"draw shapes {shapes} != {expect}")
+    # ---- 6. the end-to-end paths at full width ----
+    launches_total = {}
 
-    src = {
-        "logp_grad": ("nestmc_torch/csrc/loglik_logistic.cu",
-                      "nestmc/ops/pallas/loglik_logistic.py:343"),
-        "logp_grad_hess": ("nestmc_torch/csrc/loglik_logistic.cu",
-                           "nestmc/ops/pallas/loglik_logistic.py:289"),
-        "newton_step_refresh": ("nestmc_torch/csrc/newton_accept.cu",
-                                "nestmc/ops/pallas/newton_accept.py:392"),
-        "newton_step_frozen": ("nestmc_torch/csrc/newton_accept.cu",
-                               "nestmc/ops/pallas/newton_accept.py:392"),
-    }
+    def run_path(preset, expect, acc_range, shape, full_rhat=None,
+                 warmup=None, draws=None, gate=True):
+        reset_launch_counts()
+        result, post, run_info = bench.run(
+            preset=preset, warmup=warmup, draws=draws, full_rhat=full_rhat)
+        launches = launch_counts()
+        W, D = run_info["warmup"], run_info["draws"]
+        say(f"{preset} run: {json.dumps(run_info)}")
+        print(json.dumps(result), flush=True)
+        say(f"launches in the {preset} run: {launches}")
+        for k, nl in launches.items():
+            launches_total[k] = launches_total.get(k, 0) + nl
+        want = {k: 0 for k in launches}
+        want.update({k: f(W, D) for k, f in expect.items()})
+        if launches != want:
+            fail(f"{preset}: launches {launches} != expected {want}")
+        worst = post.worst_rhat()
+        acc = float(post.accept_rates["beta"].mean())
+        n_par = run_info["n_params"]
+        covered = sum(v.numel() for v in post.full_rhat.values())
+        if covered != n_par:
+            fail(f"{preset}: streamed R-hat covers {covered} of {n_par} "
+                 "parameters")
+        say(f"{preset}: worst all-param R-hat {worst:.5f} over {n_par} "
+            f"parameters ({'gate < 1.01' if gate else 'NOT asserted: the '
+            'schedule was cut'}); beta sampling acceptance {acc:.4f} (in "
+            f"{acc_range}); ESS/s/GPU {result['value']} min-ESS/s "
+            f"{result['min_ess_per_sec_per_chip']} on '{smi}'")
+        if gate and not worst < 1.01:
+            fail(f"{preset}: worst R-hat {worst}")
+        if not acc_range[0] < acc < acc_range[1]:
+            fail(f"{preset}: beta acceptance {acc}")
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in post.draws.values())
+        finite &= all(bool(torch.isfinite(v).all())
+                      for v in post.final_state.position.values())
+        if not finite:
+            fail(f"{preset}: NaN or inf in the draws or the final state")
+        C_, P_, k_ = shape
+        shapes = {k: tuple(v.shape) for k, v in post.draws.items()}
+        expect_shapes = {"mu": (C_, D, P_), "log_tau": (C_, D, P_),
+                         "beta": (C_, D, k_, P_)}
+        if shapes != expect_shapes:
+            fail(f"{preset}: draw shapes {shapes} != {expect_shapes}")
+        del post
+        torch.cuda.empty_cache()
+
+    def per_sweep(preset):
+        """Seconds a sweep at full width, from a short run (data, set-up
+        and the diagnostics included, so the estimate errs long)."""
+        t0 = time.perf_counter()
+        bench.run(preset=preset, warmup=10, draws=10)
+        torch.cuda.empty_cache()
+        return (time.perf_counter() - t0) / 20
+
+    run_path("hier-logistic-100-rw",
+             {"rwmh_step": lambda W, D: W + D,
+              "loglik": lambda W, D: W + D + 1},
+             (0.1, 0.5), (64, 4, 16), full_rhat=True)
+
+    full = (1500, 4096)
+    s_m, s_j = per_sweep("mala-100k"), per_sweep("judged")
+    need_m = s_m * sum(full) * 1.15
+    j_min = (300, 512)
+    spare = left_s() - 60.0 - need_m - s_j * sum(j_min) * 1.15
+    m_sched = full
+    if spare < 0:
+        scale = max(0.25, 1.0 + spare / need_m)
+        m_sched = (full[0], max(1024, int(full[1] * scale) // 4 * 4))
+        say(f"CUT mala-100k: {full[0]}/{full[1]} needs ~{need_m:.0f} s at "
+            f"{s_m * 1e3:.1f} ms/sweep and {left_s():.0f} s are left: "
+            f"running warmup {m_sched[0]}, draws {m_sched[1]} at full width")
+    run_path("mala-100k",
+             {"mala_step": lambda W, D: W + D,
+              "logp_grad": lambda W, D: W + D + 1},
+             (0.3, 0.9), (512, 3, 8),
+             warmup=m_sched[0], draws=m_sched[1], gate=m_sched == full)
+
+    need_j = s_j * sum(full) * 1.15
+    avail = left_s() - 60.0
+    j_sched = full
+    if need_j > avail:
+        scale = avail / need_j
+        j_sched = (max(j_min[0], int(full[0] * scale)),
+                   max(j_min[1], int(full[1] * scale) // 2 * 2))
+        say(f"CUT judged: {full[0]}/{full[1]} needs ~{need_j:.0f} s at "
+            f"{s_j * 1e3:.1f} ms/sweep, {avail:.0f} s left: running "
+            f"warmup {j_sched[0]}, draws {j_sched[1]} at full width")
+    run_path("judged",
+             {"newton_step_refresh": lambda W, D: W,
+              "newton_step_frozen": lambda W, D: D,
+              "logp_grad_hess": lambda W, D: W + 1,
+              "logp_grad": lambda W, D: D},
+             (0.5, 1.0), (1024, 4, 8),
+             warmup=j_sched[0], draws=j_sched[1], gate=j_sched == full)
+
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src[k][0],
-         "replaces": src[k][1], "launches": launches[k],
+        {"name": k, "route": "cuda", "source": SRC[k][0],
+         "replaces": SRC[k][1], "launches": launches_total[k],
          "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
-         "plain_ms": kernels[k]["plain_ms"]}
-        for k in src
+         "plain_ms": kernels[k]["plain_ms"],
+         "bound_ms": kernels[k]["bound_ms"],
+         "bound_by": kernels[k]["bound_by"], "library_ms": None,
+         "shape_C_G_n_p": list(kernels[k]["shape"])}
+        for k in SRC
     ]}), flush=True)
     say(f"total {time.perf_counter() - T_START:.1f} s")
     print(smi, flush=True)

@@ -1,12 +1,18 @@
-"""The judged benchmark on one GPU: ``python -m nestmc_torch.bench``.
+"""The benchmark on one GPU: ``python -m nestmc_torch.bench [--preset NAME]``.
 
-Port of the repo's bench.py: the 1k-group hierarchical logistic model
-(G=1000 groups x n=50 obs, p=4), 1024 chains, 1500 warmup sweeps and 4096
-retained draws, frozen-metric Newton-MH with the fused step, the
-inverse-gamma tau prior, streamed split R-hat over all 4008 parameters.
+Port of the repo's bench.py. The default preset, ``judged``, is bench.py's
+config: the 1k-group hierarchical logistic model (G=1000 groups x n=50 obs,
+p=4), 1024 chains, 1500 warmup sweeps and 4096 retained draws,
+frozen-metric Newton-MH with the fused step, the inverse-gamma tau prior,
+streamed split R-hat over all 4008 parameters. ``--preset mala-100k`` (config
+5: G=100,000, n=20, p=3, 512 chains, MALA, half-normal tau, R-hat streamed
+on every 4th draw over all 300,006 parameters) and ``--preset
+hier-logistic-100-rw`` (config 2's RW-MH state; its streamed R-hat is
+switched on here) run the others (nestmc_torch/presets.py).
+
 Prints one JSON line with bench.py's fields; ``value`` is the sum of bulk
-ESS over the 40 collected scalars (mu 4 + log_tau 4 + the first 8 groups'
-beta 32) per sampling second per GPU. Warmup is excluded from the
+ESS over the collected scalars (judged: mu 4 + log_tau 4 + the first 8
+groups' beta 32) per sampling second per GPU. Warmup is excluded from the
 denominator. The run is rejected (exit 1) unless the worst R-hat over all
 parameters is below 1.01. ``vs_baseline`` is null: the repo's 125k
 ESS/s/chip north star was set for TPU chips. It needs a CUDA device.
@@ -17,7 +23,10 @@ NESTMC_BENCH_DRAWS.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -25,12 +34,14 @@ import time
 
 import torch
 
-from nestmc_torch.config import KernelConfig, RunConfig, SamplerConfig
 from nestmc_torch.engine import sample
-from nestmc_torch.models import make_hier_logistic, synth_logistic
+from nestmc_torch.presets import PRESETS, get_preset
 
-JUDGED = {"G": 1000, "n": 50, "p": 4, "data_seed": 2000}
-N_PARAMS = 4 + 4 + 1000 * 4
+TITLES = {
+    "judged": "1k-group hierarchical logistic",
+    "mala-100k": "100k-group hierarchical logistic, MALA",
+    "hier-logistic-100-rw": "100-group hierarchical logistic, RW-MH",
+}
 
 
 def gpu_query() -> str:
@@ -43,28 +54,24 @@ def gpu_query() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def judged_config(chains: int, warmup: int, draws: int) -> SamplerConfig:
-    return SamplerConfig(
-        kernel=KernelConfig(algorithm="newton", fused_accept=True),
-        run=RunConfig(
-            chains=chains, warmup=warmup, draws=draws, seed=0,
-            segment_size=2048,
-            collect={"mu": None, "log_tau": None, "beta": 8},
-            full_rhat=True, log_every_segment=False,
-        ),
-    )
+def n_params(model) -> int:
+    return sum(math.prod(b.shape) for b in model.blocks)
 
 
-def run(chains: int = 1024, warmup: int = 1500, draws: int = 4096,
-        device="cuda"):
-    """Sample the judged config; returns (result dict, Posterior, info
-    dict of the schedule and timings)."""
-    data, _ = synth_logistic(
-        JUDGED["data_seed"], G=JUDGED["G"], n=JUDGED["n"], p=JUDGED["p"],
-        device=device,
+def run(chains: int | None = None, warmup: int | None = None,
+        draws: int | None = None, device="cuda", preset: str = "judged",
+        full_rhat: bool | None = None):
+    """Sample a preset (its own schedule unless overridden); returns
+    (result dict, Posterior, info dict of the schedule and timings)."""
+    model, data, cfg = get_preset(preset, device=device)
+    over = {k: v for k, v in (("chains", chains), ("warmup", warmup),
+                              ("draws", draws), ("full_rhat", full_rhat))
+            if v is not None}
+    cfg = dataclasses.replace(
+        cfg, run=dataclasses.replace(cfg.run, log_every_segment=False,
+                                     **over)
     )
-    model = make_hier_logistic(data, tau_prior="invgamma", asis_repeats=1)
-    cfg = judged_config(chains, warmup, draws)
+    rc = cfg.run
     t0 = time.perf_counter()
     post = sample(model, data, cfg)
     wall = time.perf_counter() - t0
@@ -75,18 +82,20 @@ def run(chains: int = 1024, warmup: int = 1500, draws: int = 4096,
     floor_all = post.min_ess_all_params()
     value = post.total_ess() / sample_s
     min_rate = post.min_ess() / sample_s
+    n_scalars = sum(math.prod(v.shape[2:]) for v in post.draws.values())
     info = {
-        "chains": chains, "warmup": warmup, "draws": draws, "wall_s": wall,
-        "sweeps_per_s": (warmup + draws)
+        "preset": preset, "chains": rc.chains, "warmup": rc.warmup,
+        "draws": rc.draws, "n_params": n_params(model), "wall_s": wall,
+        "sweeps_per_s": (rc.warmup + rc.draws)
         / (post.timings["warmup_s"] + sample_s),
         **post.timings,
     }
     result = {
         "metric": "effective_samples_per_sec_per_gpu "
-                  "(1k-group hierarchical logistic; worst split R-hat over "
-                  f"ALL {N_PARAMS} params {worst:.4f}; "
-                  "sum-of-bulk-ESS over 40 collected scalars convention; "
-                  f"min-ESS convention: {min_rate:.0f}/s/GPU)",
+                  f"({TITLES[preset]}; worst split R-hat over "
+                  f"ALL {n_params(model)} params {worst:.4f}; "
+                  f"sum-of-bulk-ESS over {n_scalars} collected scalars "
+                  f"convention; min-ESS convention: {min_rate:.0f}/s/GPU)",
         "value": round(value, 1),
         "unit": "ESS/s/GPU",
         "vs_baseline": None,
@@ -111,15 +120,23 @@ def run(chains: int = 1024, warmup: int = 1500, draws: int = 4096,
     return result, post, info
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="judged", choices=sorted(PRESETS))
+    a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[bench] no CUDA device: the benchmark runs on a GPU only",
               file=sys.stderr)
         return 1
+
+    def env(name):
+        v = os.environ.get(name)
+        return None if v is None else int(v)
+
     result, post, info = run(
-        chains=int(os.environ.get("NESTMC_BENCH_CHAINS_PER_CHIP", 1024)),
-        warmup=int(os.environ.get("NESTMC_BENCH_WARMUP", 1500)),
-        draws=int(os.environ.get("NESTMC_BENCH_DRAWS", 4096)),
+        chains=env("NESTMC_BENCH_CHAINS_PER_CHIP"),
+        warmup=env("NESTMC_BENCH_WARMUP"), draws=env("NESTMC_BENCH_DRAWS"),
+        preset=a.preset, full_rhat=True,   # the gate covers every parameter
     )
     print(f"[bench] {json.dumps(info)}", file=sys.stderr)
     worst = post.worst_rhat()

@@ -2,9 +2,10 @@
 
 Same field names and defaults as :mod:`nestmc.config`, copied rather than
 imported because importing ``nestmc`` imports JAX. The deprecated
-``KernelConfig.fused_sweep`` is gone. The port runs one path: Newton-MH
-group updates on one device with no preconditioner and no thinning;
-:func:`validate` raises on any other setting.
+``KernelConfig.fused_sweep`` is gone. The port runs the RW-MH, MALA and
+Newton-MH kernels on one device with no preconditioner and no thinning of
+the chain (the streamed R-hat may be thinned); :func:`validate` raises on
+any other setting.
 """
 
 from __future__ import annotations
@@ -17,14 +18,19 @@ from dataclasses import dataclass
 class KernelConfig:
     """MH kernel knobs.
 
-    algorithm: only 'newton' (Laplace-proposal MH, kernels/newton.py) runs
-      in the port so far.
+    algorithm: 'rwmh' (random-walk, kernels/rwmh.py), 'mala' (Langevin,
+      kernels/mala.py) or 'newton' (Laplace-proposal MH, kernels/newton.py);
+      per-block override via Block.algorithm.
     newton_freeze: freeze the carried likelihood Hessian at warmup end; the
       sampling-phase obs pass then computes only (value, grad).
-    fused_accept, fused_accept_warmup, adapt_* and precond_* keep the
-    reference's names but are carried unused: the port always runs the
-    fused Newton step (the CUDA kernel on CUDA tensors, its plain version
-    on CPU tensors), and Newton-MH is never scale-adapted.
+    target_accept: None picks the per-block optimum (0.44 scalar RW / 0.234
+      multivariate RW / 0.574 MALA).
+    adapt_*: Robbins-Monro schedule log s += c (t + 1 + t0)^-kappa
+      (alpha - target), warmup only (adapt.py).
+    fused_accept and fused_accept_warmup keep the reference's names but are
+    carried unused: a block with a fused step always runs it (the CUDA
+    kernel on CUDA tensors, its plain version on CPU tensors). precond_*
+    are carried unused too: only precond='none' is ported.
     """
 
     algorithm: str = "rwmh"
@@ -54,7 +60,8 @@ class RunConfig:
     collect: {block_name: None | k | (i, j, ...)} as in the reference.
     full_rhat: stream classic split R-hat (and the cross-chain ESS) over
       every unit of every block.
-    full_rhat_thin: only 1.
+    full_rhat_thin: fold every k-th retained draw into the streamed R-hat
+      and ESS accumulators (k >= 1; the in-kernel fold runs only at k = 1).
     checkpoint_dir, checkpoint_every, log_rhat: kept for config
       compatibility; the port has no checkpoints and raises if they are set.
     """
@@ -101,18 +108,26 @@ class SamplerConfig:
         )
 
 
+def rw_target_accept(unit_dim: int) -> float:
+    """Roberts-Gelman-Gilks optimal RW-MH acceptance by dimension."""
+    return 0.44 if unit_dim == 1 else 0.234
+
+
+MALA_TARGET_ACCEPT = 0.574
+ALGORITHMS = ("rwmh", "mala", "newton")
+
+
 def validate(cfg: SamplerConfig) -> None:
-    """Raise NotImplementedError on every setting the port does not run."""
+    """Raise on every setting the port does not run."""
     k, r, s = cfg.kernel, cfg.run, cfg.sharding
-    if k.algorithm != "newton":
-        raise NotImplementedError(
-            f"algorithm={k.algorithm!r}: only 'newton' is ported "
-            "(ROADMAP Queue 1: MALA/RW variants)"
-        )
+    if k.algorithm not in ALGORITHMS:
+        raise ValueError(f"algorithm={k.algorithm!r}: one of {ALGORITHMS}")
     if k.precond != "none":
         raise NotImplementedError(f"precond={k.precond!r}: not ported")
-    if r.thin != 1 or r.full_rhat_thin != 1:
-        raise NotImplementedError("thin/full_rhat_thin != 1: not ported")
+    if r.thin != 1:
+        raise NotImplementedError("thin != 1: not ported")
+    if r.full_rhat_thin < 1:
+        raise ValueError(f"full_rhat_thin={r.full_rhat_thin}: must be >= 1")
     if (s.chain_shards, s.group_shards) != (1, 1):
         raise NotImplementedError(
             "sharding: the port runs on one device (ROADMAP Queue 1)"

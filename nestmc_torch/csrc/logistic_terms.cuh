@@ -1,6 +1,7 @@
 // Per-observation Bernoulli-logit terms, shared by every kernel that makes
-// an obs pass (loglik_logistic.cu, newton_accept.cu), so the eval kernels
-// and the Newton step compute the same numbers.
+// an obs pass (loglik_logistic.cu, newton_accept.cu, mala_accept.cu,
+// mh_accept.cu), so the eval kernels and the fused steps compute the same
+// numbers.
 //
 // Port of nestmc/ops/pallas/loglik_logistic.py::_lik_terms_w: one exp and
 // one log1p per observation. With e = exp(-|eta|):
@@ -25,6 +26,28 @@ __device__ __forceinline__ void logit_terms(float eta, float y, float m,
   ll = (y * eta - sp) * m;
   resid = (y - sig) * m;
   w = e * inv * inv * m;
+}
+
+// The value-only term (one exp, one log1p; no division): the loglik of the
+// RW-MH step and of the value-only eval kernel.
+__device__ __forceinline__ float logit_ll(float eta, float y, float m) {
+  const float sp = fmaxf(eta, 0.0f) + log1pf(expf(-fabsf(eta)));
+  return (y * eta - sp) * m;
+}
+
+// Value-only pass over a group's n observations (staged as for obs_pass).
+template <int P>
+__device__ __forceinline__ float obs_loglik(const float* xs, const float* ys,
+                                            const float* ms, int n,
+                                            const float (&b)[P]) {
+  float ll = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    float eta = 0.0f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) eta = fmaf(xs[i * P + k], b[k], eta);
+    ll += logit_ll(eta, ys[i], ms[i]);
+  }
+  return ll;
 }
 
 // One pass over a group's n observations, staged in shared memory as

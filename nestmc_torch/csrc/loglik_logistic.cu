@@ -1,8 +1,9 @@
-// Masked Bernoulli-logit obs passes: loglik + gradient (logp_grad) and
-// loglik + gradient + packed -Hessian (logp_grad_hess).
+// Masked Bernoulli-logit obs passes: loglik + gradient (logp_grad),
+// loglik + gradient + packed -Hessian (logp_grad_hess) and the value-only
+// loglik (loglik).
 //
-// Replaces nestmc/ops/pallas/loglik_logistic.py::logistic_logp_grad_pallas
-// and ::logistic_logp_grad_hess_pallas.
+// Replaces nestmc/ops/pallas/loglik_logistic.py::logistic_logp_grad_pallas,
+// ::logistic_logp_grad_hess_pallas and ::logistic_loglik_padded_pallas.
 //
 // Design: one thread per (chain, group) cell; a block covers one group
 // (blockIdx.x) across 128 chains (blockIdx.y tiles the chains). The group's
@@ -21,6 +22,16 @@
 // minimum (every per-obs value stays in registers, each group's data is
 // read once per block); cheaper arithmetic and vectorised or chains-minor
 // loads of beta/g/h are later work.
+//
+// The value-only loglik reads beta and writes (C, G): at the RW preset's
+// shape (C=64, G=100, n=50, P=4) 128 KB, far below a microsecond of HBM
+// time, so launch latency bounds it there; at C=512, G=100,000, n=20, P=3
+// it moves 820 MB (245 us at 3.35 TB/s) against 1.02 G obs-cells of one
+// exp and one log1p each. Same layout as the other passes. Measured on an
+// H100 80GB HBM3 at 700 W (PERF.md): 0.023-0.026 ms at the RW shape, 1.87
+// ms at the larger one (7.3x its bound; logp_grad there 4.18 ms, 9.4x):
+// at G=100,000 the uncoalesced per-cell loads and stores cost more than
+// at the judged G=1000.
 
 #include <cuda_runtime.h>
 
@@ -66,7 +77,42 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    loglik_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  const float* __restrict__ mask,
+                  const float* __restrict__ beta, float* __restrict__ out_v,
+                  int C, int G, int n) {
+  extern __shared__ float smem[];
+  float* xs = smem;
+  float* ys = xs + n * P;
+  float* ms = ys + n;
+  const int g = blockIdx.x;
+  stage_group<P>(x, y, mask, g, n, xs, ys, ms);
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const size_t cell = (size_t)c * G + g;
+  float b[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) b[k] = beta[cell * P + k];
+  out_v[cell] = obs_loglik<P>(xs, ys, ms, n, b);
+}
+
 }  // namespace nestmc
+
+// Value-only loglik (C, G). Returns the cudaError_t of the launch.
+extern "C" int nestmc_loglik(const float* x, const float* y,
+                             const float* mask, const float* beta,
+                             float* out_v, int C, int G, int n,
+                             void* stream) {
+  using namespace nestmc;
+  constexpr int P = NESTMC_P;
+  const dim3 grid(G, (C + kThreads - 1) / kThreads);
+  const size_t smem = sizeof(float) * (size_t)n * (P + 2);
+  loglik_kernel<P><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, y, mask, beta, out_v, C, G, n);
+  return (int)cudaGetLastError();
+}
 
 // out_h == nullptr selects logp_grad, otherwise logp_grad_hess. Returns the
 // cudaError_t of the launch (0 = success).

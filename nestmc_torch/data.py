@@ -37,9 +37,23 @@ class NestedData:
         return self.y.device
 
 
-def from_numpy(x, y, mask, device="cpu") -> NestedData:
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    (the entry points never fall back to the CPU by themselves)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run the kernels' plain versions on the CPU"
+        )
+    return device
+
+
+def from_numpy(x, y, mask, device="cuda") -> NestedData:
     """Build padded data from numpy arrays (e.g. the JAX package's), as
-    float32 tensors on ``device``."""
+    float32 tensors on ``device`` (the card unless the caller asks for
+    another)."""
+    device = check_device(device)
     mask_np = np.asarray(mask, np.float32)
     sizes = (mask_np > 0.5).sum(axis=1).astype(np.int32)
 

@@ -7,7 +7,10 @@ Retained draws go into buffers of shape (C, D, ...) allocated before the
 sampling loop. With RunConfig.full_rhat every block streams split-R-hat
 Welford accumulators; blocks whose fused step folds them in-kernel
 (kernels/gibbs.rhat_fold_names) fold each draw one sweep late, with the
-pre-update value, and the last draw is flushed after the loop.
+pre-update value, and the last draw is flushed after the loop. With
+RunConfig.full_rhat_thin = k > 1 nothing folds in-kernel: every block's
+accumulators are updated after the sweep, on retained draws j with
+j % k == 0 only (as thinned draw j // k).
 Timings synchronise the device before every clock read.
 
 Not ported: checkpoints, sharding, resume (init_state, init_acc,
@@ -117,7 +120,8 @@ def sample(
 
     # ---- sampling: frozen metric ----
     D = rc.draws
-    half_len = D // 2
+    rthin = rc.full_rhat_thin
+    half_len = (D // rthin) // 2
     fold_names = rhat_fold_names(model, cfg) if rc.full_rhat else ()
     std_acc, fold_acc = {}, {}
     if rc.full_rhat and D > 0:
@@ -153,9 +157,9 @@ def sample(
                 }
             else:
                 state = sweep(state, data, False, rng)
-            if std_acc:
+            if std_acc and j % rthin == 0:
                 std_acc = streaming_rhat_update(
-                    std_acc, state.position, j, half_len
+                    std_acc, state.position, j // rthin, half_len
                 )
             for k, v in _collect_index(state.position, rc.collect).items():
                 draws[k][:, j] = v
@@ -169,11 +173,13 @@ def sample(
     full_rhat = full_ess = None
     if std_acc or fold_acc:
         if fold_acc:
-            # the in-sweep fold lags one draw: flush the last retained draw
+            # the in-sweep fold lags one draw: flush the last retained
+            # draw, if the thinning selects it
             last = D - 1
+            last_t = last // rthin if last % rthin == 0 else -1
             for k in fold_names:
                 count, mean, m2 = fold_acc[k]
-                sc = fold_rhat_scalars(count, last, half_len)
+                sc = fold_rhat_scalars(count, last_t, half_len)
                 nm, nm2 = fold_rhat_update(
                     mean, m2, state.position[k].movedim(0, -1), sc
                 )

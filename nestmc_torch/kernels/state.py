@@ -1,8 +1,8 @@
 """The sampler carry: positions + scales + acceptance bookkeeping + caches.
 
-Port of :mod:`nestmc.kernels.state` for the Newton-MH path. The RNG is not
-part of the state (the run's nestmc_torch.rng.SweepRNG is passed
-alongside), and there is no preconditioner state (precond='none' only).
+Port of :mod:`nestmc.kernels.state`. The RNG is not part of the state (the
+run's nestmc_torch.rng.SweepRNG is passed alongside), and there is no
+preconditioner state (precond='none' only).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from nestmc_torch.config import SamplerConfig
+from nestmc_torch.data import check_device
 from nestmc_torch.model import ModelSpec
 
 
@@ -24,8 +25,10 @@ class KernelState:
     position:   {name: (C, *shape)} current values.
     log_scale:  {name: (C, U)} log proposal scales (log sqrt(c) for Newton).
     accept_sum: {name: (C, U)} summed acceptance probabilities.
-    cache:      {name: None | {'v', 'g', 'h'}} carried likelihood value,
-                gradient and packed -Hessian at the current position.
+    cache:      {name: None | (C, U) | {'v', 'g'[, 'h']}} the carried self
+                part of the block's conditional at the current position:
+                its value (RW-MH), value and gradient (MALA), and the
+                packed -Hessian too (Newton-MH).
     t:          sweeps taken.
     """
 
@@ -42,18 +45,15 @@ def scale_units(block, cfg: SamplerConfig) -> int:
     return 1
 
 
-def _algorithm(block, model, cfg) -> str:
-    algorithm = block.algorithm or cfg.kernel.algorithm
-    if algorithm == "newton" and block.name not in model.cond_cached_newton:
-        algorithm = "mala"  # the reference's fallback (kernels/gibbs.py)
-    return algorithm
-
-
 def init_kernel_state(model: ModelSpec, cfg: SamplerConfig, rng, data,
                       position: dict | None = None) -> KernelState:
     """Build the initial carry on the data's device. ``position``
-    overrides the model's init. Newton blocks get their cache from one
-    grad+Hessian obs pass and log_scale 0 (c = 1, never adapted)."""
+    overrides the model's init. A block gets the cache its algorithm
+    carries, from one obs pass: the self part's value (RW-MH), value and
+    gradient (MALA), or value, gradient and Hessian (Newton-MH, whose
+    log_scale is 0: c = 1, never adapted)."""
+    from nestmc_torch.kernels.gibbs import block_algorithm, grad_cache_live
+
     chains = cfg.run.chains
     if position is None:
         position = model.init_state(rng, data, chains)
@@ -67,40 +67,54 @@ def init_kernel_state(model: ModelSpec, cfg: SamplerConfig, rng, data,
         cache[b.name] = None
         if b.name in model.gibbs_draws:
             continue
-        if _algorithm(b, model, cfg) != "newton":
-            raise NotImplementedError(
-                f"block {b.name!r}: only Newton-MH blocks are ported"
-            )
-        self_vgh, _ = model.cond_cached_newton[b.name]
-        val, grad, hess = self_vgh(position[b.name], data)
-        cache[b.name] = {"v": val, "g": grad, "h": hess}
-        log_scale[b.name] = torch.zeros_like(log_scale[b.name])
+        algorithm = block_algorithm(b, model, cfg)
+        value = position[b.name]
+        if algorithm == "rwmh" and b.name in model.cond_cached:
+            val = model.cond_cached[b.name][0](value, data)
+            cache[b.name] = val if b.units else val[:, None]
+        elif algorithm == "mala" and b.name in model.cond_cached_grad:
+            val, grad = model.cond_cached_grad[b.name][0](value, data)
+            cache[b.name] = {"v": val if b.units else val[:, None],
+                             "g": grad}
+        elif algorithm == "newton":
+            val, grad, hess = model.cond_cached_newton[b.name][0](value, data)
+            cache[b.name] = {"v": val, "g": grad, "h": hess}
+            log_scale[b.name] = torch.zeros_like(log_scale[b.name])
+    grad_live = grad_cache_live(model, cfg)
     for mname in model.joint_moves:
-        # Newton blocks carry a gradient cache, so the move runs
-        # metric-preconditioned at its O(1) start scale
-        s0 = model.joint_move_init_scale_grad.get(
-            mname, model.joint_move_init_scale.get(mname, 0.1)
-        )
+        # with a gradient cache the move runs metric-preconditioned and its
+        # natural scale is O(1); the RW move starts at the model's guess
+        if grad_live and mname in model.joint_move_init_scale_grad:
+            s0 = model.joint_move_init_scale_grad[mname]
+        else:
+            s0 = model.joint_move_init_scale.get(mname, 0.1)
         log_scale[mname] = torch.full((chains, 1), math.log(s0), device=dev)
         accept_sum[mname] = torch.zeros((chains, 1), device=dev)
     return KernelState(position, log_scale, accept_sum, cache, 0)
 
 
 def state_from_numpy(position: dict, log_scale: dict, accept_sum: dict,
-                     cache: dict, t: int = 0, device="cpu") -> KernelState:
-    """A KernelState from numpy arrays (e.g. a JAX KernelState's leaves):
-    ``cache`` maps block -> None or {'v', 'g', 'h'}."""
+                     cache: dict, t: int = 0, device="cuda") -> KernelState:
+    """A KernelState from numpy arrays (e.g. a JAX KernelState's leaves),
+    on ``device`` (the card unless the caller asks for another). ``cache``
+    maps block -> None, a (C, U) array (RW-MH) or a dict of arrays (MALA
+    {'v', 'g'}, Newton {'v', 'g', 'h'})."""
+    device = check_device(device)
 
     def t_(a):
         return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    def cache_(c):
+        if c is None:
+            return None
+        if isinstance(c, dict):
+            return {k: t_(v) for k, v in c.items()}
+        return t_(c)
 
     return KernelState(
         position={k: t_(v) for k, v in position.items()},
         log_scale={k: t_(v) for k, v in log_scale.items()},
         accept_sum={k: t_(v) for k, v in accept_sum.items()},
-        cache={
-            k: None if c is None else {kk: t_(vv) for kk, vv in c.items()}
-            for k, c in cache.items()
-        },
+        cache={k: cache_(c) for k, c in cache.items()},
         t=int(t),
     )

@@ -1,6 +1,7 @@
 """Model abstraction: parameter blocks + the hooks the sampler calls.
 
-Port of :mod:`nestmc.model` reduced to the fields the Newton-MH path reads.
+Port of :mod:`nestmc.model` reduced to the fields the RW-MH, MALA and
+Newton-MH paths read.
 A block with ``units = U > 0`` declares that its leading axis indexes U
 conditionally independent units (groups) given the rest of the state: its
 MH accept/reject is made per unit, for all units and all chains at once.
@@ -25,6 +26,7 @@ class Block:
     shape: tuple
     units: int = 0
     init_scale: float = 1.0
+    target_accept: float | None = None
     algorithm: str | None = None
     repeats: int = 1
 
@@ -45,6 +47,16 @@ class ModelSpec:
     """Declarative model.
 
     init_state(rng, data, chains) -> {name: (C, *shape)}.
+    cond_logdensity(name, value, state, data) -> (C, U) or (C,): every term
+      of the joint that involves block ``name``, at ``value``.
+    cond_value_and_grad(name, value, state, data) -> (value, grad) of the
+      same in closed form, or None (kernels/mala.py then differentiates
+      cond_logdensity with torch.autograd).
+    cond_cached: {block: (self_fn, rest_fn)} for RW-MH: self_fn(value, data)
+      -> (C, U) the part that depends on no other block (carried across
+      sweeps), rest_fn(value, state, data) -> the rest.
+    cond_cached_grad: {block: (self_vag, rest_vag)}, the same for MALA with
+      (value, grad) pairs.
     gibbs_draws: {block: fn(rng, state, data) -> new value}, exact
       conditional draws (acceptance 1).
     joint_moves: {move: fn(rng, position, cache, scale, data, frozen=False)
@@ -54,6 +66,9 @@ class ModelSpec:
       data) -> ((C, U) loglik, grad, (C, U, T) packed -Hessian) of the part
       that depends on no other block; rest_vgh(value, state, data) -> the
       same for the rest (broadcastable).
+    fused_updates, fused_updates_mala: {block: fn(rng, position, cache,
+      log_scale, data[, rhat_fold=None]) -> (value, cache, alpha[, fold])},
+      one-kernel RW-MH and MALA updates.
     fused_updates_newton: {block: fn(rng, position, cache, log_scale, data,
       frozen=False, rhat_fold=None) -> (value, cache, alpha[, fold])}.
     """
@@ -61,6 +76,10 @@ class ModelSpec:
     name: str
     blocks: tuple
     init_state: Callable
+    cond_logdensity: Callable | None = None
+    cond_value_and_grad: Callable | None = None
+    cond_cached: dict = dataclasses.field(default_factory=dict)
+    cond_cached_grad: dict = dataclasses.field(default_factory=dict)
     gibbs_draws: dict = dataclasses.field(default_factory=dict)
     joint_moves: dict = dataclasses.field(default_factory=dict)
     joint_move_repeats: dict = dataclasses.field(default_factory=dict)
@@ -69,6 +88,8 @@ class ModelSpec:
         default_factory=dict
     )
     joint_move_target_accept: dict = dataclasses.field(default_factory=dict)
+    fused_updates: dict = dataclasses.field(default_factory=dict)
+    fused_updates_mala: dict = dataclasses.field(default_factory=dict)
     fused_updates_newton: dict = dataclasses.field(default_factory=dict)
     cond_cached_newton: dict = dataclasses.field(default_factory=dict)
 

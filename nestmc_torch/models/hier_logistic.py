@@ -3,30 +3,40 @@
     y_ij ~ Bernoulli(sigmoid(x_ij . beta_j))     i obs in group j
     beta_j ~ N(mu, diag(tau^2))                  group-level coefficients
     mu_k ~ N(0, prior_mu_scale^2)
-    tau_k^2 ~ InvGamma(tau_ig_shape, tau_ig_scale)
+    tau_k ~ HalfNormal(prior_tau_scale)          sampled as log tau + Jacobian
+      or tau_k^2 ~ InvGamma(tau_ig_shape, tau_ig_scale)
 
-Port of :mod:`nestmc.models.hier_logistic` for the Newton-MH path: padded
-data, the inverse-gamma tau prior (exact conjugate draws of mu and
-log tau), the fused Newton-MH beta update (ops/cuda/newton_accept) and the
-joint (mu, log tau) Laplace interweaving move in Newton mode. The obs
-passes run the CUDA kernels on CUDA tensors and their plain versions on
-CPU tensors.
+Port of :mod:`nestmc.models.hier_logistic` on padded data: both tau priors
+(half-normal: an MH block on log tau; inverse-gamma: an exact conjugate
+draw), the exact conjugate mu draw, the fused RW-MH, MALA and Newton-MH
+group-block updates (ops/cuda/mh_accept, mala_accept, newton_accept) and
+the joint (mu, log tau) interweaving move in its three modes (random walk,
+bound-metric Langevin, Laplace). The obs passes run the CUDA kernels on
+CUDA tensors and their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
 
 from nestmc_torch.data import NestedData, from_numpy
-from nestmc_torch.distributions import log_scale_guard
+from nestmc_torch.distributions import (
+    log_scale_guard,
+    logpdf_halfnormal,
+    logpdf_normal,
+)
 from nestmc_torch.model import Block, ModelSpec
 from nestmc_torch.ops.cuda.loglik_logistic import (
     logistic_logp_grad,
     logistic_logp_grad_hess,
+    logistic_loglik,
 )
+from nestmc_torch.ops.cuda.mala_accept import fused_mala_logistic_step
+from nestmc_torch.ops.cuda.mh_accept import fused_rwmh_logistic_step
 from nestmc_torch.ops.cuda.newton_accept import fused_newton_logistic_step
 from nestmc_torch.ops.smallchol import (
     chol_packed,
@@ -38,11 +48,8 @@ from nestmc_torch.ops.smallchol import (
     spd_solve,
 )
 
-_HALFNORMAL = (
-    "tau_prior='halfnormal' (MH on log tau) is not ported yet "
-    "(ROADMAP Queue 1: the rest of the logistic family)"
-)
 _RAGGED = "ragged data is not ported yet (ROADMAP Queue 1, item 10)"
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 def make_hier_logistic(
@@ -55,9 +62,8 @@ def make_hier_logistic(
     tau_ig_scale: float = 0.5,
     asis_repeats: int = 1,
 ) -> ModelSpec:
-    """Same arguments as nestmc.models.make_hier_logistic. Only
-    tau_prior='invgamma' on padded data runs; prior_tau_scale belongs to
-    the half-normal prior and is unused."""
+    """Same arguments as nestmc.models.make_hier_logistic, on padded data
+    (loglik_impl 'auto' only)."""
     if not isinstance(data, NestedData):
         raise NotImplementedError(_RAGGED)
     if loglik_impl == "pallas-segment":
@@ -67,16 +73,16 @@ def make_hier_logistic(
         )
     if loglik_impl != "auto":
         raise ValueError(f"loglik_impl={loglik_impl!r}: the port has 'auto'")
-    if tau_prior == "halfnormal":
-        raise NotImplementedError(_HALFNORMAL)
-    if tau_prior != "invgamma":
+    if tau_prior not in ("halfnormal", "invgamma"):
         raise ValueError(tau_prior)
+    conj_tau = tau_prior == "invgamma"
     G = data.num_groups
     p = data.num_covariates
     q = 2 * p                                       # joint (mu, lt) dim
     a_ig, b_ig = tau_ig_shape, tau_ig_scale
     lp_const = a_ig * math.log(b_ig) - math.lgamma(a_ig)
     inv_s0_2 = 1.0 / prior_mu_scale**2
+    inv_S2 = 1.0 / prior_tau_scale**2
     dev = data.device
     hidx = torch.tensor(
         [[packed_index(i, j) for j in range(p)] for i in range(p)],
@@ -87,18 +93,89 @@ def make_hier_logistic(
     )
     eye_p = torch.eye(p, device=dev)
 
+    # Data-constant packed Hessian BOUND 0.25 sum_i x x^T per group (the
+    # logistic curvature w = s(1 - s) <= 1/4): the metric of the joint
+    # interweaving move in grad (MALA) mode, built once from the data.
+    xn = data.x.double().cpu().numpy()
+    mn = data.mask.double().cpu().numpy()
+    xxt_bound = torch.tensor(np.stack([
+        0.25 * np.sum(mn * xn[:, :, i] * xn[:, :, j], axis=1)
+        for i in range(p) for j in range(i + 1)
+    ], axis=-1), dtype=torch.float32, device=dev)[None]     # (1, G, T)
+
     def _tau_logprior(lt):
-        """log p(log tau) with the Jacobian: tau^2 ~ IG(a, b)."""
-        return (
-            lp_const - 2.0 * (a_ig + 1.0) * lt - b_ig * torch.exp(-2.0 * lt)
-            + math.log(2.0) + 2.0 * lt
-        )
+        """log p(log tau) elementwise, with the Jacobian to log space."""
+        if conj_tau:
+            # tau^2 ~ IG(a, b); |d tau^2 / d log tau| = 2 e^{2 lt}
+            return (
+                lp_const - 2.0 * (a_ig + 1.0) * lt
+                - b_ig * torch.exp(-2.0 * lt) + math.log(2.0) + 2.0 * lt
+            )
+        return logpdf_halfnormal(torch.exp(lt), prior_tau_scale) + lt
 
     def _tau_logprior_grad(lt):
-        return -2.0 * a_ig + 2.0 * b_ig * torch.exp(-2.0 * lt)
+        if conj_tau:
+            return -2.0 * a_ig + 2.0 * b_ig * torch.exp(-2.0 * lt)
+        return 1.0 - torch.exp(2.0 * lt) * inv_S2
 
     def _tau_logprior_metric(lt):
-        return 4.0 * b_ig * torch.exp(-2.0 * lt)
+        """-d^2/d(log tau)^2 of _tau_logprior: positive for both priors."""
+        if conj_tau:
+            return 4.0 * b_ig * torch.exp(-2.0 * lt)
+        return 2.0 * torch.exp(2.0 * lt) * inv_S2
+
+    _suff_of = {}
+
+    def _suff(beta):
+        """(s1, s2) = (sum_g beta, sum_g beta^2), each (C, p). The
+        population blocks read beta only through them, and beta does not
+        change between the mu draw and the log_tau repeats of a sweep, so
+        they are computed once per value of beta (the reference gets the
+        same from XLA's common-subexpression elimination in its traced
+        sweep) instead of re-reading the (C, G, p) block per evaluation."""
+        ref = _suff_of.get("beta")
+        if ref is None or ref() is not beta:
+            _suff_of["beta"] = weakref.ref(beta)
+            _suff_of["s"] = (beta.sum(dim=1), (beta * beta).sum(dim=1))
+        return _suff_of["s"]
+
+    def _quad(s1, s2, mu):
+        return s2 - 2.0 * mu * s1 + G * mu * mu     # (C, p)
+
+    def _gprior_perk_from_suff(s1, s2, mu, log_tau):
+        """sum_g log N(beta_gk | mu_k, tau_k) per coordinate k, (C, p)."""
+        tau2 = torch.exp(2.0 * log_tau)
+        return (
+            -0.5 * _quad(s1, s2, mu) / tau2 - G * log_tau - 0.5 * G * _LOG_2PI
+        )
+
+    def _gprior(state):
+        """(C, G) Gaussian group prior of beta."""
+        tau = torch.exp(state["log_tau"])[:, None, :]
+        return torch.sum(
+            logpdf_normal(state["beta"], state["mu"][:, None, :], tau),
+            dim=-1,
+        )
+
+    def cond(name, value, state, data):
+        state = {**state, name: value}
+        if name == "beta":
+            return lik_fn(state["beta"], data) + _gprior(state)
+        s1, s2 = _suff(state["beta"])
+        if name == "mu":
+            return _gprior_perk_from_suff(
+                s1, s2, state["mu"], state["log_tau"]
+            ) + logpdf_normal(state["mu"], 0.0, prior_mu_scale)
+        if name == "log_tau":
+            lt = state["log_tau"]
+            return (
+                _gprior_perk_from_suff(s1, s2, state["mu"], lt)
+                + _tau_logprior(lt) + log_scale_guard(lt)
+            )
+        raise KeyError(name)
+
+    def lik_fn(value, data):
+        return logistic_loglik(value, data.x, data.y, data.mask)
 
     def lik_value_and_grad(value, data):
         return logistic_logp_grad(value, data.x, data.y, data.mask)
@@ -106,19 +183,73 @@ def make_hier_logistic(
     def lik_value_grad_hess(value, data):
         return logistic_logp_grad_hess(value, data.x, data.y, data.mask)
 
-    def gprior_vgh(value, state, data):
-        """Gaussian group prior: value (C, G), grad (C, G, p) and the
-        packed constant precision diag(1/tau^2) as (C, 1, T)."""
+    def gprior_value_and_grad(value, state, data):
+        """Closed-form per-group Gaussian prior value (C, G) and gradient."""
         mu = state["mu"][:, None, :]
-        inv_tau2 = torch.exp(-2.0 * state["log_tau"])
+        inv_tau2 = torch.exp(-2.0 * state["log_tau"])[:, None, :]
         diff = value - mu
-        it2 = inv_tau2[:, None, :]
         gp_val = torch.sum(
-            -0.5 * diff * diff * it2 + 0.5 * torch.log(it2)
+            -0.5 * diff * diff * inv_tau2 + 0.5 * torch.log(inv_tau2)
             - 0.9189385332046727,
             dim=-1,
         )
-        return gp_val, -diff * it2, pack_diag(inv_tau2, p)[:, None, :]
+        return gp_val, -diff * inv_tau2
+
+    def gprior_vgh(value, state, data):
+        """The Gaussian prior's value, gradient and packed constant
+        precision diag(1/tau^2) as (C, 1, T)."""
+        gp_val, gp_grad = gprior_value_and_grad(value, state, data)
+        inv_tau2 = torch.exp(-2.0 * state["log_tau"])
+        return gp_val, gp_grad, pack_diag(inv_tau2, p)[:, None, :]
+
+    def cond_value_and_grad(name, value, state, data):
+        """Closed-form value and gradient of the beta and log_tau
+        conditionals (the log_tau one from the sufficient statistics; the
+        guard's gradient is 0); None for other blocks."""
+        if name == "beta":
+            ll, gll = lik_value_and_grad(value, data)
+            gp_val, gp_grad = gprior_value_and_grad(value, state, data)
+            return ll + gp_val, gll + gp_grad
+        if name == "log_tau":
+            s1, s2 = _suff(state["beta"])
+            quad_tau2 = _quad(s1, s2, state["mu"]) / torch.exp(2.0 * value)
+            val = (
+                -0.5 * quad_tau2 - G * value - 0.5 * G * _LOG_2PI
+                + _tau_logprior(value) + log_scale_guard(value)
+            )
+            return val, quad_tau2 - G + _tau_logprior_grad(value)
+        return None
+
+    def fused_beta_update(rng, position, cache, log_scale, data):
+        """One fused RW-MH update of beta (ops/cuda/mh_accept)."""
+        lik_cache = cache.get("beta")
+        if lik_cache is None:
+            lik_cache = lik_fn(position["beta"], data)
+        return fused_rwmh_logistic_step(
+            position["beta"], lik_cache, log_scale,
+            position["mu"], position["log_tau"], data.x, data.y, data.mask,
+            rng=rng,
+        )
+
+    def fused_mala_beta_update(rng, position, cache, log_scale, data,
+                               rhat_fold=None):
+        """One fused MALA update of beta (ops/cuda/mala_accept); with
+        rhat_fold, the pre-update beta is folded in the same pass and the
+        new (mean, m2) are appended to the return."""
+        c = cache.get("beta")
+        if isinstance(c, dict):
+            v, g = c["v"], c["g"]
+        else:
+            v, g = lik_value_and_grad(position["beta"], data)
+        out = fused_mala_logistic_step(
+            position["beta"], v, g, log_scale,
+            position["mu"], position["log_tau"], data.x, data.y, data.mask,
+            rng=rng, rhat_fold=rhat_fold,
+        )
+        nb, nv, ng, alpha = out[:4]
+        if rhat_fold is not None:
+            return nb, {"v": nv, "g": ng}, alpha, (out[4], out[5])
+        return nb, {"v": nv, "g": ng}, alpha
 
     def fused_newton_beta_update(rng, position, cache, log_scale, data,
                                  frozen=False, rhat_fold=None):
@@ -149,10 +280,12 @@ def make_hier_logistic(
     def _asis_joint_metric(h_packed, d, lt_at):
         """Packed (C, q(q+1)/2) Gauss-Newton metric of the z-fixed target,
         theta = (mu, lt): sum_g J_g^T (-H_g) J_g with J_g = [I, diag(d_g)]
-        plus the prior precision (nestmc: _asis_joint_metric)."""
-        H = h_packed[..., hidx]                          # (C, G, p, p)
+        plus the prior precision (nestmc: _asis_joint_metric). h_packed is
+        (C, G, T), or (1, G, T) for the data-constant bound."""
+        C = d.shape[0]
+        H = h_packed[..., hidx]                          # (C|1, G, p, p)
         dk = d[..., :, None]
-        m_mm = H.sum(dim=1) + inv_s0_2 * eye_p
+        m_mm = (H.sum(dim=1) + inv_s0_2 * eye_p).expand(C, p, p)
         m_lm = (H * dk).sum(dim=1)                       # [lt_k, mu_l]
         m_ll = (H * dk * d[..., None, :]).sum(dim=1) + torch.diag_embed(
             _tau_logprior_metric(lt_at)
@@ -161,55 +294,91 @@ def make_hier_logistic(
             torch.cat([m_mm, m_lm.transpose(-1, -2)], dim=-1),
             torch.cat([m_lm, m_ll], dim=-1),
         ], dim=-2)
-        return M.reshape(M.shape[0], q * q)[:, qidx]
+        return M.reshape(C, q * q)[:, qidx]
 
     def asis_tau_move(rng, position, cache, scale, data, frozen=False):
-        """Joint (mu, log tau) interweaving move (Yu & Meng 2011) in Newton
-        mode: a Laplace proposal N(theta + M^-1 F', M^-1) on the z-fixed
-        target with z = (beta - mu)/tau held, M the Gauss-Newton metric
-        from the carried Hessian; parameter-free, so ``scale`` is unused.
-        The eval pass computes the Hessian in refresh mode and only
-        (value, grad) when frozen."""
-        lik_cache = cache.get("beta")
-        if not (isinstance(lik_cache, dict) and "h" in lik_cache):
-            raise NotImplementedError(
-                "the RW and MALA ASIS modes are not ported yet "
-                "(ROADMAP Queue 1: the rest of the logistic family)"
-            )
+        """Interweaving move (Yu & Meng 2011) on the z-fixed target, z =
+        (beta - mu)/tau held so beta' = mu' + (tau'/tau)(beta - mu). Its
+        mode follows what the beta cache carries:
+
+        - {'v','g','h'} (Newton): a parameter-free Laplace proposal
+          N(theta + M^-1 F', M^-1) on theta = (mu, log tau), M the
+          Gauss-Newton metric from the carried Hessian; ``scale`` unused.
+          The eval pass computes the Hessian unless ``frozen``.
+        - {'v','g'} (MALA): preconditioned Langevin theta + (s^2/2) Mb^-1 F'
+          + s Mb^-1/2 eps with the data-constant bound metric Mb
+          (xxt_bound), s = ``scale`` (C, 1) adapted to 0.574.
+        - a (C, G) loglik or None (RW): log tau' = log tau + s eps, mu
+          kept, s adapted to 0.234.
+
+        Noise: the grad modes draw eps (C, 2p), the RW mode eps (C, p),
+        then every mode draws log u (C,).
+        """
         beta, mu, lt = position["beta"], position["mu"], position["log_tau"]
         C = lt.shape[0]
         diff = beta - mu[:, None, :]                     # tau z, (C, G, p)
-        eps_q = rng.normal((C, q))
-        f_old = _asis_joint_grad(lik_cache["g"], diff, mu, lt)
-        L_old = chol_packed(_asis_joint_metric(lik_cache["h"], diff, lt), q)
-        th_old = torch.cat([mu, lt], dim=-1)
-        mean_old = th_old + spd_solve(L_old, f_old, q)
-        th_new = mean_old + solve_upper_t(L_old, eps_q, q)
-        mu_new, lt_new = th_new[:, :p], th_new[:, p:]
+        lik_cache = cache.get("beta")
+        grad_mode = isinstance(lik_cache, dict)
+        newton_mode = grad_mode and "h" in lik_cache
+        if grad_mode:
+            eps_q = rng.normal((C, q))
+            h_src = lik_cache["h"] if newton_mode else xxt_bound
+            if newton_mode:
+                s, drift = 1.0, 1.0
+            else:
+                s = scale                                # (C, 1) adapted
+                drift = 0.5 * s * s
+            f_old = _asis_joint_grad(lik_cache["g"], diff, mu, lt)
+            L_old = chol_packed(_asis_joint_metric(h_src, diff, lt), q)
+            th_old = torch.cat([mu, lt], dim=-1)
+            mean_old = th_old + drift * spd_solve(L_old, f_old, q)
+            th_new = mean_old + s * solve_upper_t(L_old, eps_q, q)
+            mu_new, lt_new = th_new[:, :p], th_new[:, p:]
+        else:
+            eps = rng.normal((C, p))
+            mu_new, lt_new = mu, lt + scale * eps
         ratio = torch.exp(lt_new - lt)[:, None, :]
         diff_new = diff * ratio                          # e^{lt'} z
         beta_new = mu_new[:, None, :] + diff_new
-        lik_old = lik_cache["v"]
-        if frozen:
-            lik_new, grad_new = lik_value_and_grad(beta_new, data)
-            hess_new = lik_cache["h"]
+        if grad_mode:
+            lik_old = lik_cache["v"]
+            if newton_mode and not frozen:
+                lik_new, grad_new, hess_new = lik_value_grad_hess(
+                    beta_new, data
+                )
+            else:
+                lik_new, grad_new = lik_value_and_grad(beta_new, data)
+                hess_new = lik_cache["h"] if newton_mode else xxt_bound
+            f_new = _asis_joint_grad(grad_new, diff_new, mu_new, lt_new)
+            L_new = chol_packed(
+                _asis_joint_metric(hess_new, diff_new, lt_new), q
+            )
+            mean_new = th_new + drift * spd_solve(L_new, f_new, q)
+            w_rev = lt_vec(L_new, th_old - mean_new, q)
+            # the forward whitened residual is exactly s eps_q; the
+            # 1/(2 s^2) normalisation cancels the s
+            inv_2s2 = 0.5 if newton_mode else 0.5 / (s * s)[:, 0]
+            q_corr = (
+                -inv_2s2 * torch.sum(w_rev * w_rev, dim=-1)
+                + half_logdet(L_new, q)
+                + 0.5 * torch.sum(eps_q * eps_q, dim=-1)
+                - half_logdet(L_old, q)
+            )
         else:
-            lik_new, grad_new, hess_new = lik_value_grad_hess(beta_new, data)
-        f_new = _asis_joint_grad(grad_new, diff_new, mu_new, lt_new)
-        L_new = chol_packed(_asis_joint_metric(hess_new, diff_new, lt_new), q)
-        mean_new = th_new + spd_solve(L_new, f_new, q)
-        w_rev = lt_vec(L_new, th_old - mean_new, q)
-        q_corr = (
-            -0.5 * torch.sum(w_rev * w_rev, dim=-1)
-            + half_logdet(L_new, q)
-            + 0.5 * torch.sum(eps_q * eps_q, dim=-1)
-            - half_logdet(L_old, q)
-        )
+            lik_new = lik_fn(beta_new, data)             # (C, G)
+            lik_old = lik_cache
+            if lik_old is None:
+                lik_old = lik_fn(beta, data)
+            q_corr = 0.0
         prior_delta = torch.sum(
             _tau_logprior(lt_new) + log_scale_guard(lt_new)
             - _tau_logprior(lt),
             dim=-1,
-        ) + torch.sum(-0.5 * (mu_new * mu_new - mu * mu) * inv_s0_2, dim=-1)
+        )
+        if grad_mode:
+            prior_delta = prior_delta + torch.sum(
+                -0.5 * (mu_new * mu_new - mu * mu) * inv_s0_2, dim=-1
+            )
         log_alpha = (
             torch.sum(lik_new - lik_old, dim=-1) + prior_delta + q_corr
         )
@@ -220,14 +389,21 @@ def make_hier_logistic(
         pos_up = {
             "beta": torch.where(acc3, beta_new, beta),
             "log_tau": torch.where(acc2, lt_new, lt),
-            "mu": torch.where(acc2, mu_new, mu),
         }
-        cache_up = {"beta": {
-            "v": torch.where(acc2, lik_new, lik_old),
-            "g": torch.where(acc3, grad_new, lik_cache["g"]),
-            "h": lik_cache["h"] if frozen
-            else torch.where(acc3, hess_new, lik_cache["h"]),
-        }}
+        cache_up = {}
+        if grad_mode:
+            pos_up["mu"] = torch.where(acc2, mu_new, mu)
+            cache_up["beta"] = {
+                "v": torch.where(acc2, lik_new, lik_old),
+                "g": torch.where(acc3, grad_new, lik_cache["g"]),
+            }
+            if newton_mode:
+                cache_up["beta"]["h"] = (
+                    lik_cache["h"] if frozen
+                    else torch.where(acc3, hess_new, lik_cache["h"])
+                )
+        elif lik_cache is not None:
+            cache_up["beta"] = torch.where(acc2, lik_new, lik_old)
         alpha = torch.where(
             torch.isnan(log_alpha), torch.zeros_like(log_alpha),
             torch.exp(log_alpha.clamp_max(0.0)),
@@ -236,19 +412,18 @@ def make_hier_logistic(
 
     def gibbs_mu(rng, state, data):
         """Exact conjugate draw of mu | beta, tau per coordinate."""
-        s1 = state["beta"].sum(dim=1)
+        s1, _ = _suff(state["beta"])
         inv_tau2 = torch.exp(-2.0 * state["log_tau"])
         prec = G * inv_tau2 + inv_s0_2
         mean = s1 * inv_tau2 / prec
         return mean + rng.normal(mean.shape) / torch.sqrt(prec)
 
     def gibbs_log_tau(rng, state, data):
-        """Exact conjugate draw: tau_k^2 | beta, mu ~ InvGamma(a + G/2,
-        b + quad_k/2) as rate / Gamma(shape), returned as log tau and
-        clipped to [-12, 12] (the log_scale_guard support)."""
-        beta, mu = state["beta"], state["mu"]
-        s1, s2 = beta.sum(dim=1), (beta * beta).sum(dim=1)
-        quad = s2 - 2.0 * mu * s1 + G * mu * mu
+        """Exact conjugate draw (invgamma prior): tau_k^2 | beta, mu ~
+        InvGamma(a + G/2, b + quad_k/2) as rate / Gamma(shape), returned as
+        log tau and clipped to [-12, 12] (the log_scale_guard support)."""
+        s1, s2 = _suff(state["beta"])
+        quad = _quad(s1, s2, state["mu"])
         rate = b_ig + 0.5 * quad
         g = rng.gamma(a_ig + 0.5 * G, quad.shape)
         return torch.clamp(
@@ -270,7 +445,19 @@ def make_hier_logistic(
             Block("log_tau", (p,), units=p, init_scale=0.2, repeats=4),
         ),
         init_state=init_state,
-        gibbs_draws={"mu": gibbs_mu, "log_tau": gibbs_log_tau},
+        cond_logdensity=cond,
+        cond_value_and_grad=cond_value_and_grad,
+        cond_cached={
+            "beta": (
+                lik_fn,
+                lambda v, state, data: _gprior({**state, "beta": v}),
+            ),
+        },
+        cond_cached_grad={"beta": (lik_value_and_grad, gprior_value_and_grad)},
+        gibbs_draws={
+            "mu": gibbs_mu,
+            **({"log_tau": gibbs_log_tau} if conj_tau else {}),
+        },
         joint_moves=(
             {"asis_tau": asis_tau_move} if asis_repeats > 0 else {}
         ),
@@ -280,16 +467,19 @@ def make_hier_logistic(
         },
         joint_move_init_scale_grad={"asis_tau": 1.0},
         joint_move_target_accept={"asis_tau": "auto"},
+        fused_updates={"beta": fused_beta_update},
+        fused_updates_mala={"beta": fused_mala_beta_update},
         fused_updates_newton={"beta": fused_newton_beta_update},
         cond_cached_newton={"beta": (lik_value_grad_hess, gprior_vgh)},
     )
 
 
 def synth_logistic(seed, G: int = 100, n: int = 50, p: int = 4,
-                   ragged: bool = False, device="cpu"):
+                   ragged: bool = False, device="cuda"):
     """Synthetic hierarchical-logistic data from the reference's generative
     model, drawn with a numpy Generator seeded by ``seed``. Returns
-    (NestedData on ``device``, truth dict of numpy arrays)."""
+    (NestedData on ``device``, the card unless the caller asks for another;
+    truth dict of numpy arrays)."""
     if ragged:
         raise NotImplementedError(_RAGGED)
     r = np.random.default_rng(seed)

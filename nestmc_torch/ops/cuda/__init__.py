@@ -9,10 +9,13 @@ so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 LAUNCHES = {
+    "loglik": 0,
     "logp_grad": 0,
     "logp_grad_hess": 0,
     "newton_step_refresh": 0,
     "newton_step_frozen": 0,
+    "mala_step": 0,
+    "rwmh_step": 0,
 }
 
 

@@ -1,12 +1,14 @@
 """Build the CUDA sources in ``nestmc_torch/csrc`` and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, specialised to one covariate count p
-(``-DNESTMC_P=p``: the per-cell arrays of the kernels are sized at compile
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object (one
+``nvcc`` process per source, all started together) and links them into one
+shared library with a plain C interface, specialised to one covariate count
+p (``-DNESTMC_P=p``: the per-cell arrays of the kernels are sized at compile
 time so they stay in registers). The library goes to ``nestmc_torch/_build/``
 (git-ignored), named by a hash of the sources, the flags and p, so a changed
 source rebuilds and an unchanged one loads at once. Nothing is built when
-the package is imported: the first kernel launch builds.
+the package is imported: the first kernel launch builds, or :func:`build`
+builds several p at once.
 """
 
 from __future__ import annotations
@@ -18,14 +20,15 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + (
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,8 +37,11 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
     "nestmc_logp_grad": [_P] * 7 + [_I] * 3 + [_P],
+    "nestmc_loglik": [_P] * 5 + [_I] * 3 + [_P],
     "nestmc_newton_step": [_P] * 21 + [_F] * 4 + [_I] * 3 + [_U] * 2
     + [_I, _P],
+    "nestmc_mala_step": [_P] * 19 + [_F] * 4 + [_I] * 3 + [_U] * 2 + [_P],
+    "nestmc_rwmh_step": [_P] * 13 + [_I] * 3 + [_U] * 2 + [_P],
     "nestmc_philox_probe": [_P, _P, _I, _U, _U, _P],
 }
 
@@ -66,29 +72,52 @@ def library_path(p: int) -> Path:
     return BUILD_DIR / f"libnestmc_p{p}_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def _compile(p: int, out: Path) -> None:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-DNESTMC_P={p}", f"-I{SRC_DIR}",
-           "-o", tmp, *map(str, cu)]
+    tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [tmpdir / (f.stem + ".o") for f in cu]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, f"-DNESTMC_P={p}", f"-I{SRC_DIR}",
+                 "-c", "-o", str(o), str(f)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for f, o in zip(cu, objs)
+        ]
+        outs = [proc.communicate() for proc in procs]  # wait for all
+        for f, proc, (so, se) in zip(cu, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {f.name} ({proc.returncode}):\n{so}\n{se}"
+                )
+        logs = [se for _, se in outs]
+        lib = tmpdir / "lib.so"
+        r = _run([_nvcc(), *ARCH, "-shared", "-o", str(lib), *map(str, objs)])
         if r.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
+                f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
             )
-        os.replace(tmp, out)  # atomic: a reader never sees a partial file
+        os.replace(lib, out)  # atomic: a reader never sees a partial file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     build_info[p] = {
         "path": str(out),
         "seconds": time.perf_counter() - t0,
-        "log": r.stderr,
+        "log": "\n".join(logs),
     }
+
+
+def build(ps) -> None:
+    """Build (or find) the libraries for every p in ``ps`` at once."""
+    with ThreadPoolExecutor(max_workers=max(1, len(ps))) as ex:
+        list(ex.map(library, ps))
 
 
 def library(p: int) -> ctypes.CDLL:

@@ -45,3 +45,12 @@ def check_smem(n: int, p: int) -> None:
             f"n={n} observations per group at p={p} exceed the kernels' "
             "48 KB shared-memory stage"
         )
+
+
+def fold_scalars(rhat_fold) -> list:
+    """The (2, 2) fold scalars [[cnt, act], [cnt, act]] as host floats
+    (identity [[1, 0], [1, 0]] without a fold), passed to a kernel by
+    value."""
+    if rhat_fold is None:
+        return [[1.0, 0.0], [1.0, 0.0]]
+    return torch.as_tensor(rhat_fold[2], dtype=torch.float32).tolist()

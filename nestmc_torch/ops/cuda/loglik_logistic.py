@@ -1,10 +1,10 @@
 """Masked Bernoulli-logit obs passes on the card (csrc/loglik_logistic.cu).
 
-Port of nestmc/ops/pallas/loglik_logistic.py::logistic_logp_grad_pallas
-and ::logistic_logp_grad_hess_pallas, with the same public layouts:
-beta (C, G, p), x (G, n, p), y and mask (G, n) -> loglik (C, G),
-grad (C, G, p)[, packed -Hessian (C, G, T)]. The plain versions are the
-references of :mod:`nestmc_torch.ops.loglik`.
+Port of nestmc/ops/pallas/loglik_logistic.py::logistic_logp_grad_pallas,
+::logistic_logp_grad_hess_pallas and ::logistic_loglik_padded_pallas, with
+the same public layouts: beta (C, G, p), x (G, n, p), y and mask (G, n) ->
+loglik (C, G)[, grad (C, G, p)[, packed -Hessian (C, G, T)]]. The plain
+versions are the references of :mod:`nestmc_torch.ops.loglik`.
 """
 
 from __future__ import annotations
@@ -21,20 +21,27 @@ from nestmc_torch.ops.cuda.common import (
     stream_of,
 )
 
+logistic_loglik_plain = _plain.logistic_loglik_padded
 logistic_logp_grad_plain = _plain.logistic_logp_grad_padded
 logistic_logp_grad_hess_plain = _plain.logistic_logp_grad_hess_padded
+
+
+def _check(beta, x, y, mask):
+    C, G, p = beta.shape
+    n = x.shape[1]
+    for name, t, shape in (
+        ("beta", beta, (C, G, p)), ("x", x, (G, n, p)),
+        ("y", y, (G, n)), ("mask", mask, (G, n)),
+    ):
+        check_tensor(t, name, shape, beta.device)
+    check_smem(n, p)
 
 
 def _launch(lib, beta, x, y, mask, hess: bool, stream: int):
     C, G, p = beta.shape
     n = x.shape[1]
     dev = beta.device
-    for name, t, shape in (
-        ("beta", beta, (C, G, p)), ("x", x, (G, n, p)),
-        ("y", y, (G, n)), ("mask", mask, (G, n)),
-    ):
-        check_tensor(t, name, shape, dev)
-    check_smem(n, p)
+    _check(beta, x, y, mask)
     out_v = torch.empty((C, G), dtype=torch.float32, device=dev)
     out_g = torch.empty((C, G, p), dtype=torch.float32, device=dev)
     out_h = (
@@ -48,6 +55,23 @@ def _launch(lib, beta, x, y, mask, hess: bool, stream: int):
     )
     _build.check(rc, "logp_grad_hess" if hess else "logp_grad")
     return (out_v, out_g, out_h) if hess else (out_v, out_g)
+
+
+def logistic_loglik(beta, x, y, mask):
+    """(C, G) value-only loglik: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if on_cpu(beta, "loglik"):
+        return logistic_loglik_plain(beta, x, y, mask)
+    lib = _build.library(beta.shape[-1])
+    C, G, _ = beta.shape
+    with torch.cuda.device(beta.device):
+        _check(beta, x, y, mask)
+        out = torch.empty((C, G), dtype=torch.float32, device=beta.device)
+        rc = lib.nestmc_loglik(ptr(x), ptr(y), ptr(mask), ptr(beta),
+                               ptr(out), C, G, x.shape[1], stream_of(beta))
+    _build.check(rc, "loglik")
+    LAUNCHES["loglik"] += 1
+    return out
 
 
 def logistic_logp_grad(beta, x, y, mask):

@@ -22,6 +22,7 @@ from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
     check_smem,
     check_tensor,
+    fold_scalars,
     on_cpu,
     ptr,
     stream_of,
@@ -108,12 +109,11 @@ def _launch(lib, beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau,
         eps, logu = noise
         checks += [("eps", eps, (C, G, p)), ("logu", logu, (C, G))]
     fmean = fm2 = None
-    fsc = [[1.0, 0.0], [1.0, 0.0]]
     if rhat_fold is not None:
-        fmean, fm2, scalars = rhat_fold
+        fmean, fm2, _ = rhat_fold
         checks += [("fold mean", fmean, (2, G, p, C)),
                    ("fold m2", fm2, (2, G, p, C))]
-        fsc = torch.as_tensor(scalars, dtype=torch.float32).tolist()
+    fsc = fold_scalars(rhat_fold)
     for name, t, shape in checks:
         check_tensor(t, name, shape, dev)
     check_smem(n, p)

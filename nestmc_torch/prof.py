@@ -1,10 +1,12 @@
-"""Where a sweep's time goes: ``python -m nestmc_torch.prof``.
+"""Where a sweep's time goes: ``python -m nestmc_torch.prof [--preset NAME]``.
 
-Profiles the judged config of :mod:`nestmc_torch.bench` (1024 chains,
-G=1000 groups x n=50 obs, p=4) on one CUDA device, sweep by sweep, in both
-phases: warmup (refreshed metric) and sampling (frozen metric, with the
-streamed R-hat fold the engine passes). For each phase it reports, per
-sweep:
+Profiles a preset of :mod:`nestmc_torch.presets` (default the judged config:
+1024 chains, G=1000 groups x n=50 obs, p=4; ``--preset mala-100k``: 512
+chains, G=100,000 x 20, p=3) on one CUDA device, sweep by sweep, in both
+phases: warmup (adapting; Newton's metric refreshed) and sampling (frozen,
+with the streamed R-hat updates the engine makes: the in-kernel fold, or
+the post-sweep update on every k-th draw at full_rhat_thin = k). For each
+phase it reports, per sweep:
 
 - ``wall_ms``: untraced wall time, each of ``--repeats`` runs of
   ``--sweeps`` back-to-back sweeps synchronised only at its two ends;
@@ -12,10 +14,13 @@ sweep:
   (the port's own kernels), from torch.profiler over ``--sweeps`` sweeps:
   the sum and count of device kernel self-times, and 1 - busy / the
   median untraced wall;
-- ``block_ms``: each block's time (the Newton beta step, each Gibbs draw,
-  the interweaving move) with the device synchronised around every block;
+- ``block_ms``: each model hook's time (the fused beta step, each Gibbs
+  draw, the unfused MH conditionals, the interweaving move) with the
+  device synchronised around every call;
 - ``host_top``: the port's functions with the most cumulative host time
-  (cProfile), in ms per sweep.
+  (cProfile), in ms per sweep;
+- ``peak_mem_gb`` (CUDA): the most device memory allocated at once over
+  the phase's sweeps (torch.cuda.max_memory_allocated).
 
 Prints one JSON object; ``--out`` also writes torch.profiler's tables.
 ``--device cpu`` with small ``--chains/--groups`` runs the same code on the
@@ -35,11 +40,16 @@ import time
 
 import torch
 
-from nestmc_torch.bench import JUDGED, gpu_query, judged_config
-from nestmc_torch.diagnostics import fold_rhat_init, fold_rhat_scalars
+from nestmc_torch.bench import gpu_query
+from nestmc_torch.diagnostics import (
+    fold_rhat_init,
+    fold_rhat_scalars,
+    streaming_rhat_init,
+    streaming_rhat_update,
+)
 from nestmc_torch.kernels.gibbs import make_sweep, rhat_fold_names
 from nestmc_torch.kernels.state import init_kernel_state
-from nestmc_torch.models import make_hier_logistic, synth_logistic
+from nestmc_torch.presets import PRESETS, get_preset
 from nestmc_torch.rng import SweepRNG
 
 
@@ -49,56 +59,76 @@ def _sync(device) -> None:
 
 
 class _Phase:
-    """Runs sweeps of one phase from a state, carrying the fold
-    accumulators as the engine does in sampling."""
+    """Runs sweeps of one phase from a state, making the streamed R-hat
+    updates of the engine's sampling loop: the fold the sweep carries, or
+    the post-sweep update of every rthin-th draw."""
 
     def __init__(self, model, cfg, data, rng, state, adapt: bool):
         self.sweep = make_sweep(model, cfg)
         self.data, self.rng, self.state, self.adapt = data, rng, state, adapt
         self.names = () if adapt else rhat_fold_names(model, cfg)
         self.acc = fold_rhat_init(state.position, self.names)
+        self.rthin = cfg.run.full_rhat_thin
+        self.std = {}
+        if not adapt and cfg.run.full_rhat:
+            self.std = streaming_rhat_init({
+                k: v for k, v in state.position.items()
+                if k not in self.names
+            })
         self.j = 0
 
     def step(self) -> None:
         if not self.names:
             self.state = self.sweep(self.state, self.data, self.adapt,
                                     self.rng)
-            return
-        # an always-active fold in the first half, as early in sampling
-        scs = {k: fold_rhat_scalars(self.acc[k][0], self.j, 1 << 30)
-               for k in self.names}
-        folds = {k: (self.acc[k][1], self.acc[k][2], scs[k])
-                 for k in self.names}
-        self.state, fout = self.sweep(self.state, self.data, False, self.rng,
-                                      folds)
-        self.acc = {k: (self.acc[k][0] + scs[k][:, 1], *fout[k])
-                    for k in self.names}
+        else:
+            # an always-active fold in the first half, as early in sampling
+            scs = {k: fold_rhat_scalars(self.acc[k][0], self.j, 1 << 30)
+                   for k in self.names}
+            folds = {k: (self.acc[k][1], self.acc[k][2], scs[k])
+                     for k in self.names}
+            self.state, fout = self.sweep(self.state, self.data, False,
+                                          self.rng, folds)
+            self.acc = {k: (self.acc[k][0] + scs[k][:, 1], *fout[k])
+                        for k in self.names}
+        if self.std and self.j % self.rthin == 0:
+            self.std = streaming_rhat_update(
+                self.std, self.state.position, self.j // self.rthin, 1 << 30
+            )
         self.j += 1
 
 
 def _timed_hooks(model, device, totals: dict):
-    """A copy of ``model`` whose per-block functions add their synced
-    seconds to ``totals``; signatures are kept (make_sweep reads them)."""
+    """A copy of ``model`` whose hooks add their synced seconds to
+    ``totals``; signatures are kept (make_sweep reads them)."""
 
     def wrap(label, fn):
+        if fn is None:
+            return None
+
         @functools.wraps(fn)
         def timed(*args, **kwargs):
             _sync(device)
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             _sync(device)
-            totals[label] = totals.get(label, 0.0) + time.perf_counter() - t0
+            key = label if label else f"cond {args[0]}"
+            totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
             return out
         return timed
 
+    def table(prefix, hooks):
+        return {k: wrap(f"{prefix} {k}", f) for k, f in hooks.items()}
+
     return dataclasses.replace(
         model,
-        gibbs_draws={k: wrap(f"gibbs {k}", f)
-                     for k, f in model.gibbs_draws.items()},
-        fused_updates_newton={k: wrap(f"newton {k}", f)
-                              for k, f in model.fused_updates_newton.items()},
-        joint_moves={k: wrap(f"move {k}", f)
-                     for k, f in model.joint_moves.items()},
+        gibbs_draws=table("gibbs", model.gibbs_draws),
+        fused_updates=table("rwmh", model.fused_updates),
+        fused_updates_mala=table("mala", model.fused_updates_mala),
+        fused_updates_newton=table("newton", model.fused_updates_newton),
+        joint_moves=table("move", model.joint_moves),
+        cond_logdensity=wrap(None, model.cond_logdensity),
+        cond_value_and_grad=wrap(None, model.cond_value_and_grad),
     )
 
 
@@ -153,17 +183,18 @@ def _host_top(phase: _Phase, sweeps: int, device, top: int = 12) -> dict:
     return {name: ct * 1e3 / sweeps for ct, name in rows[:top]}
 
 
-def profile_sweeps(chains: int = 1024, G: int = JUDGED["G"],
-                   n: int = JUDGED["n"], p: int = JUDGED["p"],
-                   sweeps: int = 20, repeats: int = 3, settle: int = 20,
-                   device="cuda", out: str | None = None) -> dict:
-    """Profile both phases of the judged sampler at the given size; returns
-    the report dict (see the module docstring)."""
+def profile_sweeps(preset: str = "judged", chains: int | None = None,
+                   groups: int | None = None, sweeps: int = 20,
+                   repeats: int = 3, settle: int = 20, device="cuda",
+                   out: str | None = None) -> dict:
+    """Profile both phases of a preset's sampler (its chains and groups
+    unless given); returns the report dict (see the module docstring)."""
     device = torch.device(device)
-    data, _ = synth_logistic(JUDGED["data_seed"], G=G, n=n, p=p,
-                             device=device)
-    model = make_hier_logistic(data, tau_prior="invgamma", asis_repeats=1)
-    cfg = judged_config(chains, 0, 0)
+    model, data, cfg = get_preset(preset, device=device, groups=groups)
+    if chains is not None:
+        cfg = dataclasses.replace(
+            cfg, run=dataclasses.replace(cfg.run, chains=chains)
+        )
     rng = SweepRNG(0, device)
     state = init_kernel_state(model, cfg, rng, data)
     warm = _Phase(model, cfg, data, rng, state, adapt=True)
@@ -172,13 +203,17 @@ def profile_sweeps(chains: int = 1024, G: int = JUDGED["G"],
     samp = _Phase(model, cfg, data, rng, warm.state, adapt=False)
     samp.step()
 
-    report = {"device": str(device), "chains": chains, "G": G, "n": n,
-              "p": p, "sweeps": sweeps, "repeats": repeats}
+    report = {"preset": preset, "device": str(device),
+              "chains": cfg.run.chains, "G": data.num_groups,
+              "n": data.x.shape[1], "p": data.num_covariates,
+              "sweeps": sweeps, "repeats": repeats}
     if device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(device)
         report["nvidia_smi"] = gpu_query()
     tables = []
     for label, phase in (("warmup", warm), ("sampling", samp)):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         walls = []
         for _ in range(repeats):
             _sync(device)
@@ -207,6 +242,7 @@ def profile_sweeps(chains: int = 1024, G: int = JUDGED["G"],
         _sync(device)
         synced = (time.perf_counter() - t0) * 1e3 / sweeps
         phase.state = timed.state
+        phase.acc, phase.std, phase.j = timed.acc, timed.std, timed.j
 
         report[label] = {
             "wall_ms": walls,
@@ -217,6 +253,8 @@ def profile_sweeps(chains: int = 1024, G: int = JUDGED["G"],
             "synced_sweep_ms": synced,
             "block_ms": {k: v * 1e3 / sweeps for k, v in totals.items()},
             "host_top": _host_top(phase, sweeps, device),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                            if device.type == "cuda" else None),
         }
     if out:
         with open(out, "w") as f:
@@ -226,15 +264,17 @@ def profile_sweeps(chains: int = 1024, G: int = JUDGED["G"],
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="judged", choices=sorted(PRESETS))
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--chains", type=int, default=1024)
-    ap.add_argument("--groups", type=int, default=JUDGED["G"])
+    ap.add_argument("--chains", type=int, default=None)
+    ap.add_argument("--groups", type=int, default=None)
     ap.add_argument("--sweeps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None,
                     help="file for torch.profiler's tables")
     a = ap.parse_args(argv)
-    report = profile_sweeps(chains=a.chains, G=a.groups, sweeps=a.sweeps,
+    report = profile_sweeps(preset=a.preset, chains=a.chains,
+                            groups=a.groups, sweeps=a.sweeps,
                             repeats=a.repeats, device=a.device, out=a.out)
     print(json.dumps(report))
     return 0

@@ -57,7 +57,7 @@ def _setup(dense, C=8, G=13, n=9, p=3):
         run=RunConfig(chains=C, log_every_segment=False),
     )
     state = j_init_state(model, cfg, jax.random.key(1), data)
-    tdata = from_numpy(data.x, data.y, data.mask)
+    tdata = from_numpy(data.x, data.y, data.mask, device="cpu")
     return data, model, state, tdata
 
 

@@ -145,7 +145,8 @@ def test_library_path_keys_on_p_and_sources():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, nestmc_torch, nestmc_torch.bench, nestmc_torch.models;"
+        "import sys, nestmc_torch, nestmc_torch.bench, nestmc_torch.models,"
+        " nestmc_torch.presets, nestmc_torch.prof;"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'nestmc')];"
         "assert not bad, bad"

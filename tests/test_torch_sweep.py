@@ -60,7 +60,7 @@ def setup():
     jmodel = j_make(data, tau_prior="invgamma")
     jcfg, tcfg = _cfgs()
     jstate = j_init_state(jmodel, jcfg, jax.random.key(2), data)
-    tdata = from_numpy(data.x, data.y, data.mask)
+    tdata = from_numpy(data.x, data.y, data.mask, device="cpu")
     tmodel = make_hier_logistic(tdata, tau_prior="invgamma")
     return data, jmodel, jcfg, jstate, tdata, tmodel, tcfg
 
@@ -94,7 +94,7 @@ def _port_state(jstate):
         {k: _np(v) for k, v in jstate.accept_sum.items()},
         {k: None if c is None else {kk: _np(vv) for kk, vv in c.items()}
          for k, c in jstate.cache.items()},
-        t=int(jstate.t),
+        t=int(jstate.t), device="cpu",
     )
 
 
