@@ -4,9 +4,13 @@ Needs one CUDA card and this checkout (it builds the kernels from
 ``nestmc_torch/csrc``). Phases, one line or more each:
 
 1. the card: nvidia-smi's name and power limit, torch's device name;
-2. the kernel build (nvcc, sm_90a) for p=4 and p=3 at once, seconds each;
+2. the kernel build (nvcc, sm_90a) for p=4 and p=3 at once, seconds each,
+   and ptxas's registers and spills of every kernel;
 3. each kernel vs its plain PyTorch version, with external noise, at the
-   shapes its paths give it: the judged shape (C=1024, G=1000, n=50, p=4)
+   shapes its paths give it: config 3's shape (C=512 chains, S=4000
+   subjects, n=10, p=3) for the seven Poisson launch modes (the three obs
+   passes; the RW, MALA and Newton refresh and frozen subject steps); the
+   judged shape (C=1024, G=1000, n=50, p=4)
    for the Newton path's kernels; the mala-100k shape (C=512, G=100,000,
    n=20, p=3) for mala_step, logp_grad, rwmh_step and loglik, where the
    outputs are compared with the plain version on the first 64 chains
@@ -20,25 +24,32 @@ Needs one CUDA card and this checkout (it builds the kernels from
    warm-up; the plain version at full width unless it runs out of memory,
    then on the slice, which the line says) and the bound (below);
 4. the moments of the in-kernel Philox normals and uniforms;
-5. small-input references: the Newton, MALA and RW-MH samplers on the card
-   vs their plain versions on the CPU (posterior means of mu and log_tau
-   within 4 combined MCSEs, mean beta acceptance within 0.05);
+5. small-input references: the hierarchical logistic (Newton, MALA,
+   RW-MH) and nested Poisson (RW-MH, MALA, Newton) samplers on the card vs
+   their plain versions on the CPU (posterior means of the population
+   parameters within 4 combined MCSEs, mean beta / beta_s acceptance
+   within 0.05);
 6. the end-to-end paths through nestmc_torch.bench at full width, launch
    counters reset just before each and read just after: the RW-MH preset
-   (hier-logistic-100-rw, streamed R-hat switched on), config 5
-   (mala-100k) and the judged config. Each must launch exactly its
-   kernels, as many times as its schedule implies, reach worst
-   all-parameter R-hat < 1.01, a plausible beta acceptance and no NaN.
-   Only the judged run is cut in depth if the time budget requires (its
-   R-hat line is then printed, not asserted, and the script says so);
-   mala-100k's draws are cut only if even a minimal judged run would not
-   fit, and the script says so.
+   (hier-logistic-100-rw, streamed R-hat switched on), config 3
+   (nested-poisson-1k, full schedule, never cut), config 5 (mala-100k),
+   config 3's MALA and Newton variants and the judged config. Each must
+   launch exactly its kernels, as many times as its schedule implies,
+   reach worst all-parameter R-hat < 1.01, a plausible acceptance of its
+   MH-updated block and no NaN. When the time budget requires, depth is
+   cut (never width), and the R-hat line is then printed, not asserted:
+   first config 3's variants (they run their full schedule only if the
+   script would still end within 60% of its budget), then the judged run;
+   mala-100k's draws only if even a minimal judged run would not fit. The
+   script says so.
 
 Bound: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s (the H100 SXM data sheet), with
 each operation counted once (exp and log1p as one each, so the operation
-count is a floor).
+count is a floor). The Poisson terms take one exp and no log1p or
+division, and the Poisson steps read a per-unit prior mean (C, S, p)
+where the logistic ones read mu (C, p).
 
 Any failed check exits non-zero. The last lines are a JSON object of the
 kernels, the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -58,6 +69,7 @@ FP32_OPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 JUDGED = (1024, 1000, 50, 4)        # C, G, n, p
 M100K = (512, 100_000, 20, 3)
 RW = (64, 100, 50, 4)
+POIS = (512, 4000, 10, 3)           # C, S (subjects), n, p: config 3
 SLICE = 64                  # chains the plain versions run on at M100K
 SRC = {
     "loglik": ("nestmc_torch/csrc/loglik_logistic.cu",
@@ -74,6 +86,20 @@ SRC = {
                   "nestmc/ops/pallas/mala_accept.py:275"),
     "rwmh_step": ("nestmc_torch/csrc/mh_accept.cu",
                   "nestmc/ops/pallas/mh_accept.py:168"),
+    "pois_loglik": ("nestmc_torch/csrc/loglik_poisson.cu",
+                    "nestmc/ops/pallas/loglik_poisson.py:54"),
+    "pois_logp_grad": ("nestmc_torch/csrc/loglik_poisson.cu",
+                       "nestmc/ops/pallas/loglik_poisson.py:200"),
+    "pois_logp_grad_hess": ("nestmc_torch/csrc/loglik_poisson.cu",
+                            "nestmc/ops/pallas/loglik_poisson.py:147"),
+    "pois_rwmh_step": ("nestmc_torch/csrc/poisson_accept.cu",
+                       "nestmc/ops/pallas/poisson_accept.py:180"),
+    "pois_mala_step": ("nestmc_torch/csrc/poisson_accept.cu",
+                       "nestmc/ops/pallas/poisson_accept.py:341"),
+    "pois_newton_step_refresh": ("nestmc_torch/csrc/poisson_accept.cu",
+                                 "nestmc/ops/pallas/poisson_accept.py:576"),
+    "pois_newton_step_frozen": ("nestmc_torch/csrc/poisson_accept.cu",
+                                "nestmc/ops/pallas/poisson_accept.py:576"),
 }
 
 
@@ -93,24 +119,30 @@ def left_s() -> float:
 def work(kernel: str, C: int, G: int, n: int, p: int, noise: bool = True,
          fold: bool = False):
     """(bytes, float32 operations) one call needs: each input read and
-    each output written once; per obs-cell 2p (eta) + 9 (value terms)
-    [+ 2p + 8 (gradient terms)] [+ 3T (Hessian)] operations, per cell the
-    step's own algebra."""
+    each output written once; per obs-cell 2p (eta) + 9 (logistic value
+    terms: exp, log1p, ...) or 5 (Poisson: one exp) [+ 2p + 8 or 2p + 2
+    (gradient terms)] [+ 3T (Hessian; +1 for the Poisson mask)]
+    operations, per cell the step's own algebra. ``kernel`` names a
+    LAUNCHES key; G counts the units (groups, or subjects for pois_*)."""
+    pois = kernel.startswith("pois_")
+    kernel = kernel[len("pois_"):] if pois else kernel
     T = p * (p + 1) // 2
     cells, obs = C * G, C * G * n
-    data = 4 * G * n * (p + 2)
-    hyper = 4 * 2 * C * p
+    data = 4 * G * n * (p + 2) + (4 * G if pois else 0)
+    # the prior mean and log tau: mu and log tau (C, p), or per unit
+    hyper = 4 * C * p + (4 * cells * p if pois else 4 * C * p)
     f = 4 * 2 * G * p * C if fold else 0          # one (2, G, p, C) array
     nz = 4 * cells * (p + 1) if noise else 0
-    val_ops = 2 * p + 9
-    grad_ops = val_ops + 2 * p + 8
+    val_ops = 2 * p + (5 if pois else 9)
+    grad_ops = val_ops + 2 * p + (2 if pois else 8)
+    hess_ops = 3 * T + (1 if pois else 0)
     if kernel == "loglik":
         return data + 4 * cells * (p + 1), obs * val_ops
     if kernel == "logp_grad":
         return data + 4 * cells * (2 * p + 1), obs * grad_ops
     if kernel == "logp_grad_hess":
         return (data + 4 * cells * (2 * p + 1 + T),
-                obs * (grad_ops + 3 * T))
+                obs * (grad_ops + hess_ops))
     if kernel == "rwmh_step":
         return (data + hyper + nz + 4 * cells * (2 * p + 4),
                 obs * val_ops + cells * (8 * p + 6))
@@ -121,7 +153,7 @@ def work(kernel: str, C: int, G: int, n: int, p: int, noise: bool = True,
     frozen = kernel == "newton_step_frozen"
     h = 0 if frozen else 4 * cells * T
     return (data + hyper + nz + 4 * f + 4 * cells * (4 * p + 4 + T) + h,
-            obs * (grad_ops + (0 if frozen else 3 * T))
+            obs * (grad_ops + (0 if frozen else hess_ops))
             + cells * (4 * p ** 3 + 30 * p + (8 * p if fold else 0)))
 
 
@@ -142,9 +174,16 @@ def main() -> int:
     from nestmc_torch import KernelConfig, RunConfig, SamplerConfig, sample
     from nestmc_torch import bench
     from nestmc_torch.diagnostics import fold_rhat_scalars
-    from nestmc_torch.models import make_hier_logistic, synth_logistic
+    from nestmc_torch.models import (
+        make_hier_logistic,
+        make_nested_poisson,
+        synth_logistic,
+        synth_poisson3,
+    )
     from nestmc_torch.ops import loglik
     from nestmc_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+    from nestmc_torch.ops.cuda import loglik_poisson as pois
+    from nestmc_torch.ops.cuda import poisson_accept as pacc
     from nestmc_torch.ops.cuda.loglik_logistic import (
         logistic_loglik,
         logistic_logp_grad,
@@ -278,6 +317,95 @@ def main() -> int:
         r["datasets"] = {"dense": (data.x, data.y, data.mask),
                          "masked": (data.x, data.y * masked_m, masked_m)}
         return r
+
+    # ---- 3. config 3's Poisson kernels at its shape ----
+    C, S, N, P = POIS
+    pdata, _ = synth_poisson3(3003, G=S // 4, subjects_per_group=4, n=N,
+                              p=P, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    beta = 0.3 * torch.randn(C, S, P, generator=gen, device=dev)
+    bgs = beta + 0.15 * torch.randn(C, S, P, generator=gen, device=dev)
+    lts = -1.4 + 0.2 * torch.randn(C, P, generator=gen, device=dev)
+    eps = torch.randn(C, S, P, generator=gen, device=dev)
+    logu = torch.log(torch.rand(C, S, generator=gen, device=dev)
+                     .clamp_min(1e-38))
+    noise = (eps, logu)
+    masked_m = pdata.mask.clone()
+    masked_m[:, N - 3:] = 0.0
+    pdatasets = {"dense": (pdata.x, pdata.y, pdata.mask),
+                 "masked": (pdata.x, pdata.y * masked_m, masked_m)}
+    for dname, (x, y, m) in pdatasets.items():
+        const = loglik.poisson_const(y, m)
+        for name, kern, plain in (
+            ("pois_loglik", lambda *a: (pois.poisson_loglik(*a),),
+             lambda *a: (loglik.poisson_loglik_padded(*a),)),
+            ("pois_logp_grad", pois.poisson_logp_grad,
+             loglik.poisson_logp_grad_padded),
+            ("pois_logp_grad_hess", pois.poisson_logp_grad_hess,
+             loglik.poisson_logp_grad_hess_padded),
+        ):
+            args = (beta, x, y, m, const)
+            out, ref = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            errs = [max_err(a, b, 1e-4) for a, b in zip(out, ref)]
+            err = max(e for e, _ in errs)
+            ok = all(o for _, o in errs)
+            ms = timed(lambda: kern(*args))
+            pms = timed(lambda: plain(*args))
+            w = work(name, C, S, N, P)
+            say(f"kernel {name} [{dname}, C={C} S={S} n={N} p={P}]: "
+                f"max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|) "
+                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms; {bound_str(w)}")
+            if not ok:
+                fail(f"{name} [{dname}] disagrees with its plain version")
+            record(name, err, ms if dname == "dense" else None, pms, POIS, w)
+            del out, ref
+        v, g, h = loglik.poisson_logp_grad_hess_padded(beta, x, y, m, const)
+        for name, step, plain, args, kw, alpha_i in (
+            ("pois_rwmh_step", pacc.fused_rwmh_poisson_step,
+             pacc.fused_rwmh_poisson_step_plain,
+             (beta, v, torch.full((C, S), -1.2, device=dev), bgs, lts, x, y,
+              m), {}, 2),
+            ("pois_mala_step", pacc.fused_mala_poisson_step,
+             pacc.fused_mala_poisson_step_plain,
+             (beta, v, g, torch.full((C, S), -1.0, device=dev), bgs, lts, x,
+              y, m), {}, 3),
+            ("pois_newton_step_refresh", pacc.fused_newton_poisson_step,
+             pacc.fused_newton_poisson_step_plain,
+             (beta, v, g, h, torch.zeros(C, S, device=dev), bgs, lts, x, y,
+              m), {"frozen": False}, 4),
+            ("pois_newton_step_frozen", pacc.fused_newton_poisson_step,
+             pacc.fused_newton_poisson_step_plain,
+             (beta, v, g, h, torch.zeros(C, S, device=dev), bgs, lts, x, y,
+              m), {"frozen": True}, 4),
+        ):
+            out = step(*args, noise=noise, const=const, **kw)
+            ref = plain(*args, noise, const=const, **kw)
+            torch.cuda.synchronize()
+            if kw.get("frozen"):
+                if out[3] is not h:
+                    fail("frozen pois_newton_step must return h itself")
+                out, ref, alpha_i = out[:3] + out[4:], ref[:3] + ref[4:], 3
+            err, ok, n_diff, n_bad = step_check(out, ref, beta, logu,
+                                                alpha_i)
+            acc = float(ref[alpha_i].mean())
+            ms = timed(lambda: step(*args, noise=noise, const=const, **kw))
+            pms = timed(lambda: plain(*args, noise, const=const, **kw))
+            w = work(name, C, S, N, P)
+            say(f"kernel {name} [{dname}, C={C} S={S} n={N} p={P}]: "
+                f"max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|, alpha "
+                f"2e-3|ref|); mean alpha {acc:.3f}; accept decisions differ "
+                f"in {n_diff} of {C * S} cells, {n_bad} outside "
+                f"|log a - log u| < 1e-3 {'ok' if ok else 'FAIL'}; kernel "
+                f"{ms:.4f} ms, plain {pms:.4f} ms; {bound_str(w)}")
+            if not ok:
+                fail(f"{name} [{dname}] disagrees with its plain version")
+            record(name, err, ms if dname == "dense" else None, pms, POIS, w)
+            del out, ref
+        del v, g, h
+    del pdata, pdatasets, beta, bgs, lts, eps, logu, noise, masked_m
+    torch.cuda.empty_cache()
 
     # ---- 3a. the Newton path's kernels at the judged shape ----
     C, G, N, P = JUDGED
@@ -513,45 +641,66 @@ def main() -> int:
         fail("Philox moments")
 
     # ---- 5. small-input references: card (kernels) vs CPU (plain) ----
-    for algorithm, tau_prior in (("newton", "invgamma"),
-                                 ("mala", "halfnormal"),
-                                 ("rwmh", "halfnormal")):
+    def small_reference(label, make, algorithm, names, block):
         small = {}
         for dv in ("cuda", "cpu"):
-            sd, _ = synth_logistic(5, G=16, n=20, p=3, device=dv)
-            small[dv] = sample(
-                make_hier_logistic(sd, tau_prior=tau_prior), sd,
-                SamplerConfig(
-                    kernel=KernelConfig(algorithm=algorithm),
-                    run=RunConfig(chains=32, warmup=200, draws=400, seed=3,
-                                  full_rhat=True, log_every_segment=False,
-                                  collect={"mu": None, "log_tau": None}),
-                ),
-            )
-        for name in ("mu", "log_tau"):
+            model, sd = make(dv)
+            small[dv] = sample(model, sd, SamplerConfig(
+                kernel=KernelConfig(algorithm=algorithm),
+                run=RunConfig(chains=32, warmup=200, draws=400, seed=3,
+                              full_rhat=True, log_every_segment=False,
+                              collect={k: None for k in names}),
+            ))
+        for name in names:
             dk = small["cuda"].diagnostics()[name]
             dp = small["cpu"].diagnostics()[name]
             se = (dk["mcse_mean"].cpu() ** 2 + dp["mcse_mean"] ** 2).sqrt()
             gap = (dk["mean"].cpu() - dp["mean"]).abs()
             ok = bool((gap < 4 * se).all())
-            say(f"small reference {algorithm} {name}: card "
+            say(f"small reference {label} {name}: card "
                 f"{dk['mean'].cpu().tolist()} vs cpu {dp['mean'].tolist()}, "
                 f"max gap/MCSE {float((gap / se).max()):.2f} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"small-input {algorithm} posterior of {name} "
-                     "disagrees with the CPU")
-        ak = float(small["cuda"].accept_rates["beta"].mean())
-        ap = float(small["cpu"].accept_rates["beta"].mean())
-        say(f"small reference {algorithm} beta acceptance: card {ak:.4f} "
+                fail(f"small-input {label} posterior of {name} disagrees "
+                     "with the CPU")
+        ak = float(small["cuda"].accept_rates[block].mean())
+        ap = float(small["cpu"].accept_rates[block].mean())
+        say(f"small reference {label} {block} acceptance: card {ak:.4f} "
             f"cpu {ap:.4f}")
         if abs(ak - ap) >= 0.05:
-            fail(f"small-input {algorithm} beta acceptance disagrees")
+            fail(f"small-input {label} {block} acceptance disagrees")
+
+    for algorithm, tau_prior in (("newton", "invgamma"),
+                                 ("mala", "halfnormal"),
+                                 ("rwmh", "halfnormal")):
+        def make_logistic(dv, tau_prior=tau_prior):
+            sd, _ = synth_logistic(5, G=16, n=20, p=3, device=dv)
+            return make_hier_logistic(sd, tau_prior=tau_prior), sd
+        small_reference(algorithm, make_logistic, algorithm,
+                        ("mu", "log_tau"), "beta")
+    for algorithm in ("rwmh", "mala", "newton"):
+        def make_poisson(dv):
+            sd, _ = synth_poisson3(5, G=8, subjects_per_group=3, n=10, p=2,
+                                   device=dv)
+            return make_nested_poisson(sd, tau_prior="invgamma"), sd
+        small_reference(f"nested-poisson {algorithm}", make_poisson,
+                        algorithm, ("mu", "log_tau_g", "log_tau_s"),
+                        "beta_s")
 
     # ---- 6. the end-to-end paths at full width ----
     launches_total = {}
 
-    def run_path(preset, expect, acc_range, shape, full_rhat=None,
+    def logistic_shapes(C_, P_, k_):
+        return lambda D: {"mu": (C_, D, P_), "log_tau": (C_, D, P_),
+                          "beta": (C_, D, k_, P_)}
+
+    def poisson_shapes(D):
+        return {"mu": (512, D, 3), "log_tau_g": (512, D, 3),
+                "log_tau_s": (512, D, 3), "beta_g": (512, D, 8, 3),
+                "beta_s": (512, D, 8, 3)}
+
+    def run_path(preset, expect, block, acc_range, shapes, full_rhat=None,
                  warmup=None, draws=None, gate=True):
         reset_launch_counts()
         result, post, run_info = bench.run(
@@ -568,7 +717,7 @@ def main() -> int:
         if launches != want:
             fail(f"{preset}: launches {launches} != expected {want}")
         worst = post.worst_rhat()
-        acc = float(post.accept_rates["beta"].mean())
+        acc = float(post.accept_rates[block].mean())
         n_par = run_info["n_params"]
         covered = sum(v.numel() for v in post.full_rhat.values())
         if covered != n_par:
@@ -576,75 +725,111 @@ def main() -> int:
                  "parameters")
         say(f"{preset}: worst all-param R-hat {worst:.5f} over {n_par} "
             f"parameters ({'gate < 1.01' if gate else 'NOT asserted: the '
-            'schedule was cut'}); beta sampling acceptance {acc:.4f} (in "
+            'schedule was cut'}); {block} sampling acceptance {acc:.4f} (in "
             f"{acc_range}); ESS/s/GPU {result['value']} min-ESS/s "
             f"{result['min_ess_per_sec_per_chip']} on '{smi}'")
         if gate and not worst < 1.01:
             fail(f"{preset}: worst R-hat {worst}")
         if not acc_range[0] < acc < acc_range[1]:
-            fail(f"{preset}: beta acceptance {acc}")
+            fail(f"{preset}: {block} acceptance {acc}")
         finite = all(bool(torch.isfinite(v).all())
                      for v in post.draws.values())
         finite &= all(bool(torch.isfinite(v).all())
                       for v in post.final_state.position.values())
         if not finite:
             fail(f"{preset}: NaN or inf in the draws or the final state")
-        C_, P_, k_ = shape
-        shapes = {k: tuple(v.shape) for k, v in post.draws.items()}
-        expect_shapes = {"mu": (C_, D, P_), "log_tau": (C_, D, P_),
-                         "beta": (C_, D, k_, P_)}
-        if shapes != expect_shapes:
-            fail(f"{preset}: draw shapes {shapes} != {expect_shapes}")
+        got = {k: tuple(v.shape) for k, v in post.draws.items()}
+        if got != shapes(D):
+            fail(f"{preset}: draw shapes {got} != {shapes(D)}")
         del post
         torch.cuda.empty_cache()
 
     def per_sweep(preset):
-        """Seconds a sweep at full width, from a short run (data, set-up
-        and the diagnostics included, so the estimate errs long)."""
+        """(seconds a sweep, fixed seconds) at full width from a 10/10 run:
+        the sweeps' wall over 20 (first sweeps included, so it errs long)
+        and the rest of the run (data, set-up, diagnostics)."""
         t0 = time.perf_counter()
-        bench.run(preset=preset, warmup=10, draws=10)
+        _, _, info = bench.run(preset=preset, warmup=10, draws=10)
         torch.cuda.empty_cache()
-        return (time.perf_counter() - t0) / 20
+        sweeps = info["warmup_s"] + info["sample_s"]
+        return sweeps / 20, time.perf_counter() - t0 - sweeps
+
+    def need_s(est, sched):
+        return 2.0 * est[1] + 1.15 * est[0] * sum(sched)
 
     run_path("hier-logistic-100-rw",
              {"rwmh_step": lambda W, D: W + D,
               "loglik": lambda W, D: W + D + 1},
-             (0.1, 0.5), (64, 4, 16), full_rhat=True)
+             "beta", (0.1, 0.5), logistic_shapes(64, 4, 16), full_rhat=True)
 
-    full = (1500, 4096)
-    s_m, s_j = per_sweep("mala-100k"), per_sweep("judged")
-    need_m = s_m * sum(full) * 1.15
-    j_min = (300, 512)
-    spare = left_s() - 60.0 - need_m - s_j * sum(j_min) * 1.15
+    run_path("nested-poisson-1k",
+             {"pois_rwmh_step": lambda W, D: W + D,
+              "pois_loglik": lambda W, D: 1 + 2 * (W + D)},
+             "beta_s", (0.1, 0.5), poisson_shapes)
+
+    full, p_full = (1500, 4096), (1000, 16384)
+    j_min, p_min = (300, 512), (1000, 2048)
+    est = {k: per_sweep(k) for k in ("mala-100k", "judged",
+                                     "nested-poisson-1k-mala",
+                                     "nested-poisson-1k-newton")}
+    variants = ("nested-poisson-1k-mala", "nested-poisson-1k-newton")
+    need_m = need_s(est["mala-100k"], full)
+    spare = (left_s() - 60.0 - need_m - need_s(est["judged"], j_min)
+             - sum(need_s(est[v], p_min) for v in variants))
     m_sched = full
     if spare < 0:
         scale = max(0.25, 1.0 + spare / need_m)
         m_sched = (full[0], max(1024, int(full[1] * scale) // 4 * 4))
-        say(f"CUT mala-100k: {full[0]}/{full[1]} needs ~{need_m:.0f} s at "
-            f"{s_m * 1e3:.1f} ms/sweep and {left_s():.0f} s are left: "
-            f"running warmup {m_sched[0]}, draws {m_sched[1]} at full width")
+        say(f"CUT mala-100k: {full[0]}/{full[1]} needs ~{need_m:.0f} s and "
+            f"{left_s():.0f} s are left: running warmup {m_sched[0]}, draws "
+            f"{m_sched[1]} at full width")
     run_path("mala-100k",
              {"mala_step": lambda W, D: W + D,
               "logp_grad": lambda W, D: W + D + 1},
-             (0.3, 0.9), (512, 3, 8),
+             "beta", (0.3, 0.9), logistic_shapes(512, 3, 8),
              warmup=m_sched[0], draws=m_sched[1], gate=m_sched == full)
 
-    need_j = s_j * sum(full) * 1.15
+    # config 3's variants run their full schedule only if the script would
+    # still end within 60% of its budget after them and the full judged
+    # run; otherwise their draws shrink first (to p_min at the least)
+    need_v = sum(need_s(est[v], p_full) for v in variants)
+    room = left_s() - 0.4 * BUDGET_S - need_s(est["judged"], full)
+    v_sched = p_full
+    if need_v > room:
+        scale = max(room, 0.0) / need_v
+        v_sched = (p_full[0], max(p_min[1], int(p_full[1] * scale) // 2 * 2))
+        say(f"CUT config 3's variants: {p_full[0]}/{p_full[1]} needs "
+            f"~{need_v:.0f} s and {left_s():.0f} s are left: running "
+            f"warmup {v_sched[0]}, draws {v_sched[1]} at full width")
+    run_path("nested-poisson-1k-mala",
+             {"pois_mala_step": lambda W, D: W + D,
+              "pois_logp_grad": lambda W, D: 1 + 2 * (W + D)},
+             "beta_s", (0.3, 0.9), poisson_shapes,
+             warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
+    run_path("nested-poisson-1k-newton",
+             {"pois_newton_step_refresh": lambda W, D: W,
+              "pois_newton_step_frozen": lambda W, D: D,
+              "pois_logp_grad_hess": lambda W, D: 1 + 2 * W,
+              "pois_logp_grad": lambda W, D: 2 * D},
+             "beta_s", (0.5, 1.0), poisson_shapes,
+             warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
+
+    need_j = need_s(est["judged"], full)
     avail = left_s() - 60.0
     j_sched = full
     if need_j > avail:
         scale = avail / need_j
         j_sched = (max(j_min[0], int(full[0] * scale)),
                    max(j_min[1], int(full[1] * scale) // 2 * 2))
-        say(f"CUT judged: {full[0]}/{full[1]} needs ~{need_j:.0f} s at "
-            f"{s_j * 1e3:.1f} ms/sweep, {avail:.0f} s left: running "
-            f"warmup {j_sched[0]}, draws {j_sched[1]} at full width")
+        say(f"CUT judged: {full[0]}/{full[1]} needs ~{need_j:.0f} s, "
+            f"{avail:.0f} s left: running warmup {j_sched[0]}, draws "
+            f"{j_sched[1]} at full width")
     run_path("judged",
              {"newton_step_refresh": lambda W, D: W,
               "newton_step_frozen": lambda W, D: D,
               "logp_grad_hess": lambda W, D: W + 1,
               "logp_grad": lambda W, D: D},
-             (0.5, 1.0), (1024, 4, 8),
+             "beta", (0.5, 1.0), logistic_shapes(1024, 4, 8),
              warmup=j_sched[0], draws=j_sched[1], gate=j_sched == full)
 
     print(json.dumps({"kernels": [

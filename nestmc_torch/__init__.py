@@ -1,10 +1,12 @@
 """nestmc_torch: the PyTorch + CUDA port of nestmc for one NVIDIA H100.
 
 The JAX package ``nestmc`` is the reference; this package mirrors its
-module tree. So far it runs the judged path: the hierarchical logistic
-model with Newton-MH group updates, exact conjugate mu / log tau draws and
-the joint (mu, log tau) interweaving move, with the obs passes and the
-Newton step as hand-written CUDA kernels (``csrc/``). Tensors on a CUDA
+module tree. So far it runs the hierarchical logistic model (Newton-MH,
+MALA and RW-MH group updates, both tau priors, the joint (mu, log tau)
+interweaving move) and the three-level nested Poisson GLMM (the same three
+subject updates, conjugate beta_g / mu / tau draws, the tau_g and tau_s
+interweaving moves), with the obs passes and the fused steps as
+hand-written CUDA kernels (``csrc/``). Tensors on a CUDA
 device launch the kernels; tensors on the CPU run their plain PyTorch
 versions. It imports torch and numpy, never jax.
 """
@@ -15,7 +17,7 @@ from nestmc_torch.config import (
     SamplerConfig,
     ShardingConfig,
 )
-from nestmc_torch.data import NestedData, from_numpy
+from nestmc_torch.data import NestedData, NestedData3, from_numpy, from_numpy3
 from nestmc_torch.engine import sample
 from nestmc_torch.model import Block, ModelSpec
 from nestmc_torch.posterior import Posterior
@@ -28,12 +30,14 @@ __all__ = [
     "KernelConfig",
     "ModelSpec",
     "NestedData",
+    "NestedData3",
     "Posterior",
     "RunConfig",
     "SamplerConfig",
     "ShardingConfig",
     "SweepRNG",
     "from_numpy",
+    "from_numpy3",
     "sample",
     "__version__",
 ]

@@ -6,9 +6,13 @@ p=4), 1024 chains, 1500 warmup sweeps and 4096 retained draws,
 frozen-metric Newton-MH with the fused step, the inverse-gamma tau prior,
 streamed split R-hat over all 4008 parameters. ``--preset mala-100k`` (config
 5: G=100,000, n=20, p=3, 512 chains, MALA, half-normal tau, R-hat streamed
-on every 4th draw over all 300,006 parameters) and ``--preset
+on every 4th draw over all 300,006 parameters), ``--preset
 hier-logistic-100-rw`` (config 2's RW-MH state; its streamed R-hat is
-switched on here) run the others (nestmc_torch/presets.py).
+switched on here) and ``--preset nested-poisson-1k`` (config 3: G=1000
+groups x 4 subjects x 10 obs, p=3, 512 chains, 1000/16384, RW-MH on the
+subjects, R-hat over all 15,009 parameters; ``-mala`` and ``-newton`` change
+the subject update) run the others (nestmc_torch/presets.py). ``--seed``
+picks the run's seed (the data and the chains; default 0).
 
 Prints one JSON line with bench.py's fields; ``value`` is the sum of bulk
 ESS over the collected scalars (judged: mu 4 + log_tau 4 + the first 8
@@ -41,6 +45,10 @@ TITLES = {
     "judged": "1k-group hierarchical logistic",
     "mala-100k": "100k-group hierarchical logistic, MALA",
     "hier-logistic-100-rw": "100-group hierarchical logistic, RW-MH",
+    "nested-poisson-1k": "3-level nested Poisson GLMM, 1k groups",
+    "nested-poisson-1k-mala": "3-level nested Poisson GLMM, 1k groups, MALA",
+    "nested-poisson-1k-newton":
+        "3-level nested Poisson GLMM, 1k groups, Newton-MH",
 }
 
 
@@ -60,10 +68,11 @@ def n_params(model) -> int:
 
 def run(chains: int | None = None, warmup: int | None = None,
         draws: int | None = None, device="cuda", preset: str = "judged",
-        full_rhat: bool | None = None):
-    """Sample a preset (its own schedule unless overridden); returns
-    (result dict, Posterior, info dict of the schedule and timings)."""
-    model, data, cfg = get_preset(preset, device=device)
+        full_rhat: bool | None = None, seed: int = 0):
+    """Sample a preset (its own schedule unless overridden) from ``seed``;
+    returns (result dict, Posterior, info dict of the schedule, timings
+    and the peak device memory)."""
+    model, data, cfg = get_preset(preset, seed=seed, device=device)
     over = {k: v for k, v in (("chains", chains), ("warmup", warmup),
                               ("draws", draws), ("full_rhat", full_rhat))
             if v is not None}
@@ -72,20 +81,30 @@ def run(chains: int | None = None, warmup: int | None = None,
                                      **over)
     )
     rc = cfg.run
+    dev = torch.device(device)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     post = sample(model, data, cfg)
+    peak_sampling = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_d = time.perf_counter()
+    worst = post.worst_rhat()
+    diag_s = time.perf_counter() - t_d
     wall = time.perf_counter() - t0
 
     sample_s = post.timings["sample_s"]
-    worst = post.worst_rhat()
     floor = post.min_ess_argmin()
     floor_all = post.min_ess_all_params()
     value = post.total_ess() / sample_s
     min_rate = post.min_ess() / sample_s
     n_scalars = sum(math.prod(v.shape[2:]) for v in post.draws.values())
     info = {
-        "preset": preset, "chains": rc.chains, "warmup": rc.warmup,
-        "draws": rc.draws, "n_params": n_params(model), "wall_s": wall,
+        "preset": preset, "seed": seed, "chains": rc.chains,
+        "warmup": rc.warmup, "draws": rc.draws, "n_params": n_params(model),
+        "wall_s": wall, "diagnostics_s": diag_s,
+        "worst_rhat_at": post.worst_rhat_at(),
+        "peak_mem_gb_sampling": peak_sampling / 1e9,
+        "peak_mem_gb_diagnostics": torch.cuda.max_memory_allocated(dev) / 1e9,
         "sweeps_per_s": (rc.warmup + rc.draws)
         / (post.timings["warmup_s"] + sample_s),
         **post.timings,
@@ -123,6 +142,7 @@ def run(chains: int | None = None, warmup: int | None = None,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="judged", choices=sorted(PRESETS))
+    ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[bench] no CUDA device: the benchmark runs on a GPU only",
@@ -137,6 +157,7 @@ def main(argv=None) -> int:
         chains=env("NESTMC_BENCH_CHAINS_PER_CHIP"),
         warmup=env("NESTMC_BENCH_WARMUP"), draws=env("NESTMC_BENCH_DRAWS"),
         preset=a.preset, full_rhat=True,   # the gate covers every parameter
+        seed=a.seed,
     )
     print(f"[bench] {json.dumps(info)}", file=sys.stderr)
     worst = post.worst_rhat()

@@ -1,7 +1,7 @@
-// Per-observation Bernoulli-logit terms, shared by every kernel that makes
-// an obs pass (loglik_logistic.cu, newton_accept.cu, mala_accept.cu,
-// mh_accept.cu), so the eval kernels and the fused steps compute the same
-// numbers.
+// Per-observation Bernoulli-logit terms: the Logit family of obs_pass.cuh,
+// shared by the hierarchical logistic kernels (loglik_logistic.cu,
+// newton_accept.cu, mala_accept.cu, mh_accept.cu), so the eval kernels and
+// the fused steps compute the same numbers.
 //
 // Port of nestmc/ops/pallas/loglik_logistic.py::_lik_terms_w: one exp and
 // one log1p per observation. With e = exp(-|eta|):
@@ -11,8 +11,6 @@
 // Built without --use_fast_math: expf/log1pf keep full accuracy and a NaN
 // eta stays NaN, so a NaN proposal is rejected by the accept rule.
 #pragma once
-
-#include "smallchol.cuh"
 
 namespace nestmc {
 
@@ -35,76 +33,19 @@ __device__ __forceinline__ float logit_ll(float eta, float y, float m) {
   return (y * eta - sp) * m;
 }
 
-// Value-only pass over a group's n observations (staged as for obs_pass).
-template <int P>
-__device__ __forceinline__ float obs_loglik(const float* xs, const float* ys,
-                                            const float* ms, int n,
-                                            const float (&b)[P]) {
-  float ll = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    float eta = 0.0f;
-#pragma unroll
-    for (int k = 0; k < P; ++k) eta = fmaf(xs[i * P + k], b[k], eta);
-    ll += logit_ll(eta, ys[i], ms[i]);
+// Hierarchical logistic groups: per-chain prior mean mu (C, P), no
+// parameter-free loglik constant.
+struct Logit {
+  static constexpr bool kUnitMean = false;
+  static constexpr bool kConst = false;
+  static __device__ __forceinline__ void terms(float eta, float y, float m,
+                                               float& ll, float& resid,
+                                               float& w) {
+    logit_terms(eta, y, m, ll, resid, w);
   }
-  return ll;
-}
-
-// One pass over a group's n observations, staged in shared memory as
-// xs (n, P) row-major, ys (n), ms (n). Accumulates the loglik, the P
-// gradient sums and, when HESS, the T packed -Hessian sums in registers.
-template <int P, bool HESS>
-__device__ __forceinline__ void obs_pass(const float* xs, const float* ys,
-                                         const float* ms, int n,
-                                         const float (&b)[P], float& ll,
-                                         float (&g)[P],
-                                         float (&h)[packed_dim(P)]) {
-  ll = 0.0f;
-#pragma unroll
-  for (int k = 0; k < P; ++k) g[k] = 0.0f;
-#pragma unroll
-  for (int t = 0; t < packed_dim(P); ++t) h[t] = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    float xi[P];
-    float eta = 0.0f;
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      xi[k] = xs[i * P + k];
-      eta = fmaf(xi[k], b[k], eta);
-    }
-    float l, r, w;
-    logit_terms(eta, ys[i], ms[i], l, r, w);
-    ll += l;
-#pragma unroll
-    for (int k = 0; k < P; ++k) g[k] = fmaf(xi[k], r, g[k]);
-    if (HESS) {
-#pragma unroll
-      for (int a = 0; a < P; ++a) {
-#pragma unroll
-        for (int c = 0; c <= a; ++c) {
-          h[pidx(a, c)] = fmaf(xi[a] * xi[c], w, h[pidx(a, c)]);
-        }
-      }
-    }
+  static __device__ __forceinline__ float value(float eta, float y, float m) {
+    return logit_ll(eta, y, m);
   }
-}
-
-// Stage group g's x (n*P), y and mask (n) in dynamic shared memory. Every
-// thread of the block must call it (it ends in __syncthreads).
-template <int P>
-__device__ __forceinline__ void stage_group(const float* __restrict__ x,
-                                            const float* __restrict__ y,
-                                            const float* __restrict__ mask,
-                                            int g, int n, float* xs,
-                                            float* ys, float* ms) {
-  const size_t xoff = (size_t)g * n * P;
-  for (int i = threadIdx.x; i < n * P; i += blockDim.x) xs[i] = x[xoff + i];
-  const size_t yoff = (size_t)g * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    ys[i] = y[yoff + i];
-    ms[i] = mask[yoff + i];
-  }
-  __syncthreads();
-}
+};
 
 }  // namespace nestmc

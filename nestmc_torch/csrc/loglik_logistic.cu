@@ -1,6 +1,6 @@
 // Masked Bernoulli-logit obs passes: loglik + gradient (logp_grad),
 // loglik + gradient + packed -Hessian (logp_grad_hess) and the value-only
-// loglik (loglik).
+// loglik (loglik): the Logit instantiations of loglik_kernels.cuh.
 //
 // Replaces nestmc/ops/pallas/loglik_logistic.py::logistic_logp_grad_pallas,
 // ::logistic_logp_grad_hess_pallas and ::logistic_loglik_padded_pallas.
@@ -33,72 +33,12 @@
 // at G=100,000 the uncoalesced per-cell loads and stores cost more than
 // at the judged G=1000.
 
-#include <cuda_runtime.h>
-
 #include "logistic_terms.cuh"
+#include "loglik_kernels.cuh"
 
 #ifndef NESTMC_P
 #error "build with -DNESTMC_P=<covariate count>"
 #endif
-
-namespace nestmc {
-
-constexpr int kThreads = 128;
-
-template <int P, bool HESS>
-__global__ void __launch_bounds__(kThreads)
-    logp_grad_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     const float* __restrict__ mask,
-                     const float* __restrict__ beta, float* __restrict__ out_v,
-                     float* __restrict__ out_g, float* __restrict__ out_h,
-                     int C, int G, int n) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* ys = xs + n * P;
-  float* ms = ys + n;
-  const int g = blockIdx.x;
-  stage_group<P>(x, y, mask, g, n, xs, ys, ms);
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const size_t cell = (size_t)c * G + g;
-
-  float b[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) b[k] = beta[cell * P + k];
-  float ll, gs[P], hs[packed_dim(P)];
-  obs_pass<P, HESS>(xs, ys, ms, n, b, ll, gs, hs);
-  out_v[cell] = ll;
-#pragma unroll
-  for (int k = 0; k < P; ++k) out_g[cell * P + k] = gs[k];
-  if (HESS) {
-#pragma unroll
-    for (int t = 0; t < packed_dim(P); ++t)
-      out_h[cell * packed_dim(P) + t] = hs[t];
-  }
-}
-
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-    loglik_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ mask,
-                  const float* __restrict__ beta, float* __restrict__ out_v,
-                  int C, int G, int n) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* ys = xs + n * P;
-  float* ms = ys + n;
-  const int g = blockIdx.x;
-  stage_group<P>(x, y, mask, g, n, xs, ys, ms);
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const size_t cell = (size_t)c * G + g;
-  float b[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) b[k] = beta[cell * P + k];
-  out_v[cell] = obs_loglik<P>(xs, ys, ms, n, b);
-}
-
-}  // namespace nestmc
 
 // Value-only loglik (C, G). Returns the cudaError_t of the launch.
 extern "C" int nestmc_loglik(const float* x, const float* y,
@@ -106,12 +46,9 @@ extern "C" int nestmc_loglik(const float* x, const float* y,
                              float* out_v, int C, int G, int n,
                              void* stream) {
   using namespace nestmc;
-  constexpr int P = NESTMC_P;
-  const dim3 grid(G, (C + kThreads - 1) / kThreads);
-  const size_t smem = sizeof(float) * (size_t)n * (P + 2);
-  loglik_kernel<P><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, mask, beta, out_v, C, G, n);
-  return (int)cudaGetLastError();
+  return (int)launch_loglik<Logit, NESTMC_P>(
+      x, y, mask, nullptr, beta, out_v, C, G, n,
+      static_cast<cudaStream_t>(stream));
 }
 
 // out_h == nullptr selects logp_grad, otherwise logp_grad_hess. Returns the
@@ -121,16 +58,7 @@ extern "C" int nestmc_logp_grad(const float* x, const float* y,
                                 float* out_v, float* out_g, float* out_h,
                                 int C, int G, int n, void* stream) {
   using namespace nestmc;
-  constexpr int P = NESTMC_P;
-  const dim3 grid(G, (C + kThreads - 1) / kThreads);
-  const size_t smem = sizeof(float) * (size_t)n * (P + 2);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_h == nullptr) {
-    logp_grad_kernel<P, false><<<grid, kThreads, smem, s>>>(
-        x, y, mask, beta, out_v, out_g, out_h, C, G, n);
-  } else {
-    logp_grad_kernel<P, true><<<grid, kThreads, smem, s>>>(
-        x, y, mask, beta, out_v, out_g, out_h, C, G, n);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_logp_grad<Logit, NESTMC_P>(
+      x, y, mask, nullptr, beta, out_v, out_g, out_h, C, G, n,
+      static_cast<cudaStream_t>(stream));
 }

@@ -49,6 +49,7 @@ class ModelSpec:
     init_state(rng, data, chains) -> {name: (C, *shape)}.
     cond_logdensity(name, value, state, data) -> (C, U) or (C,): every term
       of the joint that involves block ``name``, at ``value``.
+    joint_logdensity(state, data) -> (C,): the full joint log density.
     cond_value_and_grad(name, value, state, data) -> (value, grad) of the
       same in closed form, or None (kernels/mala.py then differentiates
       cond_logdensity with torch.autograd).
@@ -78,6 +79,7 @@ class ModelSpec:
     init_state: Callable
     cond_logdensity: Callable | None = None
     cond_value_and_grad: Callable | None = None
+    joint_logdensity: Callable | None = None
     cond_cached: dict = dataclasses.field(default_factory=dict)
     cond_cached_grad: dict = dataclasses.field(default_factory=dict)
     gibbs_draws: dict = dataclasses.field(default_factory=dict)

@@ -16,6 +16,13 @@ LAUNCHES = {
     "newton_step_frozen": 0,
     "mala_step": 0,
     "rwmh_step": 0,
+    "pois_loglik": 0,
+    "pois_logp_grad": 0,
+    "pois_logp_grad_hess": 0,
+    "pois_rwmh_step": 0,
+    "pois_mala_step": 0,
+    "pois_newton_step_refresh": 0,
+    "pois_newton_step_frozen": 0,
 }
 
 

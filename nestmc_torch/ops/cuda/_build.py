@@ -43,6 +43,11 @@ _SIGNATURES = {
     "nestmc_mala_step": [_P] * 19 + [_F] * 4 + [_I] * 3 + [_U] * 2 + [_P],
     "nestmc_rwmh_step": [_P] * 13 + [_I] * 3 + [_U] * 2 + [_P],
     "nestmc_philox_probe": [_P, _P, _I, _U, _U, _P],
+    "nestmc_pois_loglik": [_P] * 6 + [_I] * 3 + [_P],
+    "nestmc_pois_logp_grad": [_P] * 8 + [_I] * 3 + [_P],
+    "nestmc_pois_rwmh_step": [_P] * 14 + [_I] * 3 + [_U] * 2 + [_P],
+    "nestmc_pois_mala_step": [_P] * 16 + [_I] * 3 + [_U] * 2 + [_P],
+    "nestmc_pois_newton_step": [_P] * 18 + [_I] * 3 + [_U] * 2 + [_I, _P],
 }
 
 _libs: dict = {}

@@ -1,8 +1,10 @@
-"""Plain PyTorch references of the padded Bernoulli-logit obs passes.
+"""Plain PyTorch references of the padded Bernoulli-logit and Poisson-log
+obs passes.
 
-Port of the padded logistic functions of :mod:`nestmc.ops.loglik`. These
-are the plain versions the CUDA obs-pass kernels (ops/cuda/loglik_logistic)
-are held against, and what those wrappers run on CPU tensors.
+Port of the padded logistic and Poisson functions of
+:mod:`nestmc.ops.loglik`. These are the plain versions the CUDA obs-pass
+kernels (ops/cuda/loglik_logistic, ops/cuda/loglik_poisson) are held
+against, and what those wrappers run on CPU tensors.
 
 Shapes:
   beta: (C, G, p)   x: (G, n, p)   y, mask: (G, n)
@@ -67,6 +69,58 @@ def logistic_logp_grad_hess_padded(beta, x, y, mask):
     ll, resid, w = _terms(_eta(beta, x), y, mask)
     return (
         ll.sum(dim=-1),
+        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
+        torch.einsum("cgn,gnt->cgt", w, xx_packed(x)).contiguous(),
+    )
+
+
+# ---- Poisson-log (the nested Poisson subject block) ----
+#
+# Units are subjects: beta (C, S, p), x (S, n, p), y and mask (S, n). One
+# exp per observation gives the loglik term y eta - rate, the gradient
+# weight y - rate and the curvature w = rate (csrc/poisson_terms.cuh). The
+# parameter-free sum_i mask lgamma(y + 1) is the per-subject constant
+# const_s (S,) (:func:`poisson_const`), subtracted once per unit; callers
+# that evaluate often pass it in.
+
+
+def poisson_const(y, mask):
+    """(S,) sum_i mask * lgamma(y + 1)."""
+    return torch.sum(torch.lgamma(y + 1.0) * mask, dim=-1)
+
+
+def _pois_terms(eta, y, mask):
+    rate = torch.exp(eta)
+    return (y * eta - rate) * mask, (y - rate) * mask, rate * mask
+
+
+def poisson_loglik_padded(beta, x, y, mask, const=None):
+    """sum_i mask * [y*eta - exp(eta) - lgamma(y+1)] -> (C, S)."""
+    if const is None:
+        const = poisson_const(y, mask)
+    ll, _, _ = _pois_terms(_eta(beta, x), y, mask)
+    return ll.sum(dim=-1) - const
+
+
+def poisson_logp_grad_padded(beta, x, y, mask, const=None):
+    """((C, S) loglik, (C, S, p) grad sum_i mask (y - exp(eta)) x_i)."""
+    if const is None:
+        const = poisson_const(y, mask)
+    ll, resid, _ = _pois_terms(_eta(beta, x), y, mask)
+    return (
+        ll.sum(dim=-1) - const,
+        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
+    )
+
+
+def poisson_logp_grad_hess_padded(beta, x, y, mask, const=None):
+    """((C, S) loglik, (C, S, p) grad, (C, S, T) packed -Hessian
+    sum_i mask exp(eta) x_i x_i^T)."""
+    if const is None:
+        const = poisson_const(y, mask)
+    ll, resid, w = _pois_terms(_eta(beta, x), y, mask)
+    return (
+        ll.sum(dim=-1) - const,
         torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
         torch.einsum("cgn,gnt->cgt", w, xx_packed(x)).contiguous(),
     )

@@ -47,6 +47,25 @@ class Posterior:
             return float("nan")
         return float(torch.stack([v.float().cpu() for v in vals]).max())
 
+    def worst_rhat_at(self) -> dict | None:
+        """{'block', 'index', 'rhat', 'kind'} of the largest R-hat that
+        worst_rhat reports: 'rank' (a collected scalar's rank-normalised
+        R-hat) or 'streamed' (a unit's classic split R-hat)."""
+        best = None
+        sources = [("rank", k, v["rhat"]) for k, v in
+                   self.diagnostics().items()]
+        sources += [("streamed", k, v) for k, v in
+                    (self.full_rhat or {}).items()]
+        for kind, name, r in sources:
+            r = r.float().cpu().numpy()
+            idx = int(np.argmax(r))
+            val = float(r.ravel()[idx])
+            if best is None or val > best["rhat"]:
+                best = {"block": name, "kind": kind, "rhat": val,
+                        "index": tuple(int(i) for i in
+                                       np.unravel_index(idx, r.shape))}
+        return best
+
     def total_ess(self, kind: str = "ess_bulk") -> float:
         """Sum of ESS over every collected scalar parameter."""
         d = self.diagnostics()

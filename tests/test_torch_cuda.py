@@ -17,8 +17,15 @@ from nestmc_torch.config import KernelConfig, RunConfig, SamplerConfig
 from nestmc_torch.diagnostics import fold_rhat_scalars
 from nestmc_torch.kernels.gibbs import make_sweep
 from nestmc_torch.kernels.state import init_kernel_state
-from nestmc_torch.models import make_hier_logistic, synth_logistic
+from nestmc_torch.models import (
+    make_hier_logistic,
+    make_nested_poisson,
+    synth_logistic,
+    synth_poisson3,
+)
 from nestmc_torch.ops import loglik
+from nestmc_torch.ops.cuda import loglik_poisson as pois
+from nestmc_torch.ops.cuda import poisson_accept as pacc
 from nestmc_torch.ops.cuda import LAUNCHES, reset_launch_counts
 from nestmc_torch.ops.cuda.loglik_logistic import (
     logistic_loglik,
@@ -267,4 +274,176 @@ def test_default_config_mala_rw_sweeps_launch_kernels(dev, algorithm):
     assert LAUNCHES[step] == 2
     assert LAUNCHES[obs] == 3          # init cache + one move eval a sweep
     assert sum(LAUNCHES.values()) == 5
+    assert all(bool(torch.isfinite(v).all()) for v in state.position.values())
+
+
+def _pois_inputs(dev, C=130, G=5, spg=3, n=11, p=3, seed=1):
+    """Nested Poisson data (a masked tail on subject 0), a spread-out
+    beta_s, per-subject prior means, log tau_s and external noise."""
+    data, _ = synth_poisson3(seed, G=G, subjects_per_group=spg, n=n, p=p,
+                             device=dev)
+    mask = data.mask.clone()
+    mask[0, n - 4:] = 0.0
+    y = data.y * mask
+    S = G * spg
+    g = torch.Generator().manual_seed(seed)
+    beta = 0.3 * torch.randn(C, S, p, generator=g)
+    bgs = beta + 0.2 * torch.randn(C, S, p, generator=g)
+    lts = -1.2 + 0.2 * torch.randn(C, p, generator=g)
+    eps = torch.randn(C, S, p, generator=g)
+    logu = torch.log(torch.rand(C, S, generator=g))
+    return [data.x, y, mask] + [t.to(dev) for t in (beta, bgs, lts, eps,
+                                                    logu)]
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_poisson_obs_pass_kernels_match_plain(dev, p):
+    x, y, mask, beta = _pois_inputs(dev, p=p)[:4]
+    const = loglik.poisson_const(y, mask)
+    reset_launch_counts()
+    for kern, plain, key in (
+        (lambda *a, **k: (pois.poisson_loglik(*a, **k),),
+         lambda *a, **k: (loglik.poisson_loglik_padded(*a, **k),),
+         "pois_loglik"),
+        (pois.poisson_logp_grad, loglik.poisson_logp_grad_padded,
+         "pois_logp_grad"),
+        (pois.poisson_logp_grad_hess, loglik.poisson_logp_grad_hess_padded,
+         "pois_logp_grad_hess"),
+    ):
+        for c in (None, const):
+            out = kern(beta, x, y, mask, const=c)
+            ref = plain(beta, x, y, mask, const=c)
+            torch.cuda.synchronize()
+            for a, b in zip(out, ref):
+                _assert_close(a, b, key)
+        assert LAUNCHES[key] == 2
+    assert sum(LAUNCHES.values()) == 6
+
+
+@pytest.mark.parametrize("algorithm", ["rwmh", "mala", "newton", "frozen"])
+def test_poisson_step_kernels_match_plain(dev, algorithm):
+    x, y, mask, beta, bgs, lts, eps, logu = _pois_inputs(dev)
+    C, S, p = beta.shape
+    v, g, h = loglik.poisson_logp_grad_hess_padded(beta, x, y, mask)
+    noise = (eps, logu)
+    reset_launch_counts()
+    if algorithm == "rwmh":
+        ls = torch.full((C, S), -1.8, device=dev)
+        args = (beta, v, ls, bgs, lts, x, y, mask)
+        out = pacc.fused_rwmh_poisson_step(*args, noise=noise)
+        ref = pacc.fused_rwmh_poisson_step_plain(*args, noise)
+        key, alpha_i = "pois_rwmh_step", 2
+    elif algorithm == "mala":
+        ls = torch.full((C, 1), -1.5, device=dev)
+        args = (beta, v, g, ls, bgs, lts, x, y, mask)
+        out = pacc.fused_mala_poisson_step(*args, noise=noise)
+        ref = pacc.fused_mala_poisson_step_plain(
+            *args[:3], ls.expand(C, S), *args[4:], noise)
+        key, alpha_i = "pois_mala_step", 3
+    else:
+        frozen = algorithm == "frozen"
+        ls = torch.zeros(C, S, device=dev)
+        args = (beta, v, g, h, ls, bgs, lts, x, y, mask)
+        out = pacc.fused_newton_poisson_step(*args, noise=noise,
+                                             frozen=frozen)
+        ref = pacc.fused_newton_poisson_step_plain(*args, noise,
+                                                   frozen=frozen)
+        key = ("pois_newton_step_frozen" if frozen
+               else "pois_newton_step_refresh")
+        alpha_i = 4
+        if frozen:
+            assert out[3] is h
+            out, ref = out[:3] + out[4:], ref[:3] + ref[4:]
+            alpha_i = 3
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == 1 and sum(LAUNCHES.values()) == 1
+    assert 0.05 < float(ref[alpha_i].mean()) <= 1.0
+    _check_step(out, ref, beta, logu, alpha_i)
+
+
+def test_poisson_step_kernels_reject_nan_proposals(dev):
+    x, y, mask, beta, bgs, lts, eps, logu = _pois_inputs(dev)
+    C, S, p = beta.shape
+    v, g, h = loglik.poisson_logp_grad_hess_padded(beta, x, y, mask)
+    noise = (torch.full_like(eps, float("nan")), logu)
+    ls = torch.zeros(C, S, device=dev)
+    outs = (
+        pacc.fused_rwmh_poisson_step(beta, v, ls, bgs, lts, x, y, mask,
+                                     noise=noise),
+        pacc.fused_mala_poisson_step(beta, v, g, ls, bgs, lts, x, y, mask,
+                                     noise=noise),
+        pacc.fused_newton_poisson_step(beta, v, g, h, ls, bgs, lts, x, y,
+                                       mask, noise=noise),
+    )
+    torch.cuda.synchronize()
+    for out in outs:
+        assert bool((out[-1] == 0.0).all())
+        assert torch.equal(out[0], beta) and torch.equal(out[1], v)
+
+
+def test_poisson_step_kernels_philox_path(dev):
+    """The in-kernel noise path of the three Poisson steps launches and
+    stays finite with a plausible acceptance; at a tiny RW scale (every
+    proposal accepted) the moves (new - beta) / s are its normals."""
+    x, y, mask, beta, bgs, lts = _pois_inputs(dev, C=1024)[:6]
+    C, S, p = beta.shape
+    v, g, h = loglik.poisson_logp_grad_hess_padded(beta, x, y, mask)
+    rng = SweepRNG(0, dev)
+    ls = torch.full((C, S), -1.5, device=dev)
+    reset_launch_counts()
+    outs = [
+        pacc.fused_rwmh_poisson_step(beta, v, ls, bgs, lts, x, y, mask,
+                                     rng=rng),
+        pacc.fused_mala_poisson_step(beta, v, g, ls, bgs, lts, x, y, mask,
+                                     rng=rng),
+    ]
+    for frozen in (False, True):
+        outs.append(pacc.fused_newton_poisson_step(
+            beta, v, g, h, torch.zeros(C, S, device=dev), bgs, lts, x, y,
+            mask, rng=rng, frozen=frozen))
+    torch.cuda.synchronize()
+    for o in outs:
+        assert all(bool(torch.isfinite(t).all()) for t in o)
+        assert 0.1 < float(o[-1].mean()) <= 1.0
+    for k in ("pois_rwmh_step", "pois_mala_step", "pois_newton_step_refresh",
+              "pois_newton_step_frozen"):
+        assert LAUNCHES[k] == 1, k
+    tiny = torch.full((C, S), -8.0, device=dev)
+    out = pacc.fused_rwmh_poisson_step(beta, v, tiny, bgs, lts, x, y, mask,
+                                       rng=rng)
+    torch.cuda.synchronize()
+    assert float(out[2].mean()) > 0.99
+    z = ((out[0] - beta) / torch.exp(tiny)[..., None]).double().cpu()
+    z = z[(out[0] != beta).any(-1).cpu()].ravel()
+    n = z.numel()
+    assert n > 0.95 * C * S * p
+    assert abs(float(z.mean())) < 4 / math.sqrt(n)
+    assert abs(float(z.std()) - 1.0) < 4 / math.sqrt(2 * n)
+
+
+@pytest.mark.parametrize("algorithm", ["rwmh", "mala", "newton"])
+def test_default_config_poisson_sweeps_launch_kernels(dev, algorithm):
+    """A default-config nested Poisson sweep (invgamma) runs its fused
+    subject step and its obs-pass kernel on the card in both phases, and
+    no logistic kernel."""
+    data, _ = synth_poisson3(4, G=7, subjects_per_group=3, n=9, p=3,
+                             device=dev)
+    model = make_nested_poisson(data, tau_prior="invgamma")
+    cfg = SamplerConfig(kernel=KernelConfig(algorithm=algorithm),
+                        run=RunConfig(chains=130, log_every_segment=False))
+    rng = SweepRNG(0, dev)
+    reset_launch_counts()
+    state = init_kernel_state(model, cfg, rng, data)
+    sweep = make_sweep(model, cfg)
+    state = sweep(state, data, True, rng)
+    state = sweep(state, data, False, rng)
+    torch.cuda.synchronize()
+    want = {
+        "rwmh": {"pois_rwmh_step": 2, "pois_loglik": 5},
+        "mala": {"pois_mala_step": 2, "pois_logp_grad": 5},
+        "newton": {"pois_newton_step_refresh": 1,
+                   "pois_newton_step_frozen": 1,
+                   "pois_logp_grad_hess": 3, "pois_logp_grad": 2},
+    }[algorithm]
+    assert {k: v for k, v in LAUNCHES.items() if v} == want
     assert all(bool(torch.isfinite(v).all()) for v in state.position.values())

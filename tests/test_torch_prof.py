@@ -20,3 +20,17 @@ def test_profile_reports_both_phases(tmp_path, capsys):
             "newton beta", "gibbs mu", "gibbs log_tau", "move asis_tau"}
         assert any("asis_tau_move" in k for k in r["host_top"])
     assert "== sampling ==" in out.read_text()
+
+
+def test_profile_covers_the_nested_poisson_blocks(capsys):
+    """Config 3's preset: every Gibbs draw, the fused subject step and both
+    interweaving moves get a per-block time."""
+    assert prof.main(["--preset", "nested-poisson-1k", "--device", "cpu",
+                      "--chains", "4", "--groups", "3", "--sweeps", "2",
+                      "--repeats", "1"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["G"] == 3 and report["chains"] == 4
+    for phase in ("warmup", "sampling"):
+        assert set(report[phase]["block_ms"]) == {
+            "rwmh beta_s", "gibbs beta_g", "gibbs mu", "gibbs log_tau_g",
+            "gibbs log_tau_s", "move asis_tau_g", "move asis_tau_s"}
