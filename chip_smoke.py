@@ -16,32 +16,44 @@ Needs one CUDA card and this checkout (it builds the kernels from
    outputs are compared with the plain version on the first 64 chains
    (cells are independent per chain, so the comparison is exact; the plain
    version's (C, G, n) temporaries are 4.1 GB each at full width); the RW
-   preset's shape (C=64, G=100, n=50, p=4) for rwmh_step and loglik. Dense
-   and masked data, with and without the R-hat fold. Each line: the max
-   error against the stated tolerance, the accept decisions that differ
+   preset's shape (C=64, G=100, n=50, p=4) for rwmh_step and loglik;
+   config 4's data (ragged-10k at seed 0: C=1024, G=10,000 groups of 5..30
+   obs, N about 175,000, p=3) for the two segment kernels (tolerance
+   |a-b| <= 2e-5 + rtol |b|, rtol 2e-5 for the loglik and 2e-4 for the
+   gradient, the reference's segment contract), with a small case of
+   empty groups and a group of more observations than one staged chunk,
+   and the widest size bucket of that data (C=1024, about 5,400 groups,
+   cap 32, p=3) for the bucketed route's obs passes and Newton and MALA
+   steps. Dense and masked data, with and without the R-hat fold. Each
+   line: the max error against the stated tolerance (1e-3 + 1e-4 |ref|
+   where no other is said), the accept decisions that differ
    (all must lie within |log alpha - log u| < 1e-3), both times (CUDA
    events; median over 7 batches of 10 back-to-back launches, after
    warm-up; the plain version at full width unless it runs out of memory,
    then on the slice, which the line says) and the bound (below);
 4. the moments of the in-kernel Philox normals and uniforms;
 5. small-input references: the hierarchical logistic (Newton, MALA,
-   RW-MH) and nested Poisson (RW-MH, MALA, Newton) samplers on the card vs
-   their plain versions on the CPU (posterior means of the population
-   parameters within 4 combined MCSEs, mean beta / beta_s acceptance
-   within 0.05);
-6. the end-to-end paths through nestmc_torch.bench at full width, launch
-   counters reset just before each and read just after: the RW-MH preset
-   (hier-logistic-100-rw, streamed R-hat switched on), config 3
-   (nested-poisson-1k, full schedule, never cut), config 5 (mala-100k),
-   config 3's MALA and Newton variants and the judged config. Each must
-   launch exactly its kernels, as many times as its schedule implies,
-   reach worst all-parameter R-hat < 1.01, a plausible acceptance of its
-   MH-updated block and no NaN. When the time budget requires, depth is
-   cut (never width), and the R-hat line is then printed, not asserted:
-   first config 3's variants (they run their full schedule only if the
-   script would still end within 60% of its budget), then the judged run;
-   mala-100k's draws only if even a minimal judged run would not fit. The
-   script says so.
+   RW-MH; on ragged data Newton on the bucket route and MALA on the
+   segment route) and nested Poisson (RW-MH, MALA, Newton) samplers on
+   the card vs their plain versions on the CPU (posterior means of the
+   population parameters within 4 combined MCSEs, mean beta / beta_s
+   acceptance within 0.05);
+6. the end-to-end paths at full width, launch counters reset just before
+   each and read just after: the RW-MH preset (hier-logistic-100-rw,
+   streamed R-hat switched on), config 3 (nested-poisson-1k), config 4
+   (ragged-10k: Newton-MH per size bucket; both at full schedule, never
+   cut), config 5 (mala-100k), config 4's data on the segment-kernel
+   route (ragged-10k-mala's model built with loglik_impl='pallas-segment':
+   MALA, then RW-MH on a short schedule whose R-hat is printed, not
+   asserted), config 3's MALA and Newton variants and the judged config.
+   Each must launch exactly its kernels, as many times as its schedule
+   implies, reach worst all-parameter R-hat < 1.01, a plausible
+   acceptance of its MH-updated block and no NaN. When the time budget
+   requires, depth is cut (never width), and the R-hat line is then
+   printed, not asserted: first config 3's variants, then the segment
+   MALA path (each runs its full schedule only if the script would still
+   end within 60% of its budget), then the judged run; mala-100k's draws
+   only if even minimal other runs would not fit. The script says so.
 
 Bound: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -49,7 +61,9 @@ its float32 operations over 67 TFLOP/s (the H100 SXM data sheet), with
 each operation counted once (exp and log1p as one each, so the operation
 count is a floor). The Poisson terms take one exp and no log1p or
 division, and the Poisson steps read a per-unit prior mean (C, S, p)
-where the logistic ones read mu (C, p).
+where the logistic ones read mu (C, p). The segment kernels count config
+4's observations (N, not G x n) and read the (G+1) row pointer. No single
+PyTorch call computes any of these functions, so library_ms is null.
 
 Any failed check exits non-zero. The last lines are a JSON object of the
 kernels, the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -57,6 +71,7 @@ kernels, the nvidia-smi line, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -100,6 +115,10 @@ SRC = {
                                  "nestmc/ops/pallas/poisson_accept.py:576"),
     "pois_newton_step_frozen": ("nestmc_torch/csrc/poisson_accept.cu",
                                 "nestmc/ops/pallas/poisson_accept.py:576"),
+    "seg_loglik": ("nestmc_torch/csrc/loglik_segment.cu",
+                   "nestmc/ops/pallas/loglik_segment.py:244"),
+    "seg_logp_grad": ("nestmc_torch/csrc/loglik_segment.cu",
+                      "nestmc/ops/pallas/loglik_segment.py:244"),
 }
 
 
@@ -123,7 +142,17 @@ def work(kernel: str, C: int, G: int, n: int, p: int, noise: bool = True,
     terms: exp, log1p, ...) or 5 (Poisson: one exp) [+ 2p + 8 or 2p + 2
     (gradient terms)] [+ 3T (Hessian; +1 for the Poisson mask)]
     operations, per cell the step's own algebra. ``kernel`` names a
-    LAUNCHES key; G counts the units (groups, or subjects for pois_*)."""
+    LAUNCHES key; G counts the units (groups, or subjects for pois_*).
+    For the segment kernels (seg_*) ``n`` is the total number of
+    observations N: they read x (N, p), y (N,) and the (G+1) row pointer,
+    and evaluate C x N obs-cells."""
+    if kernel.startswith("seg_"):
+        val_ops = 2 * p + 9
+        data = 4 * n * (p + 1) + 4 * (G + 1)
+        if kernel == "seg_loglik":
+            return data + 4 * C * G * (p + 1), C * n * val_ops
+        return (data + 4 * C * G * (2 * p + 1),
+                C * n * (val_ops + 2 * p + 8))
     pois = kernel.startswith("pois_")
     kernel = kernel[len("pois_"):] if pois else kernel
     T = p * (p + 1) // 2
@@ -180,7 +209,7 @@ def main() -> int:
         synth_logistic,
         synth_poisson3,
     )
-    from nestmc_torch.ops import loglik
+    from nestmc_torch.ops import bucket, loglik
     from nestmc_torch.ops.cuda import _build, launch_counts, reset_launch_counts
     from nestmc_torch.ops.cuda import loglik_poisson as pois
     from nestmc_torch.ops.cuda import poisson_accept as pacc
@@ -197,11 +226,19 @@ def main() -> int:
         fused_rwmh_logistic_step,
         fused_rwmh_logistic_step_plain,
     )
+    from nestmc_torch.ops.cuda.loglik_segment import (
+        logistic_logp_grad_segment,
+        logistic_logp_grad_segment_plain,
+        logistic_loglik_segment,
+        logistic_loglik_segment_plain,
+    )
     from nestmc_torch.ops.cuda.newton_accept import (
         fused_newton_logistic_step,
         fused_newton_logistic_step_plain,
         philox_probe,
     )
+    from nestmc_torch.ops.segment import SegmentLayout
+    from nestmc_torch.presets import get_preset
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -617,6 +654,143 @@ def main() -> int:
     del d, beta, mu, lt, eps, logu, ls, sl
     torch.cuda.empty_cache()
 
+    # ---- 3c. config 4: the segment kernels and the bucketed route ----
+    _, rdata, _ = get_preset("ragged-10k", device=dev)     # seed 0's data
+    C, G, P = 1024, rdata.num_groups, rdata.num_covariates
+    NOBS = rdata.num_obs
+    sizes = rdata.sizes()
+    seg_layout = SegmentLayout.build(rdata.segment_ids, G)
+    blayout = bucket.BucketLayout.build(rdata.segment_ids, G, x=rdata.x,
+                                        y=rdata.y)
+    B = len(blayout.buckets)
+    say(f"config 4 data: G={G} N={NOBS} p={P}, group sizes "
+        f"{int(sizes.min())}..{int(sizes.max())}; {B} size buckets (cap, "
+        f"groups) {[(b.cap, len(b.obs_index)) for b in blayout.buckets]}, "
+        f"{blayout.padded_obs()} padded obs")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    beta = 0.5 * torch.randn(C, G, P, generator=gen, device=dev)
+
+    def seg_err(out, ref, rtols):
+        """max |a-b| and whether |a-b| <= 2e-5 + rtol |b| everywhere."""
+        errs = [((a - b).abs(), rtol * b.abs()) for a, b, rtol
+                in zip(out, ref, rtols)]
+        return (max(float(d.max()) for d, _ in errs),
+                all(bool((d <= 2e-5 + r).all()) for d, r in errs))
+
+    small_sizes = torch.tensor([0, 5, 12, 700, 0, 257, 256, 1] * 4 + [0, 3])
+    gs = torch.Generator().manual_seed(11)
+    s_seg = torch.repeat_interleave(torch.arange(small_sizes.numel()),
+                                    small_sizes)
+    small = (0.7 * torch.randn(130, small_sizes.numel(), P,
+                               generator=gs).to(dev),
+             torch.randn(s_seg.numel(), P, generator=gs).to(dev),
+             (torch.rand(s_seg.numel(), generator=gs) < 0.5).float().to(dev),
+             SegmentLayout.build(s_seg, small_sizes.numel(), device=dev))
+    for name, kern, plain, rtols in (
+        ("seg_loglik", lambda *a: (logistic_loglik_segment(*a),),
+         lambda *a: (logistic_loglik_segment_plain(*a),), (2e-5,)),
+        ("seg_logp_grad", logistic_logp_grad_segment,
+         logistic_logp_grad_segment_plain, (2e-5, 2e-4)),
+    ):
+        out, ref = kern(*small), plain(*small)
+        torch.cuda.synchronize()
+        err, ok = seg_err(out, ref, rtols)
+        empty = (small_sizes == 0).to(dev)
+        ok &= bool((out[0][:, empty] == 0).all())
+        say(f"kernel {name} [small: C=130, G={small_sizes.numel()}, empty "
+            f"groups and groups of 256-700 obs]: max_abs_err {err:.3e} "
+            f"(tol 2e-5 + {rtols[-1]:g}|ref|, empty groups exactly 0) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} [small] disagrees with its plain version")
+        record(name, err)
+        args = (beta, rdata.x, rdata.y, seg_layout)
+        out, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err, ok = seg_err(out, ref, rtols)
+        ms = timed(lambda: kern(*args))
+        pms = timed(lambda: plain(*args))
+        w = work(name, C, G, NOBS, P)
+        say(f"kernel {name} [config 4, C={C} G={G} N={NOBS} p={P}]: "
+            f"max_abs_err {err:.3e} (tol 2e-5 + {rtols[-1]:g}|ref|) "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms; {bound_str(w)}")
+        if not ok:
+            fail(f"{name} at config 4's shape disagrees with its plain "
+                 "version")
+        record(name, err, ms, pms, (C, G, NOBS, P), w)
+        del out, ref
+    del small
+    torch.cuda.empty_cache()
+
+    # the bucketed route's kernels at the widest bucket's shape
+    wb = blayout.buckets[-1]
+    Gb, cap = len(wb.obs_index), wb.cap
+    x, y, m = wb.x, wb.y, wb.mask
+    bb = beta.index_select(1, wb.group_index)
+    gb = torch.Generator(device=dev).manual_seed(12)
+    mu = 0.3 * torch.randn(C, P, generator=gb, device=dev)
+    lt = -0.7 + 0.2 * torch.randn(C, P, generator=gb, device=dev)
+    eps = torch.randn(C, Gb, P, generator=gb, device=dev)
+    logu = torch.log(torch.rand(C, Gb, generator=gb, device=dev)
+                     .clamp_min(1e-38))
+    shape = f"C={C} Gb={Gb} cap={cap} p={P}, widest bucket"
+    for name, kern, plain in (
+        ("logp_grad", logistic_logp_grad, loglik.logistic_logp_grad_padded),
+        ("logp_grad_hess", logistic_logp_grad_hess,
+         loglik.logistic_logp_grad_hess_padded),
+    ):
+        out, ref = kern(bb, x, y, m), plain(bb, x, y, m)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b, 1e-4) for a, b in zip(out, ref)]
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+        ms = timed(lambda: kern(bb, x, y, m))
+        pms = timed(lambda: plain(bb, x, y, m))
+        say(f"kernel {name} [{shape}]: max_abs_err {err:.3e} (tol 1e-3 + "
+            f"1e-4|ref|) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms; {bound_str(work(name, C, Gb, cap, P))}")
+        if not ok:
+            fail(f"{name} at the widest bucket disagrees")
+        record(name, err)
+    v, g, h = loglik.logistic_logp_grad_hess_padded(bb, x, y, m)
+    for kname, step, plain, args, kw, alpha_i in (
+        ("newton_step_refresh", fused_newton_logistic_step,
+         fused_newton_logistic_step_plain,
+         (bb, v, g, h, torch.zeros(C, Gb, device=dev), mu, lt, x, y, m),
+         {"frozen": False}, 4),
+        ("newton_step_frozen", fused_newton_logistic_step,
+         fused_newton_logistic_step_plain,
+         (bb, v, g, h, torch.zeros(C, Gb, device=dev), mu, lt, x, y, m),
+         {"frozen": True}, 4),
+        ("mala_step", fused_mala_logistic_step,
+         fused_mala_logistic_step_plain,
+         (bb, v, g, torch.full((C, Gb), -1.3, device=dev), mu, lt, x, y, m),
+         {}, 3),
+    ):
+        out = step(*args, noise=(eps, logu), **kw)
+        ref = plain(*args, (eps, logu), **kw)
+        torch.cuda.synchronize()
+        if kw.get("frozen"):
+            if out[3] is not h:
+                fail("frozen newton_step must return h itself")
+            out, ref, alpha_i = out[:3] + out[4:], ref[:3] + ref[4:], 3
+        err, ok, n_diff, n_bad = step_check(out, ref, bb, logu, alpha_i)
+        ms = timed(lambda: step(*args, noise=(eps, logu), **kw))
+        pms = timed(lambda: plain(*args, (eps, logu), **kw))
+        say(f"kernel {kname} [{shape}]: max_abs_err {err:.3e} (tol 1e-3 + "
+            f"1e-4|ref|, alpha 2e-3|ref|); mean alpha "
+            f"{float(ref[alpha_i].mean()):.3f}; accept decisions differ in "
+            f"{n_diff} of {C * Gb} cells, {n_bad} outside |log a - log u| "
+            f"< 1e-3 {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms; {bound_str(work(kname, C, Gb, cap, P))}")
+        if not ok:
+            fail(f"{kname} at the widest bucket disagrees with its plain "
+                 "version")
+        record(kname, err)
+        del out, ref
+    del beta, bb, x, y, m, v, g, h, mu, lt, eps, logu, blayout, seg_layout
+    torch.cuda.empty_cache()
+
     # ---- 4. Philox moments ----
     nrm, uni = philox_probe(512 * 256, (1234, 99), dev, p=4)
     x = nrm.double().cpu()
@@ -679,6 +853,22 @@ def main() -> int:
             return make_hier_logistic(sd, tau_prior=tau_prior), sd
         small_reference(algorithm, make_logistic, algorithm,
                         ("mu", "log_tau"), "beta")
+    # ragged data: the invgamma prior for both routes; with half-normal
+    # tau this small model's log tau mixes too slowly for a 0.05
+    # acceptance check (the beta acceptance follows where tau sits)
+    for algorithm, impl, tau_prior in (("newton", "bucket", "invgamma"),
+                                       ("mala", "pallas-segment",
+                                        "invgamma")):
+        def make_ragged(dv, impl=impl, tau_prior=tau_prior):
+            sd, _ = synth_logistic(5, G=96, n=32, p=3, ragged=True,
+                                   min_obs=1, device=dv)
+            nb = len(bucket.BucketLayout.build(sd.segment_ids, 96).buckets)
+            if nb < 2:
+                fail(f"small ragged data form {nb} size bucket(s), not >= 2")
+            return make_hier_logistic(sd, tau_prior=tau_prior,
+                                      loglik_impl=impl), sd
+        small_reference(f"ragged {algorithm} ({impl})", make_ragged,
+                        algorithm, ("mu", "log_tau"), "beta")
     for algorithm in ("rwmh", "mala", "newton"):
         def make_poisson(dv):
             sd, _ = synth_poisson3(5, G=8, subjects_per_group=3, n=10, p=2,
@@ -701,10 +891,13 @@ def main() -> int:
                 "beta_s": (512, D, 8, 3)}
 
     def run_path(preset, expect, block, acc_range, shapes, full_rhat=None,
-                 warmup=None, draws=None, gate=True):
+                 warmup=None, draws=None, gate=True, runner=None):
+        """Drive one path (bench.run of ``preset``, or ``runner``) and check
+        its launches, R-hat, acceptance, finiteness and draw shapes."""
+        runner = runner or (lambda **kw: bench.run(preset=preset, **kw))
         reset_launch_counts()
-        result, post, run_info = bench.run(
-            preset=preset, warmup=warmup, draws=draws, full_rhat=full_rhat)
+        result, post, run_info = runner(warmup=warmup, draws=draws,
+                                        full_rhat=full_rhat)
         launches = launch_counts()
         W, D = run_info["warmup"], run_info["draws"]
         say(f"{preset} run: {json.dumps(run_info)}")
@@ -724,8 +917,8 @@ def main() -> int:
             fail(f"{preset}: streamed R-hat covers {covered} of {n_par} "
                  "parameters")
         say(f"{preset}: worst all-param R-hat {worst:.5f} over {n_par} "
-            f"parameters ({'gate < 1.01' if gate else 'NOT asserted: the '
-            'schedule was cut'}); {block} sampling acceptance {acc:.4f} (in "
+            f"parameters ({'gate < 1.01' if gate else 'NOT asserted: a short '
+            'or cut schedule'}); {block} sampling acceptance {acc:.4f} (in "
             f"{acc_range}); ESS/s/GPU {result['value']} min-ESS/s "
             f"{result['min_ess_per_sec_per_chip']} on '{smi}'")
         if gate and not worst < 1.01:
@@ -744,12 +937,28 @@ def main() -> int:
         del post
         torch.cuda.empty_cache()
 
-    def per_sweep(preset):
+    def segment_runner(algorithm):
+        """ragged-10k-mala's data and config, the model built on the
+        segment-kernel route with the preset's priors, ``algorithm`` on
+        beta."""
+        def run(**kw):
+            model, data, cfg = get_preset("ragged-10k-mala", device=dev)
+            model = make_hier_logistic(data, loglik_impl="pallas-segment")
+            cfg = dataclasses.replace(cfg, kernel=dataclasses.replace(
+                cfg.kernel, algorithm=algorithm))
+            return bench.measure(
+                model, data, cfg, f"ragged-10k pallas-segment {algorithm}",
+                f"10k-group ragged hierarchical logistic, {algorithm}, "
+                "segment kernels", **kw)
+        return run
+
+    def per_sweep(preset, runner=None):
         """(seconds a sweep, fixed seconds) at full width from a 10/10 run:
         the sweeps' wall over 20 (first sweeps included, so it errs long)
         and the rest of the run (data, set-up, diagnostics)."""
+        runner = runner or (lambda **kw: bench.run(preset=preset, **kw))
         t0 = time.perf_counter()
-        _, _, info = bench.run(preset=preset, warmup=10, draws=10)
+        _, _, info = runner(warmup=10, draws=10)
         torch.cuda.empty_cache()
         sweeps = info["warmup_s"] + info["sample_s"]
         return sweeps / 20, time.perf_counter() - t0 - sweeps
@@ -767,15 +976,34 @@ def main() -> int:
               "pois_loglik": lambda W, D: 1 + 2 * (W + D)},
              "beta_s", (0.1, 0.5), poisson_shapes)
 
-    full, p_full = (1500, 4096), (1000, 16384)
-    j_min, p_min = (300, 512), (1000, 2048)
+    # config 4: every bucket runs one fused Newton step a sweep, and one
+    # Hessian (warmup, and once for the initial cache) or gradient
+    # (sampling) pass for the interweave's proposal
+    run_path("ragged-10k",
+             {"newton_step_refresh": lambda W, D: B * W,
+              "newton_step_frozen": lambda W, D: B * D,
+              "logp_grad_hess": lambda W, D: B * (W + 1),
+              "logp_grad": lambda W, D: B * D},
+             "beta", (0.5, 1.0), logistic_shapes(1024, 3, 8))
+
+    full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)
+    j_min, p_min, s_min = (300, 512), (1000, 2048), (200, 512)
+    s_rw = (200, 200)           # the segment RW path: short, R-hat printed
+    seg_mala = segment_runner("mala")
     est = {k: per_sweep(k) for k in ("mala-100k", "judged",
                                      "nested-poisson-1k-mala",
                                      "nested-poisson-1k-newton")}
+    est["segment"] = per_sweep(None, seg_mala)
     variants = ("nested-poisson-1k-mala", "nested-poisson-1k-newton")
+
+    def need_seg(sched):
+        # the RW path: about the MALA one's cost a sweep
+        return need_s(est["segment"], sched) + need_s(est["segment"], s_rw)
+
     need_m = need_s(est["mala-100k"], full)
     spare = (left_s() - 60.0 - need_m - need_s(est["judged"], j_min)
-             - sum(need_s(est[v], p_min) for v in variants))
+             - sum(need_s(est[v], p_min) for v in variants)
+             - need_seg(s_min))
     m_sched = full
     if spare < 0:
         scale = max(0.25, 1.0 + spare / need_m)
@@ -788,6 +1016,36 @@ def main() -> int:
               "logp_grad": lambda W, D: W + D + 1},
              "beta", (0.3, 0.9), logistic_shapes(512, 3, 8),
              warmup=m_sched[0], draws=m_sched[1], gate=m_sched == full)
+
+    # config 4's segment route: ragged-10k-mala's model on the segment
+    # kernels, MALA at full schedule unless the script would then not end
+    # within 60% of its budget with the variants at their least and the
+    # full judged run (its draws shrink then, to s_min at the least)
+    need_v_min = sum(need_s(est[v], p_min) for v in variants)
+    room = (left_s() - 0.4 * BUDGET_S - need_s(est["judged"], full)
+            - need_v_min)
+    sm_sched = s_full
+    if need_seg(s_full) > room:
+        scale = max(room - need_seg(s_min), 0.0) / max(
+            need_seg(s_full) - need_seg(s_min), 1e-9)
+        sm_sched = (s_full[0], s_min[1] + int(
+            (s_full[1] - s_min[1]) * min(scale, 1.0)) // 2 * 2)
+        if scale <= 0.0:
+            sm_sched = s_min
+        say(f"CUT the segment MALA path: {s_full[0]}/{s_full[1]} needs "
+            f"~{need_seg(s_full):.0f} s and {left_s():.0f} s are left: "
+            f"running warmup {sm_sched[0]}, draws {sm_sched[1]} at full "
+            "width")
+    run_path("ragged-10k pallas-segment mala",
+             {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D)},
+             "beta", (0.3, 0.9), logistic_shapes(1024, 3, 8),
+             warmup=sm_sched[0], draws=sm_sched[1], gate=sm_sched == s_full,
+             runner=seg_mala)
+    run_path("ragged-10k pallas-segment rwmh",
+             {"seg_loglik": lambda W, D: 1 + 2 * (W + D)},
+             "beta", (0.1, 0.5), logistic_shapes(1024, 3, 8),
+             warmup=s_rw[0], draws=s_rw[1], gate=False,
+             runner=segment_runner("rwmh"))
 
     # config 3's variants run their full schedule only if the script would
     # still end within 60% of its budget after them and the full judged

@@ -11,8 +11,11 @@ hier-logistic-100-rw`` (config 2's RW-MH state; its streamed R-hat is
 switched on here) and ``--preset nested-poisson-1k`` (config 3: G=1000
 groups x 4 subjects x 10 obs, p=3, 512 chains, 1000/16384, RW-MH on the
 subjects, R-hat over all 15,009 parameters; ``-mala`` and ``-newton`` change
-the subject update) run the others (nestmc_torch/presets.py). ``--seed``
-picks the run's seed (the data and the chains; default 0).
+the subject update) and ``--preset ragged-10k`` (config 4: G=10,000 ragged
+groups of 5..30 obs, p=3, 1024 chains, 800/2048, Newton-MH per size bucket,
+R-hat over all 30,006 parameters; ``-mala`` for MALA) run the others
+(nestmc_torch/presets.py). ``--seed`` picks the run's seed (the data and
+the chains; default 0).
 
 Prints one JSON line with bench.py's fields; ``value`` is the sum of bulk
 ESS over the collected scalars (judged: mu 4 + log_tau 4 + the first 8
@@ -49,6 +52,9 @@ TITLES = {
     "nested-poisson-1k-mala": "3-level nested Poisson GLMM, 1k groups, MALA",
     "nested-poisson-1k-newton":
         "3-level nested Poisson GLMM, 1k groups, Newton-MH",
+    "ragged-10k": "10k-group ragged hierarchical logistic",
+    "ragged-10k-newton": "10k-group ragged hierarchical logistic",
+    "ragged-10k-mala": "10k-group ragged hierarchical logistic, MALA",
 }
 
 
@@ -66,6 +72,21 @@ def n_params(model) -> int:
     return sum(math.prod(b.shape) for b in model.blocks)
 
 
+def _unit_accept(post, at) -> dict | None:
+    """The sampling acceptance across chains of the unit (group) holding
+    the worst R-hat, when its block is per unit: min, median, max and the
+    chains below 0.1 (a chain stuck there shows as a low min)."""
+    if at is None or at["kind"] != "streamed":
+        return None
+    rates = post.accept_rates.get(at["block"])
+    if rates is None or rates.shape[1] == 1:
+        return None
+    a = rates[:, at["index"][0]].float().cpu()
+    return {"min": float(a.min()), "median": float(a.median()),
+            "max": float(a.max()), "chains_below_0.1": int((a < 0.1).sum()),
+            "argmin_chain": int(a.argmin())}
+
+
 def run(chains: int | None = None, warmup: int | None = None,
         draws: int | None = None, device="cuda", preset: str = "judged",
         full_rhat: bool | None = None, seed: int = 0):
@@ -73,6 +94,18 @@ def run(chains: int | None = None, warmup: int | None = None,
     returns (result dict, Posterior, info dict of the schedule, timings
     and the peak device memory)."""
     model, data, cfg = get_preset(preset, seed=seed, device=device)
+    return measure(model, data, cfg, preset, TITLES[preset], chains=chains,
+                   warmup=warmup, draws=draws, full_rhat=full_rhat,
+                   seed=seed)
+
+
+def measure(model, data, cfg, label: str, title: str,
+            chains: int | None = None, warmup: int | None = None,
+            draws: int | None = None, full_rhat: bool | None = None,
+            seed: int = 0):
+    """:func:`run` for a given (model, data, cfg) on a CUDA device:
+    ``label`` names it in the info dict, ``title`` in the metric."""
+    device = data.device
     over = {k: v for k, v in (("chains", chains), ("warmup", warmup),
                               ("draws", draws), ("full_rhat", full_rhat))
             if v is not None}
@@ -89,6 +122,7 @@ def run(chains: int | None = None, warmup: int | None = None,
     torch.cuda.reset_peak_memory_stats(dev)
     t_d = time.perf_counter()
     worst = post.worst_rhat()
+    worst_at = post.worst_rhat_at()
     diag_s = time.perf_counter() - t_d
     wall = time.perf_counter() - t0
 
@@ -99,10 +133,11 @@ def run(chains: int | None = None, warmup: int | None = None,
     min_rate = post.min_ess() / sample_s
     n_scalars = sum(math.prod(v.shape[2:]) for v in post.draws.values())
     info = {
-        "preset": preset, "seed": seed, "chains": rc.chains,
+        "preset": label, "seed": seed, "chains": rc.chains,
         "warmup": rc.warmup, "draws": rc.draws, "n_params": n_params(model),
         "wall_s": wall, "diagnostics_s": diag_s,
-        "worst_rhat_at": post.worst_rhat_at(),
+        "worst_rhat_at": worst_at,
+        "worst_unit_accept": _unit_accept(post, worst_at),
         "peak_mem_gb_sampling": peak_sampling / 1e9,
         "peak_mem_gb_diagnostics": torch.cuda.max_memory_allocated(dev) / 1e9,
         "sweeps_per_s": (rc.warmup + rc.draws)
@@ -111,7 +146,7 @@ def run(chains: int | None = None, warmup: int | None = None,
     }
     result = {
         "metric": "effective_samples_per_sec_per_gpu "
-                  f"({TITLES[preset]}; worst split R-hat over "
+                  f"({title}; worst split R-hat over "
                   f"ALL {n_params(model)} params {worst:.4f}; "
                   f"sum-of-bulk-ESS over {n_scalars} collected scalars "
                   f"convention; min-ESS convention: {min_rate:.0f}/s/GPU)",

@@ -1,8 +1,9 @@
-"""Nested-data containers: observations within groups, padded + masked.
+"""Nested-data containers: observations within groups.
 
-The padded form of :class:`nestmc.data.NestedData` and the three-level
-:class:`nestmc.data.NestedData3` as tensors on one device. Ragged/segment
-data is not ported yet (ROADMAP Queue 1, item 10).
+The padded form of :class:`nestmc.data.NestedData`, the flat segment form
+of :class:`nestmc.data.RaggedData` and the three-level
+:class:`nestmc.data.NestedData3`, as tensors on one device, plus
+:func:`bucket_by_size` (groups padded per power-of-2 size bucket).
 """
 
 from __future__ import annotations
@@ -168,3 +169,107 @@ def from_numpy3(x, y, mask, subject_group, num_groups: int,
         member_mask=member_mask,
         group_size=M,
     )
+
+
+@dataclass(frozen=True)
+class RaggedData:
+    """Two-level data in flat segment form: y (N,), x (N, p), segment_ids
+    (N,) int64 sorted ascending (each observation's group), num_groups G.
+
+    Built by :func:`from_numpy_ragged`, which also derives the CSR row
+    pointer ``offsets`` (G+1,) int32: group g's observations are rows
+    offsets[g] .. offsets[g+1] - 1.
+    """
+
+    y: torch.Tensor
+    segment_ids: torch.Tensor
+    num_groups: int
+    x: torch.Tensor
+    offsets: torch.Tensor
+
+    @property
+    def num_obs(self) -> int:
+        return self.y.shape[0]
+
+    @property
+    def num_covariates(self) -> int:
+        return self.x.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.y.device
+
+    def sizes(self) -> torch.Tensor:
+        """(G,) int32 observations per group."""
+        return torch.diff(self.offsets)
+
+
+def segment_offsets(segment_ids, num_groups: int) -> np.ndarray:
+    """The (G+1,) int32 CSR row pointer of sorted ``segment_ids``; raises
+    on unsorted ids or ids outside [0, num_groups)."""
+    seg = np.asarray(segment_ids, np.int64)
+    G = int(num_groups)
+    if seg.ndim != 1 or np.any(np.diff(seg) < 0):
+        raise ValueError("segment_ids must be a sorted (N,) array")
+    if seg.size and (seg[0] < 0 or seg[-1] >= G):
+        raise ValueError(f"segment_ids must lie in [0, {G})")
+    return np.searchsorted(seg, np.arange(G + 1)).astype(np.int32)
+
+
+def from_numpy_ragged(x, y, segment_ids, num_groups: int,
+                      device="cuda") -> RaggedData:
+    """Build flat ragged data from numpy arrays (e.g. the JAX package's
+    RaggedData leaves) on ``device`` (the card unless the caller asks for
+    another). ``segment_ids`` must be sorted, every id in [0,
+    num_groups)."""
+    device = check_device(device)
+    seg = np.asarray(segment_ids, np.int64)
+    if seg.shape[0] != np.shape(y)[0] or np.shape(x)[0] != seg.shape[0]:
+        raise ValueError(f"segment_ids has {seg.shape[0]} observations, y "
+                         f"{np.shape(y)[0]}, x {np.shape(x)[0]}")
+    offsets = segment_offsets(seg, num_groups)
+    return RaggedData(
+        y=_tensor(np.asarray(y, np.float32), device),
+        segment_ids=_tensor(seg, device, torch.int64),
+        num_groups=int(num_groups),
+        x=_tensor(np.asarray(x, np.float32), device),
+        offsets=_tensor(offsets, device, torch.int32),
+    )
+
+
+def bucket_by_size(ys, xs=None, bucket_edges=None, device="cuda"):
+    """Split ragged groups into size buckets, each padded to its own cap
+    (port of :func:`nestmc.data.bucket_by_size`): ``ys[g]`` (n_g,) and
+    ``xs[g]`` (n_g, p) are group g's observations. Power-of-2 edges unless
+    ``bucket_edges`` is given; a group of size s goes to the first edge >=
+    s, empty groups to none. Returns ``[(NestedData, group_index), ...]``,
+    group_index an int64 tensor of the bucket's original group ids; without
+    ``xs`` the buckets' x is (Gb, cap, 0)."""
+    device = check_device(device)
+    sizes = np.array([len(y) for y in ys])
+    if bucket_edges is None:
+        cap = int(sizes.max()) if len(sizes) else 1
+        bucket_edges, e = [], 1
+        while e < cap:
+            e *= 2
+            bucket_edges.append(e)
+    p = np.shape(xs[0])[-1] if xs is not None and len(xs) else 0
+    out = []
+    lo = 0
+    for hi in bucket_edges:
+        idx = np.where((sizes > lo) & (sizes <= hi))[0]
+        lo = hi
+        if not len(idx):
+            continue
+        x = np.zeros((len(idx), hi, p), np.float32)
+        y = np.zeros((len(idx), hi), np.float32)
+        mask = np.zeros((len(idx), hi), np.float32)
+        for r, g in enumerate(idx):
+            n = sizes[g]
+            y[r, :n] = ys[g]
+            mask[r, :n] = 1.0
+            if xs is not None:
+                x[r, :n] = xs[g]
+        out.append((from_numpy(x, y, mask, device=device),
+                    _tensor(idx, device, torch.int64)))
+    return out

@@ -72,6 +72,7 @@ class ModelSpec:
       one-kernel RW-MH and MALA updates.
     fused_updates_newton: {block: fn(rng, position, cache, log_scale, data,
       frozen=False, rhat_fold=None) -> (value, cache, alpha[, fold])}.
+    loglik_impls: {'selected': name} of the obs-pass route the model chose.
     """
 
     name: str
@@ -94,6 +95,7 @@ class ModelSpec:
     fused_updates_mala: dict = dataclasses.field(default_factory=dict)
     fused_updates_newton: dict = dataclasses.field(default_factory=dict)
     cond_cached_newton: dict = dataclasses.field(default_factory=dict)
+    loglik_impls: dict = dataclasses.field(default_factory=dict)
 
     def block(self, name: str) -> Block:
         for b in self.blocks:

@@ -6,13 +6,21 @@
     tau_k ~ HalfNormal(prior_tau_scale)          sampled as log tau + Jacobian
       or tau_k^2 ~ InvGamma(tau_ig_shape, tau_ig_scale)
 
-Port of :mod:`nestmc.models.hier_logistic` on padded data: both tau priors
-(half-normal: an MH block on log tau; inverse-gamma: an exact conjugate
-draw), the exact conjugate mu draw, the fused RW-MH, MALA and Newton-MH
-group-block updates (ops/cuda/mh_accept, mala_accept, newton_accept) and
-the joint (mu, log tau) interweaving move in its three modes (random walk,
-bound-metric Langevin, Laplace). The obs passes run the CUDA kernels on
-CUDA tensors and their plain versions on CPU tensors.
+Port of :mod:`nestmc.models.hier_logistic` on padded and on ragged data:
+both tau priors (half-normal: an MH block on log tau; inverse-gamma: an
+exact conjugate draw), the exact conjugate mu draw, the fused RW-MH, MALA
+and Newton-MH group-block updates (ops/cuda/mh_accept, mala_accept,
+newton_accept) and the joint (mu, log tau) interweaving move in its three
+modes (random walk, bound-metric Langevin, Laplace). The obs passes run
+the CUDA kernels on CUDA tensors and their plain versions on CPU tensors.
+
+Ragged data (:class:`~nestmc_torch.data.RaggedData`) take one of two
+routes, chosen by ``loglik_impl`` as in the reference's _resolve_loglik:
+'bucket' (the default, 'auto') runs the padded kernels once per size
+bucket (ops/bucket.py), with the fused MALA and Newton steps when every
+group has an observation; 'pallas-segment' runs the segment kernels
+(ops/cuda/loglik_segment) for the loglik and its gradient, the plain
+segment Hessian, and the unfused updates.
 """
 
 from __future__ import annotations
@@ -23,21 +31,29 @@ import weakref
 import numpy as np
 import torch
 
-from nestmc_torch.data import NestedData, from_numpy
+from nestmc_torch.data import RaggedData, from_numpy, from_numpy_ragged
+from nestmc_torch.diagnostics import fold_rhat_update
 from nestmc_torch.distributions import (
     log_scale_guard,
     logpdf_halfnormal,
     logpdf_normal,
 )
 from nestmc_torch.model import Block, ModelSpec
+from nestmc_torch.ops import bucket as _bucket
+from nestmc_torch.ops import loglik as _plain
 from nestmc_torch.ops.cuda.loglik_logistic import (
     logistic_logp_grad,
     logistic_logp_grad_hess,
     logistic_loglik,
 )
+from nestmc_torch.ops.cuda.loglik_segment import (
+    logistic_logp_grad_segment,
+    logistic_loglik_segment,
+)
 from nestmc_torch.ops.cuda.mala_accept import fused_mala_logistic_step
 from nestmc_torch.ops.cuda.mh_accept import fused_rwmh_logistic_step
 from nestmc_torch.ops.cuda.newton_accept import fused_newton_logistic_step
+from nestmc_torch.ops.segment import SegmentLayout
 from nestmc_torch.ops.smallchol import (
     chol_packed,
     half_logdet,
@@ -48,8 +64,56 @@ from nestmc_torch.ops.smallchol import (
     spd_solve,
 )
 
-_RAGGED = "ragged data is not ported yet (ROADMAP Queue 1, item 10)"
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+def _resolve_loglik(data, impl: str):
+    """The (beta, data) -> (C, G) obs passes of one route: returns
+    (lik, lik_grad, lik_grad_hess, chosen name, layout or None). Padded
+    data take the padded kernels ('auto', chosen 'pallas' as in the
+    reference); ragged data 'bucket' ('auto' too, the reference's choice
+    on the accelerator) or 'pallas-segment'.
+    Layouts are built here, once, from the concrete segment structure."""
+    if not isinstance(data, RaggedData):
+        if impl != "auto":
+            raise ValueError(
+                f"loglik_impl={impl!r}: padded data take 'auto'")
+
+        def lik(v, d):
+            return logistic_loglik(v, d.x, d.y, d.mask)
+
+        def lik_grad(v, d):
+            return logistic_logp_grad(v, d.x, d.y, d.mask)
+
+        def lik_grad_hess(v, d):
+            return logistic_logp_grad_hess(v, d.x, d.y, d.mask)
+        return lik, lik_grad, lik_grad_hess, "pallas", None
+    if impl in ("auto", "bucket"):
+        layout = _bucket.BucketLayout.build(
+            data.segment_ids, data.num_groups, x=data.x, y=data.y
+        )
+        return (
+            lambda v, d: _bucket.bucketed_logistic_loglik(v, layout),
+            lambda v, d: _bucket.bucketed_logistic_logp_grad(v, layout),
+            lambda v, d: _bucket.bucketed_logistic_logp_grad_hess(v, layout),
+            "bucket", layout,
+        )
+    if impl == "pallas-segment":
+        layout = SegmentLayout.build(data.segment_ids, data.num_groups)
+
+        def lik_grad_hess(v, d):
+            # the reference has no kernel for the ragged Hessian pass: its
+            # jnp form, here the plain one, serves this route
+            return _plain.logistic_logp_grad_hess_segment(
+                v, d.x, d.y, layout.segment_ids, layout.num_groups)
+        return (
+            lambda v, d: logistic_loglik_segment(v, d.x, d.y, layout),
+            lambda v, d: logistic_logp_grad_segment(v, d.x, d.y, layout),
+            lik_grad_hess, "pallas-segment", layout,
+        )
+    raise ValueError(
+        f"loglik_impl={impl!r}: ragged data take 'auto', 'bucket' or "
+        "'pallas-segment'")
 
 
 def make_hier_logistic(
@@ -62,20 +126,19 @@ def make_hier_logistic(
     tau_ig_scale: float = 0.5,
     asis_repeats: int = 1,
 ) -> ModelSpec:
-    """Same arguments as nestmc.models.make_hier_logistic, on padded data
-    (loglik_impl 'auto' only)."""
-    if not isinstance(data, NestedData):
-        raise NotImplementedError(_RAGGED)
-    if loglik_impl == "pallas-segment":
-        raise NotImplementedError(
-            "loglik_impl='pallas-segment' is not ported yet "
-            "(ROADMAP Queue 2, item 10)"
-        )
-    if loglik_impl != "auto":
-        raise ValueError(f"loglik_impl={loglik_impl!r}: the port has 'auto'")
+    """Same arguments as nestmc.models.make_hier_logistic. ``data`` is
+    NestedData (loglik_impl 'auto') or RaggedData ('auto' = 'bucket', or
+    'pallas-segment')."""
     if tau_prior not in ("halfnormal", "invgamma"):
         raise ValueError(tau_prior)
     conj_tau = tau_prior == "invgamma"
+    lik_fn, lik_value_and_grad, lik_value_grad_hess, chosen, layout = (
+        _resolve_loglik(data, loglik_impl)
+    )
+    ragged = isinstance(data, RaggedData)
+    # the bucketed fused steps skip size-0 groups, which still need their
+    # prior-only move: offered only when every group has an observation
+    bucket_full = chosen == "bucket" and _bucket.covers_all_groups(layout)
     G = data.num_groups
     p = data.num_covariates
     q = 2 * p                                       # joint (mu, lt) dim
@@ -97,11 +160,20 @@ def make_hier_logistic(
     # logistic curvature w = s(1 - s) <= 1/4): the metric of the joint
     # interweaving move in grad (MALA) mode, built once from the data.
     xn = data.x.double().cpu().numpy()
-    mn = data.mask.double().cpu().numpy()
-    xxt_bound = torch.tensor(np.stack([
-        0.25 * np.sum(mn * xn[:, :, i] * xn[:, :, j], axis=1)
-        for i in range(p) for j in range(i + 1)
-    ], axis=-1), dtype=torch.float32, device=dev)[None]     # (1, G, T)
+    if ragged:
+        seg = data.segment_ids.cpu().numpy()
+        cols = []
+        for i in range(p):
+            for j in range(i + 1):
+                col = np.zeros(G)
+                np.add.at(col, seg, 0.25 * xn[:, i] * xn[:, j])
+                cols.append(col)
+    else:
+        mn = data.mask.double().cpu().numpy()
+        cols = [0.25 * np.sum(mn * xn[:, :, i] * xn[:, :, j], axis=1)
+                for i in range(p) for j in range(i + 1)]
+    xxt_bound = torch.tensor(np.stack(cols, axis=-1), dtype=torch.float32,
+                             device=dev)[None]              # (1, G, T)
 
     def _tau_logprior(lt):
         """log p(log tau) elementwise, with the Jacobian to log space."""
@@ -174,15 +246,6 @@ def make_hier_logistic(
             )
         raise KeyError(name)
 
-    def lik_fn(value, data):
-        return logistic_loglik(value, data.x, data.y, data.mask)
-
-    def lik_value_and_grad(value, data):
-        return logistic_logp_grad(value, data.x, data.y, data.mask)
-
-    def lik_value_grad_hess(value, data):
-        return logistic_logp_grad_hess(value, data.x, data.y, data.mask)
-
     def gprior_value_and_grad(value, state, data):
         """Closed-form per-group Gaussian prior value (C, G) and gradient."""
         mu = state["mu"][:, None, :]
@@ -231,16 +294,31 @@ def make_hier_logistic(
             rng=rng,
         )
 
+    def _plain_fold(rhat_fold, beta):
+        return fold_rhat_update(rhat_fold[0], rhat_fold[1],
+                                beta.permute(1, 2, 0), rhat_fold[2])
+
     def fused_mala_beta_update(rng, position, cache, log_scale, data,
                                rhat_fold=None):
-        """One fused MALA update of beta (ops/cuda/mala_accept); with
-        rhat_fold, the pre-update beta is folded in the same pass and the
-        new (mean, m2) are appended to the return."""
+        """One fused MALA update of beta (ops/cuda/mala_accept; on ragged
+        data once per size bucket, ops/bucket.py); with rhat_fold, the
+        pre-update beta is folded (in the same pass on padded data, by the
+        plain fold on ragged data, as the reference does) and the new
+        (mean, m2) are appended to the return."""
         c = cache.get("beta")
         if isinstance(c, dict):
             v, g = c["v"], c["g"]
         else:
             v, g = lik_value_and_grad(position["beta"], data)
+        if ragged:
+            nb, nv, ng, alpha = _bucket.bucketed_fused_mala_step(
+                position["beta"], v, g, log_scale, position["mu"],
+                position["log_tau"], layout, rng=rng,
+            )
+            if rhat_fold is not None:
+                return nb, {"v": nv, "g": ng}, alpha, _plain_fold(
+                    rhat_fold, position["beta"])
+            return nb, {"v": nv, "g": ng}, alpha
         out = fused_mala_logistic_step(
             position["beta"], v, g, log_scale,
             position["mu"], position["log_tau"], data.x, data.y, data.mask,
@@ -253,12 +331,23 @@ def make_hier_logistic(
 
     def fused_newton_beta_update(rng, position, cache, log_scale, data,
                                  frozen=False, rhat_fold=None):
-        """One fused Newton-MH update of beta (ops/cuda/newton_accept)."""
+        """One fused Newton-MH update of beta (ops/cuda/newton_accept; on
+        ragged data once per size bucket, with the plain fold)."""
         c = cache.get("beta")
         if isinstance(c, dict) and "h" in c:
             v, g, h = c["v"], c["g"], c["h"]
         else:
             v, g, h = lik_value_grad_hess(position["beta"], data)
+        if ragged:
+            nb, nv, ng, nh, alpha = _bucket.bucketed_fused_newton_step(
+                position["beta"], v, g, h, log_scale, position["mu"],
+                position["log_tau"], layout, rng=rng, frozen=frozen,
+            )
+            new_cache = {"v": nv, "g": ng, "h": nh}
+            if rhat_fold is not None:
+                return nb, new_cache, alpha, _plain_fold(
+                    rhat_fold, position["beta"])
+            return nb, new_cache, alpha
         out = fused_newton_logistic_step(
             position["beta"], v, g, h, log_scale,
             position["mu"], position["log_tau"], data.x, data.y, data.mask,
@@ -467,21 +556,31 @@ def make_hier_logistic(
         },
         joint_move_init_scale_grad={"asis_tau": 1.0},
         joint_move_target_accept={"asis_tau": "auto"},
-        fused_updates={"beta": fused_beta_update},
-        fused_updates_mala={"beta": fused_mala_beta_update},
-        fused_updates_newton={"beta": fused_newton_beta_update},
+        # ragged data: the fused MALA and Newton steps run per bucket, and
+        # only on the bucket route with every group covered; the RW fused
+        # step stays padded-only, as in the reference
+        fused_updates={} if ragged else {"beta": fused_beta_update},
+        fused_updates_mala=(
+            {"beta": fused_mala_beta_update}
+            if bucket_full or not ragged else {}
+        ),
+        fused_updates_newton=(
+            {"beta": fused_newton_beta_update}
+            if bucket_full or not ragged else {}
+        ),
         cond_cached_newton={"beta": (lik_value_grad_hess, gprior_vgh)},
+        loglik_impls={"selected": chosen},
     )
 
 
 def synth_logistic(seed, G: int = 100, n: int = 50, p: int = 4,
-                   ragged: bool = False, device="cuda"):
+                   ragged: bool = False, min_obs: int = 5, device="cuda"):
     """Synthetic hierarchical-logistic data from the reference's generative
-    model, drawn with a numpy Generator seeded by ``seed``. Returns
-    (NestedData on ``device``, the card unless the caller asks for another;
+    model, drawn with a numpy Generator seeded by ``seed``. ``ragged``:
+    group sizes uniform on [min_obs, n], each group keeping its first
+    sizes[g] observations, as flat RaggedData. Returns (NestedData or
+    RaggedData on ``device``, the card unless the caller asks for another;
     truth dict of numpy arrays)."""
-    if ragged:
-        raise NotImplementedError(_RAGGED)
     r = np.random.default_rng(seed)
     mu = 0.5 * r.standard_normal(p)
     tau = 0.3 + 0.3 * np.abs(r.standard_normal(p))
@@ -490,5 +589,11 @@ def synth_logistic(seed, G: int = 100, n: int = 50, p: int = 4,
     x[:, :, 0] = 1.0  # intercept column
     eta = np.einsum("gnp,gp->gn", x, beta)
     y = (r.random((G, n)) < 1.0 / (1.0 + np.exp(-eta))).astype(np.float32)
-    data = from_numpy(x, y, np.ones((G, n), np.float32), device=device)
-    return data, {"mu": mu, "tau": tau, "beta": beta}
+    truth = {"mu": mu, "tau": tau, "beta": beta}
+    if not ragged:
+        data = from_numpy(x, y, np.ones((G, n), np.float32), device=device)
+        return data, truth
+    sizes = r.integers(min_obs, n + 1, size=G)
+    keep = np.arange(n)[None, :] < sizes[:, None]          # (G, n)
+    seg = np.repeat(np.arange(G), sizes)
+    return from_numpy_ragged(x[keep], y[keep], seg, G, device=device), truth

@@ -23,6 +23,8 @@ LAUNCHES = {
     "pois_mala_step": 0,
     "pois_newton_step_refresh": 0,
     "pois_newton_step_frozen": 0,
+    "seg_loglik": 0,
+    "seg_logp_grad": 0,
 }
 
 

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "nestmc_pois_rwmh_step": [_P] * 14 + [_I] * 3 + [_U] * 2 + [_P],
     "nestmc_pois_mala_step": [_P] * 16 + [_I] * 3 + [_U] * 2 + [_P],
     "nestmc_pois_newton_step": [_P] * 18 + [_I] * 3 + [_U] * 2 + [_I, _P],
+    "nestmc_seg_loglik": [_P] * 5 + [_I] * 2 + [_P],
+    "nestmc_seg_logp_grad": [_P] * 6 + [_I] * 2 + [_P],
 }
 
 _libs: dict = {}

@@ -2,13 +2,15 @@
 
 Port of the :mod:`nestmc.presets` entries the port runs, at full width (no
 ``scale``): the judged config of bench.py, config 5 (``mala-100k``), the
-RW-MH state of config 2 (``hier-logistic-100-rw``) and config 3
-(``nested-poisson-1k``, with its ``-mala`` and ``-newton`` variants). Data
-come from the port's numpy ``synth_logistic`` / ``synth_poisson3`` with the
-reference's seed offsets: the same generative models, other draws. The JAX
-presets' sharding is dropped (one device) and their TPU measurements in
-comments are not carried over. ``groups`` overrides G for small test runs
-only.
+RW-MH state of config 2 (``hier-logistic-100-rw``), config 3
+(``nested-poisson-1k``, with its ``-mala`` and ``-newton`` variants) and
+config 4 (``ragged-10k``, alias ``ragged-10k-newton``, and
+``ragged-10k-mala``). Data come from the port's numpy ``synth_logistic`` /
+``synth_poisson3`` with the reference's seed offsets: the same generative
+models, other draws. The JAX presets' sharding is dropped (one device) and
+their TPU measurements in comments are not carried over. ``groups``
+overrides G for small test runs only; ``loglik_impl`` picks the ragged
+presets' obs-pass route (make_hier_logistic's argument).
 """
 
 from __future__ import annotations
@@ -119,6 +121,40 @@ def _nested_poisson_1k_algorithm(algorithm: str):
     return preset
 
 
+def _ragged_10k(seed: int, device, groups, loglik_impl: str = "auto"):
+    """Config 4 (BASELINE.json:10, nestmc/presets.py:194-237): ragged
+    data, G=10,000 groups of 5..30 obs (uniform; N about 175,000), p=3,
+    1024 chains, 800/2048, frozen-metric Newton-MH with the fused step
+    (per size bucket on the default route), invgamma tau, the Laplace
+    interweave, streamed R-hat over every parameter (the reference's
+    config-4 artifact never carried it)."""
+    data, _ = synth_logistic(seed + 4000, G=groups or 10_000, n=30, p=3,
+                             ragged=True, device=device)
+    model = make_hier_logistic(data, tau_prior="invgamma",
+                               loglik_impl=loglik_impl)
+    cfg = SamplerConfig(
+        kernel=KernelConfig(algorithm="newton", fused_accept=True),
+        run=RunConfig(
+            chains=1024, warmup=800, draws=2048, seed=seed,
+            segment_size=512,
+            collect={"mu": None, "log_tau": None, "beta": 8},
+            full_rhat=True, log_every_segment=False,
+        ),
+    )
+    return model, data, cfg
+
+
+def _ragged_10k_mala(seed: int, device, groups, loglik_impl: str = "auto"):
+    """Config 4's MALA state (nestmc/presets.py:240-250): the same data
+    and schedule, MALA on beta, half-normal tau (MALA on log tau) and the
+    bound-metric Langevin interweave."""
+    _, data, cfg = _ragged_10k(seed, device, groups)
+    model = make_hier_logistic(data, loglik_impl=loglik_impl)
+    return model, data, dataclasses.replace(
+        cfg, kernel=dataclasses.replace(cfg.kernel, algorithm="mala")
+    )
+
+
 PRESETS = {
     "judged": _judged,
     "mala-100k": _mala_100k,
@@ -126,15 +162,24 @@ PRESETS = {
     "nested-poisson-1k": _nested_poisson_1k,
     "nested-poisson-1k-mala": _nested_poisson_1k_algorithm("mala"),
     "nested-poisson-1k-newton": _nested_poisson_1k_algorithm("newton"),
+    "ragged-10k": _ragged_10k,
+    "ragged-10k-newton": _ragged_10k,
+    "ragged-10k-mala": _ragged_10k_mala,
 }
+RAGGED = ("ragged-10k", "ragged-10k-newton", "ragged-10k-mala")
 
 
 def get_preset(name: str, seed: int = 0, device="cuda",
-               groups: int | None = None):
+               groups: int | None = None, loglik_impl: str = "auto"):
     """(model, data, SamplerConfig) of a named preset on ``device``;
-    ``groups`` overrides its number of groups G."""
+    ``groups`` overrides its number of groups G; ``loglik_impl`` ('auto',
+    'bucket' or 'pallas-segment') the obs-pass route of a ragged preset."""
     if name not in PRESETS:
         raise KeyError(
             f"unknown preset {name!r}; available: {sorted(PRESETS)}"
         )
+    if name in RAGGED:
+        return PRESETS[name](seed, device, groups, loglik_impl)
+    if loglik_impl != "auto":
+        raise ValueError(f"{name}: padded data take loglik_impl='auto'")
     return PRESETS[name](seed, device, groups)

@@ -15,8 +15,9 @@ phase it reports, per sweep:
   the sum and count of device kernel self-times, and 1 - busy / the
   median untraced wall;
 - ``block_ms``: each model hook's time (the fused beta step, each Gibbs
-  draw, the unfused MH conditionals, the interweaving move) with the
-  device synchronised around every call;
+  draw, the unfused MH conditionals and the carried-cache obs passes of
+  an unfused update, "lik NAME" and "prior NAME", the interweaving move)
+  with the device synchronised around every call;
 - ``host_top``: the port's functions with the most cumulative host time
   (cProfile), in ms per sweep;
 - ``peak_mem_gb`` (CUDA): the most device memory allocated at once over
@@ -24,7 +25,10 @@ phase it reports, per sweep:
 
 Prints one JSON object; ``--out`` also writes torch.profiler's tables.
 ``--device cpu`` with small ``--chains/--groups`` runs the same code on the
-CPU, where the device fields are null.
+CPU, where the device fields are null. ``--loglik-impl pallas-segment``
+profiles a ragged preset (``--preset ragged-10k``, ``ragged-10k-mala``) on
+its segment-kernel route; on ragged data ``n`` is the largest group's
+size and ``N`` the number of observations.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import time
 import torch
 
 from nestmc_torch.bench import gpu_query
+from nestmc_torch.data import RaggedData
 from nestmc_torch.diagnostics import (
     fold_rhat_init,
     fold_rhat_scalars,
@@ -120,6 +125,10 @@ def _timed_hooks(model, device, totals: dict):
     def table(prefix, hooks):
         return {k: wrap(f"{prefix} {k}", f) for k, f in hooks.items()}
 
+    def cached(hooks):
+        return {k: (wrap(f"lik {k}", f), wrap(f"prior {k}", r))
+                for k, (f, r) in hooks.items()}
+
     return dataclasses.replace(
         model,
         gibbs_draws=table("gibbs", model.gibbs_draws),
@@ -127,6 +136,9 @@ def _timed_hooks(model, device, totals: dict):
         fused_updates_mala=table("mala", model.fused_updates_mala),
         fused_updates_newton=table("newton", model.fused_updates_newton),
         joint_moves=table("move", model.joint_moves),
+        cond_cached=cached(model.cond_cached),
+        cond_cached_grad=cached(model.cond_cached_grad),
+        cond_cached_newton=cached(model.cond_cached_newton),
         cond_logdensity=wrap(None, model.cond_logdensity),
         cond_value_and_grad=wrap(None, model.cond_value_and_grad),
     )
@@ -186,11 +198,13 @@ def _host_top(phase: _Phase, sweeps: int, device, top: int = 12) -> dict:
 def profile_sweeps(preset: str = "judged", chains: int | None = None,
                    groups: int | None = None, sweeps: int = 20,
                    repeats: int = 3, settle: int = 20, device="cuda",
-                   out: str | None = None) -> dict:
+                   out: str | None = None,
+                   loglik_impl: str = "auto") -> dict:
     """Profile both phases of a preset's sampler (its chains and groups
     unless given); returns the report dict (see the module docstring)."""
     device = torch.device(device)
-    model, data, cfg = get_preset(preset, device=device, groups=groups)
+    model, data, cfg = get_preset(preset, device=device, groups=groups,
+                                  loglik_impl=loglik_impl)
     if chains is not None:
         cfg = dataclasses.replace(
             cfg, run=dataclasses.replace(cfg.run, chains=chains)
@@ -204,9 +218,15 @@ def profile_sweeps(preset: str = "judged", chains: int | None = None,
     samp.step()
 
     report = {"preset": preset, "device": str(device),
+              "loglik_impl": model.loglik_impls.get("selected"),
               "chains": cfg.run.chains, "G": data.num_groups,
-              "n": data.x.shape[1], "p": data.num_covariates,
-              "sweeps": sweeps, "repeats": repeats}
+              "p": data.num_covariates, "sweeps": sweeps,
+              "repeats": repeats}
+    if isinstance(data, RaggedData):
+        report["N"] = data.num_obs
+        report["n"] = int(data.sizes().max())
+    else:
+        report["n"] = data.x.shape[1]
     if device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(device)
         report["nvidia_smi"] = gpu_query()
@@ -272,10 +292,14 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None,
                     help="file for torch.profiler's tables")
+    ap.add_argument("--loglik-impl", default="auto",
+                    choices=("auto", "bucket", "pallas-segment"),
+                    help="obs-pass route of a ragged preset")
     a = ap.parse_args(argv)
     report = profile_sweeps(preset=a.preset, chains=a.chains,
                             groups=a.groups, sweeps=a.sweeps,
-                            repeats=a.repeats, device=a.device, out=a.out)
+                            repeats=a.repeats, device=a.device, out=a.out,
+                            loglik_impl=a.loglik_impl)
     print(json.dumps(report))
     return 0
 

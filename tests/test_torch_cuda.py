@@ -45,6 +45,14 @@ from nestmc_torch.ops.cuda.newton_accept import (
     fused_newton_logistic_step_plain,
     philox_probe,
 )
+from nestmc_torch.ops import bucket
+from nestmc_torch.ops.cuda.loglik_segment import (
+    logistic_logp_grad_segment,
+    logistic_logp_grad_segment_plain,
+    logistic_loglik_segment,
+    logistic_loglik_segment_plain,
+)
+from nestmc_torch.ops.segment import SegmentLayout
 from nestmc_torch.rng import SweepRNG
 
 pytestmark = pytest.mark.cuda
@@ -447,3 +455,140 @@ def test_default_config_poisson_sweeps_launch_kernels(dev, algorithm):
     }[algorithm]
     assert {k: v for k, v in LAUNCHES.items() if v} == want
     assert all(bool(torch.isfinite(v).all()) for v in state.position.values())
+
+
+def _ragged_inputs(dev, C, G, p, sizes, seed=2):
+    """Flat ragged data with the given group sizes and a beta (C, G, p)."""
+    g = torch.Generator().manual_seed(seed)
+    seg = torch.repeat_interleave(torch.arange(G), torch.as_tensor(sizes))
+    N = seg.numel()
+    x = torch.randn(N, p, generator=g)
+    y = (torch.rand(N, generator=g) < 0.5).float()
+    beta = 0.7 * torch.randn(C, G, p, generator=g)
+    layout = SegmentLayout.build(seg, G, device=dev)
+    return beta.to(dev), x.to(dev), y.to(dev), layout
+
+
+@pytest.mark.parametrize("case", [
+    # (C, G, p, sizes): empty groups at a ragged chain tile; one group
+    # larger than the kernel's 256-observation chunk; every group empty
+    (130, 37, 3, [0, 5, 12, 1, 0] * 7 + [3, 0]),
+    (64, 6, 4, [700, 0, 3, 257, 256, 1]),
+    (8, 4, 2, [0, 0, 0, 0]),
+    (200, 50, 8, [i % 9 for i in range(50)]),
+])
+def test_segment_kernels_match_plain(dev, case):
+    """Loglik |a-b| <= 2e-5 + 2e-5|b|, gradient <= 2e-5 + 2e-4|b| (the
+    reference's segment contract); empty groups give exactly 0."""
+    C, G, p, sizes = case
+    beta, x, y, layout = _ragged_inputs(dev, C, G, p, sizes)
+    reset_launch_counts()
+    v = logistic_loglik_segment(beta, x, y, layout)
+    vg, g = logistic_logp_grad_segment(beta, x, y, layout)
+    rv = logistic_loglik_segment_plain(beta, x, y, layout)
+    rvg, rg = logistic_logp_grad_segment_plain(beta, x, y, layout)
+    torch.cuda.synchronize()
+    assert LAUNCHES["seg_loglik"] == LAUNCHES["seg_logp_grad"] == 1
+    assert sum(LAUNCHES.values()) == 2
+    for a, b, rtol in ((v, rv, 2e-5), (vg, rvg, 2e-5), (g, rg, 2e-4)):
+        assert bool(((a - b).abs() <= 2e-5 + rtol * b.abs()).all()), \
+            float((a - b).abs().max())
+    empty = torch.as_tensor(sizes, device=dev) == 0
+    assert bool((v[:, empty] == 0).all() and (g[:, empty] == 0).all())
+
+
+def test_segment_wrappers_check_their_inputs(dev):
+    beta, x, y, layout = _ragged_inputs(dev, 8, 5, 3, [2, 3, 0, 1, 4])
+    with pytest.raises(ValueError):
+        logistic_loglik_segment(beta[:, :4].contiguous(), x, y, layout)
+    with pytest.raises(ValueError):
+        logistic_logp_grad_segment(beta, x[:-1], y, layout)
+    cpu_layout = SegmentLayout.build(layout.segment_ids.cpu(), 5)
+    with pytest.raises(ValueError):
+        logistic_loglik_segment(beta, x, y, cpu_layout)
+
+
+def _bucket_inputs(dev, C=130, G=90, n=32, seed=6):
+    data, _ = synth_logistic(seed, G=G, n=n, p=3, ragged=True, min_obs=1,
+                             device=dev)
+    layout = bucket.BucketLayout.build(data.segment_ids, G, x=data.x,
+                                       y=data.y)
+    assert len(layout.buckets) > 1 and bucket.covers_all_groups(layout)
+    g = torch.Generator().manual_seed(seed)
+    beta = 0.5 * torch.randn(C, G, 3, generator=g)
+    mu = 0.3 * torch.randn(C, 3, generator=g)
+    lt = -0.5 + 0.2 * torch.randn(C, 3, generator=g)
+    eps = torch.randn(C, G, 3, generator=g)
+    logu = torch.log(torch.rand(C, G, generator=g))
+    return data, layout, [t.to(dev) for t in (beta, mu, lt, eps, logu)]
+
+
+@pytest.mark.parametrize("algorithm", ["mala", "newton", "frozen"])
+def test_bucketed_steps_match_plain(dev, algorithm):
+    """The bucketed fused steps with external noise: one kernel launch per
+    bucket on the card, against the same bucketed step on CPU copies (the
+    plain versions), accept decisions and outputs as _check_step."""
+    data, layout, (beta, mu, lt, eps, logu) = _bucket_inputs(dev)
+    C, G, p = beta.shape
+    B = len(layout.buckets)
+    cpu_layout = bucket.BucketLayout.build(
+        data.segment_ids.cpu(), G, x=data.x.cpu(), y=data.y.cpu())
+    v, g, h = bucket.bucketed_logistic_logp_grad_hess(beta, layout)
+    noise = (eps, logu)
+
+    def run(lay, *args, **kw):
+        if algorithm == "mala":
+            return bucket.bucketed_fused_mala_step(
+                *args[:3], torch.full((C, 1), -1.3, device=args[0].device),
+                *args[4:6], lay, noise=kw["noise"])
+        return bucket.bucketed_fused_newton_step(
+            *args[:4], torch.zeros(C, G, device=args[0].device), *args[4:6],
+            lay, noise=kw["noise"], frozen=algorithm == "frozen")
+
+    reset_launch_counts()
+    out = run(layout, beta, v, g, h, mu, lt, noise=noise)
+    torch.cuda.synchronize()
+    key = {"mala": "mala_step", "newton": "newton_step_refresh",
+           "frozen": "newton_step_frozen"}[algorithm]
+    assert LAUNCHES[key] == B and sum(LAUNCHES.values()) == B
+    ref = list(run(cpu_layout, *(t.cpu() for t in (beta, v, g, h, mu, lt)),
+                   noise=tuple(t.cpu() for t in noise)))
+    alpha_i = 3 if algorithm == "mala" else 4
+    if algorithm == "frozen":
+        assert out[3] is h
+        out, ref, alpha_i = out[:3] + out[4:], ref[:3] + ref[4:], 3
+    out = [o.cpu() for o in out]
+    assert 0.05 < float(ref[alpha_i].mean()) <= 1.0
+    _check_step(out, ref, beta.cpu(), logu.cpu(), alpha_i)
+
+
+def test_ragged_sweeps_launch_their_kernels(dev):
+    """One warmup and one sampling sweep of config 4's two routes: the
+    bucket route runs B Newton launches and B Hessian or gradient passes a
+    sweep; the segment route's MALA runs only the segment kernel."""
+    data, _ = synth_logistic(4, G=90, n=32, p=3, ragged=True, min_obs=1,
+                             device=dev)
+    for impl, algorithm, tau in (("auto", "newton", "invgamma"),
+                                 ("pallas-segment", "mala", "halfnormal"),
+                                 ("pallas-segment", "rwmh", "halfnormal")):
+        model = make_hier_logistic(data, loglik_impl=impl, tau_prior=tau)
+        cfg = SamplerConfig(kernel=KernelConfig(algorithm=algorithm),
+                            run=RunConfig(chains=130,
+                                          log_every_segment=False))
+        rng = SweepRNG(0, dev)
+        reset_launch_counts()
+        state = init_kernel_state(model, cfg, rng, data)
+        sweep = make_sweep(model, cfg)
+        state = sweep(state, data, True, rng)
+        state = sweep(state, data, False, rng)
+        torch.cuda.synchronize()
+        if impl == "auto":
+            B = len(bucket.BucketLayout.build(data.segment_ids, 90).buckets)
+            want = {"newton_step_refresh": B, "newton_step_frozen": B,
+                    "logp_grad_hess": 2 * B, "logp_grad": B}
+        else:
+            want = {"seg_logp_grad" if algorithm == "mala"
+                    else "seg_loglik": 5}
+        assert {k: n for k, n in LAUNCHES.items() if n} == want
+        assert all(bool(torch.isfinite(t).all())
+                   for t in state.position.values())
