@@ -24,7 +24,13 @@ Needs one CUDA card and this checkout (it builds the kernels from
    empty groups and a group of more observations than one staged chunk,
    and the widest size bucket of that data (C=1024, about 5,400 groups,
    cap 32, p=3) for the bucketed route's obs passes and Newton and MALA
-   steps. Dense and masked data, with and without the R-hat fold. Each
+   steps; then (3d) the tiled templates (logp_grad, logp_grad_hess, the
+   MALA step; Logit and Poisson) at partial tiles and odd sizes for p=3
+   and p=4 (C, G, n from 1 to 130, 70, 50, and n=3000 for one unit a
+   tile). mala_step's record times the main path's mode at mala-100k
+   (Philox noise, no fold; bound without the noise operands) and keeps the
+   external-noise time beside it. Dense and masked data, with and without
+   the R-hat fold. Each
    line: the max error against the stated tolerance (1e-3 + 1e-4 |ref|
    where no other is said), the accept decisions that differ
    (all must lie within |log alpha - log u| < 1e-3), both times (CUDA
@@ -237,8 +243,10 @@ def main() -> int:
         fused_newton_logistic_step_plain,
         philox_probe,
     )
+    from nestmc_torch.ops.cuda.common import TILE_KINDS, tile_plan
     from nestmc_torch.ops.segment import SegmentLayout
     from nestmc_torch.presets import get_preset
+    from nestmc_torch.rng import SweepRNG
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -582,13 +590,25 @@ def main() -> int:
                 f"on {S} chains: max_abs_err {err:.3e} (tol 1e-3 + "
                 f"1e-4|ref|, alpha 2e-3|ref|); accept decisions differ in "
                 f"{n_diff} of {S * G} cells, {n_bad} outside |log a - log u|"
-                f" < 1e-3 {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
-                f"plain {pms:.4f} ms{note}; {bound_str(w)}")
+                f" < 1e-3 {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+                f"(external noise), plain {pms:.4f} ms{note}; {bound_str(w)}")
             if not ok:
                 fail(f"mala_step {case} disagrees with its plain version")
-            # the main path's case: no fold (thin 4), dense data
+            # the main path's case: no fold (thin 4), dense data, Philox
+            # noise drawn in the kernel: its record times that mode
             main = dname == "dense" and not fold
-            record("mala_step", err, ms if main else None, pms, M100K, w)
+            record("mala_step", err)
+            if main:
+                key = SweepRNG(8, dev)
+                ms_px = timed(lambda: fused_mala_logistic_step(*args,
+                                                               rng=key))
+                w_px = work("mala_step", C, G, N, P, noise=False)
+                say(f"kernel mala_step [main path's mode: Philox noise, no "
+                    f"fold, {dname}, C={C} G={G} n={N} p={P}]: kernel "
+                    f"{ms_px:.4f} ms (external noise {ms:.4f} ms); "
+                    f"{bound_str(w_px)}")
+                record("mala_step", err, ms_px, pms, M100K, w_px)
+                kernels["mala_step"]["ms_external_noise"] = ms
             del out, ref, out_s, rf, rf_s
             torch.cuda.empty_cache()
         del v, g
@@ -789,6 +809,86 @@ def main() -> int:
         record(kname, err)
         del out, ref
     del beta, bb, x, y, m, v, g, h, mu, lt, eps, logu, blayout, seg_layout
+    torch.cuda.empty_cache()
+
+    # ---- 3d. the tiled templates at partial tiles and odd sizes ----
+    # (C, G, n): one chain, units below a tile, ragged tiles on both axes,
+    # one observation; n = 3000 gives one unit a tile (its rows all masked
+    # but every 100th, so the float32 sums stay within the tolerance)
+    for P in (3, 4):
+        for C, G, N in ((1, 1, 1), (33, 31, 13), (130, 33, 50), (1, 70, 13),
+                        (33, 70, 1), (130, 1, 50), (33, 3, 3000)):
+            ge = torch.Generator(device=dev).manual_seed(13 + C + G + N)
+            x = torch.randn(G, N, P, generator=ge, device=dev)
+            x[:, :, 0] = 1.0
+            m = torch.ones(G, N, device=dev)
+            m[0, max(N - 4, 0):] = 0.0
+            if N == 3000:
+                m.zero_()
+                m[:, ::100] = 1.0
+            y = (torch.rand(G, N, generator=ge, device=dev) < 0.5).float() * m
+            ypo = torch.poisson(torch.full((G, N), 1.5, device=dev),
+                                generator=ge) * m
+            const = loglik.poisson_const(ypo, m)
+            beta = 0.5 * torch.randn(C, G, P, generator=ge, device=dev)
+            bpo = 0.3 * torch.randn(C, G, P, generator=ge, device=dev)
+            mu = 0.3 * torch.randn(C, P, generator=ge, device=dev)
+            lt = -0.5 + 0.2 * torch.randn(C, P, generator=ge, device=dev)
+            eps = torch.randn(C, G, P, generator=ge, device=dev)
+            logu = torch.log(torch.rand(C, G, generator=ge, device=dev)
+                             .clamp_min(1e-38))
+            rf = (torch.randn(2, G, P, C, generator=ge, device=dev),
+                  torch.rand(2, G, P, C, generator=ge, device=dev),
+                  fold_rhat_scalars([3.0, 0.0], 3, 5))
+            errs = {}
+            for name, kern, plain, a in (
+                ("logp_grad", logistic_logp_grad,
+                 loglik.logistic_logp_grad_padded, (beta, x, y, m)),
+                ("logp_grad_hess", logistic_logp_grad_hess,
+                 loglik.logistic_logp_grad_hess_padded, (beta, x, y, m)),
+                ("pois_logp_grad", pois.poisson_logp_grad,
+                 loglik.poisson_logp_grad_padded, (bpo, x, ypo, m, const)),
+                ("pois_logp_grad_hess", pois.poisson_logp_grad_hess,
+                 loglik.poisson_logp_grad_hess_padded,
+                 (bpo, x, ypo, m, const)),
+            ):
+                out, ref = kern(*a), plain(*a)
+                torch.cuda.synchronize()
+                es = [max_err(o, f, 1e-4) for o, f in zip(out, ref)]
+                errs[name] = (max(e for e, _ in es), all(o for _, o in es))
+            v, g = loglik.logistic_logp_grad_padded(beta, x, y, m)
+            ls = torch.full((C, G), -1.3, device=dev)
+            for fold in (None, rf):
+                args = (beta, v, g, ls, mu, lt, x, y, m)
+                out = fused_mala_logistic_step(*args, noise=(eps, logu),
+                                               rhat_fold=fold)
+                ref = fused_mala_logistic_step_plain(*args, (eps, logu),
+                                                     rhat_fold=fold)
+                torch.cuda.synchronize()
+                e, o, _, _ = step_check(out, ref, beta, logu, 3)
+                prev = errs.get("mala_step", (0.0, True))
+                errs["mala_step"] = (max(prev[0], e), prev[1] and o)
+            vp, gp = loglik.poisson_logp_grad_padded(bpo, x, ypo, m, const)
+            args = (bpo, vp, gp, ls, bpo + 0.1, lt - 0.7, x, ypo, m)
+            out = pacc.fused_mala_poisson_step(*args, noise=(eps, logu),
+                                               const=const)
+            ref = pacc.fused_mala_poisson_step_plain(*args, (eps, logu),
+                                                     const=const)
+            torch.cuda.synchronize()
+            e, o, _, _ = step_check(out, ref, bpo, logu, 3)
+            errs["pois_mala_step"] = (e, o)
+            tgs = sorted({tile_plan(k, N, P)[0] for k in TILE_KINDS})
+            ok = all(o for _, o in errs.values())
+            say(f"tiled kernels [C={C} G={G} n={N} p={P}, units a tile "
+                f"{tgs}]: max_abs_err "
+                + ", ".join(f"{k} {e:.2e}" for k, (e, _) in errs.items())
+                + f" (tol 1e-3 + 1e-4|ref|, alpha 2e-3|ref|) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"a tiled kernel at C={C} G={G} n={N} p={P} disagrees "
+                     "with its plain version")
+            for k, (e, _) in errs.items():
+                record(k, e)
     torch.cuda.empty_cache()
 
     # ---- 4. Philox moments ----
@@ -1097,7 +1197,9 @@ def main() -> int:
          "plain_ms": kernels[k]["plain_ms"],
          "bound_ms": kernels[k]["bound_ms"],
          "bound_by": kernels[k]["bound_by"], "library_ms": None,
-         "shape_C_G_n_p": list(kernels[k]["shape"])}
+         "shape_C_G_n_p": list(kernels[k]["shape"]),
+         **({"ms_external_noise": kernels[k]["ms_external_noise"]}
+            if "ms_external_noise" in kernels[k] else {})}
         for k in SRC
     ]}), flush=True)
     say(f"total {time.perf_counter() - T_START:.1f} s")

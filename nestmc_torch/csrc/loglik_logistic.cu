@@ -5,33 +5,38 @@
 // Replaces nestmc/ops/pallas/loglik_logistic.py::logistic_logp_grad_pallas,
 // ::logistic_logp_grad_hess_pallas and ::logistic_loglik_padded_pallas.
 //
-// Design: one thread per (chain, group) cell; a block covers one group
-// (blockIdx.x) across 128 chains (blockIdx.y tiles the chains). The group's
-// x (n*P floats, 800 B at n=50, P=4), y and mask are staged once in shared
-// memory and read by every thread as broadcasts. eta, the loglik, the P
-// gradient sums and the T Hessian sums live in registers, so the (C, G, n)
-// lattice never reaches device memory. Groups need no padding; the chain
-// edge is masked.
+// Design: logp_grad and logp_grad_hess run the tile of cell_tile.cuh
+// (loglik_kernels.cuh): a block stages 16-32 consecutive groups' x, y and
+// mask (x: n*P floats a group, 240 B at n=20, P=3) in shared memory, a warp
+// steps 32 chains through one group at a time with every per-obs value in
+// registers, so the (C, G, n) lattice never reaches device memory, and the
+// loglik, gradient and Hessian leave through row buffers in contiguous runs
+// a chain row. The value-only loglik keeps one thread a cell and one group
+// a block across 128 chains.
 //
-// Bound on the H100: at the judged shape (C=1024, G=1000, n=50, P=4) a call
-// reads beta (16.4 MB) and writes 20-61 MB, 11-23 us of HBM time at
-// 3.35 TB/s, but evaluates 2 transcendentals, an IEEE division and P (+T)
-// FMAs on each of 51.2 M obs-cells. Measured on an H100 80GB HBM3 at 700 W
-// (PERF.md): 0.14-0.19 ms for logp_grad, 0.29-0.38 ms with the Hessian, so
-// arithmetic, not memory, bounds it. The design keeps memory traffic at its
-// minimum (every per-obs value stays in registers, each group's data is
-// read once per block); cheaper arithmetic and vectorised or chains-minor
-// loads of beta/g/h are later work.
+// Bound on the H100: at the mala-100k shape (C=512, G=100,000, n=20, P=3)
+// logp_grad reads beta (614 MB) and writes the loglik and gradient (819
+// MB): 0.43 ms at 3.35 TB/s; its float32 operation floor (exp and log1p
+// one operation each) is 0.44 ms. Compiled, the obs pass is about 80
+// instructions an obs-cell (an accurate expf and log1pf, an IEEE division,
+// the eta and gradient FMAs): 2.4 ms of instruction issue for 1.02 G
+// obs-cells at 1.98 GHz, which bounds it now that the traffic is coalesced.
+// Measured on an H100 80GB HBM3 at 700.00 W (PERF.md, PR 5; python -m
+// nestmc_torch.kernel_ab): logp_grad 2.70-2.82 ms (4.18-4.19 before, one
+// thread a cell with the chain on the thread index), logp_grad_hess
+// 3.52-3.53 (9.82-9.83); at the judged shape (C=1024, G=1000, n=50, P=4),
+// where the one-unit kernel's operands sit in L2, logp_grad 0.150 ms
+// against its 0.141, logp_grad_hess 0.205 against 0.292; bitwise the same
+// outputs.
 //
 // The value-only loglik reads beta and writes (C, G): at the RW preset's
 // shape (C=64, G=100, n=50, P=4) 128 KB, far below a microsecond of HBM
 // time, so launch latency bounds it there; at C=512, G=100,000, n=20, P=3
 // it moves 820 MB (245 us at 3.35 TB/s) against 1.02 G obs-cells of one
-// exp and one log1p each. Same layout as the other passes. Measured on an
-// H100 80GB HBM3 at 700 W (PERF.md): 0.023-0.026 ms at the RW shape, 1.87
-// ms at the larger one (7.3x its bound; logp_grad there 4.18 ms, 9.4x):
-// at G=100,000 the uncoalesced per-cell loads and stores cost more than
-// at the judged G=1000.
+// exp and one log1p each. Measured on an H100 80GB HBM3 at 700 W (PERF.md):
+// 0.023-0.026 ms at the RW shape, 1.87 ms at the larger one (7.3x its
+// bound): its per-cell loads with the chain on the thread index are
+// uncoalesced (ROADMAP: the next redesigns).
 
 #include "logistic_terms.cuh"
 #include "loglik_kernels.cuh"

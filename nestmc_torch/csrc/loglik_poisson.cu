@@ -12,9 +12,10 @@
 // full one, as the model's cache convention wants, with no extra (C, S)
 // passes.
 //
-// Design: as loglik_logistic.cu, one thread per (chain, subject) cell, one
-// subject per block (blockIdx.x) across 128 chains; the subject's x
-// (n*P floats, 120 B at n=10, P=3), y and mask sit in shared memory.
+// Design: as loglik_logistic.cu: logp_grad and logp_grad_hess on the tile
+// of cell_tile.cuh (32 consecutive subjects x 32 chains a block at config
+// 3's shape), the value-only loglik one thread a cell, one subject a block
+// across 128 chains.
 //
 // Bound on the H100 at config 3's shape (C=512, S=4000, n=10, P=3; 20.5 M
 // obs-cells): the loglik reads beta (24.6 MB) and writes (C, S) (8.2 MB),
@@ -22,9 +23,10 @@
 // obs-cell (3.4 us at 67 TFLOP/s); logp_grad adds the (C, S, P) gradient
 // (17 us of bytes) and logp_grad_hess the (C, S, 6) Hessian (32 us), so
 // bytes bound all three. The design reads each operand once and writes
-// each output once; the per-cell (C, S, ...) loads with the chain on the
-// thread index are uncoalesced, the same later work as the logistic
-// kernels'.
+// each output once. Measured on an H100 80GB HBM3 at 700.00 W (PERF.md,
+// PR 5): logp_grad 0.057-0.058 ms, logp_grad_hess 0.075 (0.163 and 0.405
+// one thread a cell); the value-only loglik's uncoalesced per-cell loads
+// are the next redesigns' work (ROADMAP).
 
 #include "loglik_kernels.cuh"
 #include "poisson_terms.cuh"

@@ -12,23 +12,26 @@
 // select. The fold (optional) folds the input beta into the (2, G, P, C)
 // Welford accumulators, as newton_accept.cu does.
 //
-// Layout and launch: as loglik_logistic.cu, one thread per cell, one group
-// per block, 128 chains per block; the group's data sits in shared memory
-// (400 B at n=20, P=3). The public (C, G, ...) layouts are read directly.
+// Layout and launch: the tile of cell_tile.cuh (mala_kernel.cuh): 32
+// consecutive groups x 32 consecutive chains a block at mala-100k's shape,
+// every (C, G, ...) operand read and written in contiguous runs of a chain
+// row through shared memory, a warp on 32 chains of one group, the fold's
+// chains-minor accumulators read and written coalesced from device memory.
 //
 // Bound on the H100: at the mala-100k shape (C=512, G=100,000, n=20, P=3)
-// a call reads beta and g (614 MB each) and v and log_scale (205 MB each)
-// and writes beta, g (614 MB each), v and alpha (205 MB each): 3.3 GB,
-// 0.98 ms at 3.35 TB/s; the obs pass adds 1.02 G obs-cells of 2
-// transcendentals, a division and about 4P FMAs, so memory bounds it. The
-// design reads and writes every operand exactly once and keeps the
-// (C, G, n) lattice in registers; the fold adds 4 x 1.23 GB (accumulators
-// read and written) to the same pass. Measured on an H100 80GB HBM3 at
-// 700 W (PERF.md): 10.1 ms with external noise, 8.2x its 1.23 ms bound,
-// 9 ms a sweep with Philox noise: with the chain on the thread index a
-// warp's loads of the (C, G, ...) operands lie G*P floats apart, so they
-// are uncoalesced. A warp over consecutive groups of one chain (several
-// groups' data staged per block) is later work.
+// with the main path's Philox noise a call reads beta and g (614 MB each)
+// and v and log_scale (205 MB each) and writes beta, g, v and alpha: 3.3 GB,
+// 0.98 ms at 3.35 TB/s; the obs pass evaluates 1.02 G obs-cells of an exp,
+// a log1p, an IEEE division and about 4P FMAs, which the float32 bound
+// counts as 2P + 17 operations each. Compiled (sm_90a, 64 registers), the
+// obs pass is about 80 instructions an obs-cell and the per-cell algebra
+// and Philox about 600 a cell: 3.5 ms of instruction issue at 1.98 GHz, so
+// with the traffic coalesced the instruction stream, not memory, bounds it.
+// Measured on an H100 80GB HBM3 at 700.00 W (PERF.md, PR 5; python -m
+// nestmc_torch.kernel_ab): 4.22-4.23 ms with Philox noise (9.28 ms before,
+// one thread a cell with the chain on the thread index), 4.77 ms with
+// external noise, 6.69 ms with the fold; bitwise the outputs of the
+// one-unit kernel.
 
 #include "logistic_terms.cuh"
 #include "mala_kernel.cuh"

@@ -17,10 +17,13 @@
 // Noise from csrc/philox.cuh, or, for the parity checks, given
 // (eps, log u) operands, which the reference takes too.
 //
-// Layout and launch: one thread per (chain, subject) cell, one subject per
-// block, 128 chains per block; the subject's x (n*P floats, 120 B at n=10,
-// P=3), y and mask in shared memory; the packed P x P Cholesky of the
-// Newton step in registers (smallchol.cuh).
+// Layout and launch: the MALA step on the tile of cell_tile.cuh (32
+// consecutive subjects x 32 chains a block, its operands and the per-unit
+// prior mean staged in contiguous runs a chain row); the RW and Newton
+// steps one thread per (chain, subject) cell, one subject per block, 128
+// chains per block, the subject's x (n*P floats, 120 B at n=10, P=3), y and
+// mask in shared memory and the packed P x P Cholesky of the Newton step in
+// registers (smallchol.cuh).
 //
 // Bound on the H100 at config 3's shape (C=512, S=4000, n=10, P=3: 2.05 M
 // cells, 20.5 M obs-cells), Philox noise: the RW step reads beta and bg_s
@@ -31,9 +34,11 @@
 // 206 MB, 61 us). The obs pass is one exp and about 4P + 8 more float32
 // operations an obs-cell, and the Cholesky algebra a few hundred a cell,
 // under 15 us at 67 TFLOP/s, so bytes bound all three. The design reads
-// every operand once and writes every output once; the uncoalesced per-cell
-// (C, S, ...) loads (the chain on the thread index) are the same later work
-// as the logistic kernels'.
+// every operand once and writes every output once. Measured on an H100
+// 80GB HBM3 at 700.00 W (PERF.md, PR 5): the MALA step 0.122 ms with
+// Philox noise, 0.137 with external noise (0.387 and 0.421 one thread a
+// cell); the RW and Newton steps' uncoalesced per-cell loads are the next
+// redesigns' work (ROADMAP).
 
 #include "mala_kernel.cuh"
 #include "newton_kernel.cuh"

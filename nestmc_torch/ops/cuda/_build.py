@@ -50,6 +50,7 @@ _SIGNATURES = {
     "nestmc_pois_newton_step": [_P] * 18 + [_I] * 3 + [_U] * 2 + [_I, _P],
     "nestmc_seg_loglik": [_P] * 5 + [_I] * 2 + [_P],
     "nestmc_seg_logp_grad": [_P] * 6 + [_I] * 2 + [_P],
+    "nestmc_tile_plan": [_I, _I, _P],
 }
 
 _libs: dict = {}
@@ -128,8 +129,10 @@ def build(ps) -> None:
 
 
 def library(p: int) -> ctypes.CDLL:
-    """The kernel library for covariate count p, built on first use."""
-    lib = _libs.get(p)
+    """The kernel library for covariate count p, built on first use from
+    the sources in ``SRC_DIR`` (another tree's for an A/B, see
+    nestmc_torch.kernel_ab)."""
+    lib = _libs.get((p, SRC_DIR))
     if lib is not None:
         return lib
     if not 1 <= p <= 8:
@@ -139,10 +142,11 @@ def library(p: int) -> ctypes.CDLL:
         _compile(p, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _libs[p] = lib
+        fn = getattr(lib, name, None)   # None: an older tree's library
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    _libs[(p, SRC_DIR)] = lib
     return lib
 
 

@@ -19,6 +19,7 @@ from nestmc_torch.ops.cuda.common import (
     on_cpu,
     ptr,
     stream_of,
+    tile_plan,
 )
 
 logistic_loglik_plain = _plain.logistic_loglik_padded
@@ -26,7 +27,9 @@ logistic_logp_grad_plain = _plain.logistic_logp_grad_padded
 logistic_logp_grad_hess_plain = _plain.logistic_logp_grad_hess_padded
 
 
-def _check(beta, x, y, mask):
+def _check(beta, x, y, mask, kind=None):
+    """Check every operand; ``kind`` names the tiled kernel's launch mode
+    (common.TILE_KINDS), None the value-only loglik."""
     C, G, p = beta.shape
     n = x.shape[1]
     for name, t, shape in (
@@ -34,14 +37,17 @@ def _check(beta, x, y, mask):
         ("y", y, (G, n)), ("mask", mask, (G, n)),
     ):
         check_tensor(t, name, shape, beta.device)
-    check_smem(n, p)
+    if kind is None:
+        check_smem(n, p)
+    else:
+        tile_plan(kind, n, p)
 
 
 def _launch(lib, beta, x, y, mask, hess: bool, stream: int):
     C, G, p = beta.shape
     n = x.shape[1]
     dev = beta.device
-    _check(beta, x, y, mask)
+    _check(beta, x, y, mask, "logp_grad_hess" if hess else "logp_grad")
     out_v = torch.empty((C, G), dtype=torch.float32, device=dev)
     out_g = torch.empty((C, G, p), dtype=torch.float32, device=dev)
     out_h = (

@@ -21,6 +21,7 @@ from nestmc_torch.ops.cuda.common import (
     on_cpu,
     ptr,
     stream_of,
+    tile_plan,
 )
 
 poisson_loglik_plain = _plain.poisson_loglik_padded
@@ -28,8 +29,10 @@ poisson_logp_grad_plain = _plain.poisson_logp_grad_padded
 poisson_logp_grad_hess_plain = _plain.poisson_logp_grad_hess_padded
 
 
-def _checked(beta, x, y, mask, const):
-    """const (S,) on beta's device, after checking every operand."""
+def _checked(beta, x, y, mask, const, kind=None):
+    """const (S,) on beta's device, after checking every operand; ``kind``
+    names the tiled kernel's launch mode (common.TILE_KINDS), None the
+    value-only loglik."""
     C, S, p = beta.shape
     n = x.shape[1]
     if const is None:
@@ -39,7 +42,10 @@ def _checked(beta, x, y, mask, const):
         ("mask", mask, (S, n)), ("const", const, (S,)),
     ):
         check_tensor(t, name, shape, beta.device)
-    check_smem(n, p)
+    if kind is None:
+        check_smem(n, p)
+    else:
+        tile_plan(kind, n, p)
     return const
 
 
@@ -48,7 +54,8 @@ def _launch_grad(beta, x, y, mask, const, hess: bool):
     C, S, p = beta.shape
     dev = beta.device
     with torch.cuda.device(dev):
-        const = _checked(beta, x, y, mask, const)
+        const = _checked(beta, x, y, mask, const,
+                         "logp_grad_hess" if hess else "logp_grad")
         out_v = torch.empty((C, S), dtype=torch.float32, device=dev)
         out_g = torch.empty((C, S, p), dtype=torch.float32, device=dev)
         out_h = (torch.empty((C, S, p * (p + 1) // 2), dtype=torch.float32,

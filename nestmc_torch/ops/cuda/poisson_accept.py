@@ -29,6 +29,7 @@ from nestmc_torch.ops.cuda.common import (
     on_cpu,
     ptr,
     stream_of,
+    tile_plan,
 )
 from nestmc_torch.ops.smallchol import (
     chol_packed,
@@ -149,8 +150,9 @@ def fused_newton_poisson_step_plain(beta, v_cache, g_cache, h_cache,
 
 
 def _prepare(beta, operands, log_scale, bg_s, log_tau_s, x, y, mask, noise,
-             const):
-    """Check every operand of a step launch; returns (const, eps, logu)."""
+             const, tiled=False):
+    """Check every operand of a step launch (``tiled``: the MALA step's
+    tile plan); returns (const, eps, logu)."""
     C, S, p = beta.shape
     n = x.shape[1]
     T = p * (p + 1) // 2
@@ -171,7 +173,10 @@ def _prepare(beta, operands, log_scale, bg_s, log_tau_s, x, y, mask, noise,
         checks += [("eps", eps, (C, S, p)), ("logu", logu, (C, S))]
     for name, t, shape in checks:
         check_tensor(t, name, shape, beta.device)
-    check_smem(n, p)
+    if tiled:
+        tile_plan("pois_mala" if noise is None else "pois_mala_noise", n, p)
+    else:
+        check_smem(n, p)
     return const, eps, logu
 
 
@@ -233,7 +238,7 @@ def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
         log_scale = log_scale.contiguous()
         const, eps, logu = _prepare(
             beta, [("v_cache", v_cache), ("g_cache", g_cache)], log_scale,
-            bg_s, log_tau_s, x, y, mask, noise, const,
+            bg_s, log_tau_s, x, y, mask, noise, const, tiled=True,
         )
         out = (_empty(dev, C, S, p), _empty(dev, C, S),
                _empty(dev, C, S, p), _empty(dev, C, S))

@@ -592,3 +592,178 @@ def test_ragged_sweeps_launch_their_kernels(dev):
         assert {k: n for k, n in LAUNCHES.items() if n} == want
         assert all(bool(torch.isfinite(t).all())
                    for t in state.position.values())
+
+
+# ---- the tiled templates (csrc/cell_tile.cuh): logp_grad_kernel and
+# mala_step_kernel at partial tiles and odd sizes. (C, G, n): one chain,
+# G below a tile, ragged tiles on both axes, a single observation.
+TILE_CASES = [(1, 1, 1), (33, 31, 13), (130, 33, 50), (1, 70, 13),
+              (33, 70, 1), (130, 1, 50)]
+
+
+def _tile_inputs(dev, C, G, n, p, seed=3, sparse=False):
+    """Logistic and Poisson data with masked rows (unit 0's tail, unit 5's
+    first half; ``sparse``: all but every 100th row), beta, priors and
+    external noise."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(G, n, p, generator=g)
+    x[:, :, 0] = 1.0
+    mask = torch.ones(G, n)
+    mask[0, max(n - 4, 0):] = 0.0
+    if G > 5:
+        mask[5, : n // 2] = 0.0
+    if sparse:
+        mask.zero_()
+        mask[:, ::100] = 1.0
+    y = (torch.rand(G, n, generator=g) < 0.5).float() * mask
+    ypo = torch.poisson(torch.full((G, n), 1.5), generator=g) * mask
+    beta = 0.5 * torch.randn(C, G, p, generator=g)
+    bpo = 0.3 * torch.randn(C, G, p, generator=g)
+    bgs = bpo + 0.2 * torch.randn(C, G, p, generator=g)
+    mu = 0.3 * torch.randn(C, p, generator=g)
+    lt = -0.5 + 0.2 * torch.randn(C, p, generator=g)
+    lts = -1.2 + 0.2 * torch.randn(C, p, generator=g)
+    eps = torch.randn(C, G, p, generator=g)
+    logu = torch.log(torch.rand(C, G, generator=g))
+    fold = (torch.randn(2, G, p, C, generator=g),
+            torch.rand(2, G, p, C, generator=g))
+    names = ("x", "mask", "y", "ypo", "beta", "bpo", "bgs", "mu", "lt", "lts",
+             "eps", "logu")
+    vals = (x, mask, y, ypo, beta, bpo, bgs, mu, lt, lts, eps, logu)
+    r = {k: t.to(dev) for k, t in zip(names, vals)}
+    r["fold"] = tuple(t.to(dev) for t in fold) + (
+        fold_rhat_scalars([3.0, 0.0], 3, 5),)
+    r["const"] = loglik.poisson_const(r["ypo"], r["mask"])
+    return r
+
+
+def _tiled_obs_passes(r):
+    """Logit and Poisson logp_grad and logp_grad_hess: kernel vs plain."""
+    x, m, y, ypo, const = r["x"], r["mask"], r["y"], r["ypo"], r["const"]
+    reset_launch_counts()
+    for kern, plain, a in (
+        (logistic_logp_grad, loglik.logistic_logp_grad_padded,
+         (r["beta"], x, y, m)),
+        (logistic_logp_grad_hess, loglik.logistic_logp_grad_hess_padded,
+         (r["beta"], x, y, m)),
+        (pois.poisson_logp_grad, loglik.poisson_logp_grad_padded,
+         (r["bpo"], x, ypo, m, const)),
+        (pois.poisson_logp_grad_hess, loglik.poisson_logp_grad_hess_padded,
+         (r["bpo"], x, ypo, m, const)),
+    ):
+        out, ref = kern(*a), plain(*a)
+        torch.cuda.synchronize()
+        for o, f in zip(out, ref):
+            _assert_close(o, f, kern.__name__)
+    assert {k: n for k, n in LAUNCHES.items() if n} == {
+        "logp_grad": 1, "logp_grad_hess": 1, "pois_logp_grad": 1,
+        "pois_logp_grad_hess": 1}
+
+
+def _tiled_mala_steps(r):
+    """The Logit MALA step without and with the fold and the Poisson one,
+    external noise: kernel vs plain."""
+    x, m, y, ypo, const = r["x"], r["mask"], r["y"], r["ypo"], r["const"]
+    beta, bpo = r["beta"], r["bpo"]
+    C, G, _ = beta.shape
+    noise = (r["eps"], r["logu"])
+    v, g = loglik.logistic_logp_grad_padded(beta, x, y, m)
+    ls = torch.full((C, 1), -1.3, device=beta.device)
+    reset_launch_counts()
+    for rf in (None, r["fold"]):
+        out = fused_mala_logistic_step(beta, v, g, ls, r["mu"], r["lt"], x,
+                                       y, m, noise=noise, rhat_fold=rf)
+        ref = fused_mala_logistic_step_plain(
+            beta, v, g, ls.expand(C, G), r["mu"], r["lt"], x, y, m, noise,
+            rhat_fold=rf)
+        torch.cuda.synchronize()
+        _check_step(out, ref, beta, r["logu"], 3)
+    vp, gp = loglik.poisson_logp_grad_padded(bpo, x, ypo, m, const)
+    lsp = torch.full((C, 1), -1.5, device=beta.device)
+    args = (bpo, vp, gp, lsp, r["bgs"], r["lts"], x, ypo, m)
+    out = pacc.fused_mala_poisson_step(*args, noise=noise, const=const)
+    ref = pacc.fused_mala_poisson_step_plain(
+        *args[:3], lsp.expand(C, G), *args[4:], noise, const=const)
+    torch.cuda.synchronize()
+    _check_step(out, ref, bpo, r["logu"], 3)
+    assert {k: n for k, n in LAUNCHES.items() if n} == {
+        "mala_step": 2, "pois_mala_step": 1}
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_tiled_obs_passes_match_plain(dev, p, case):
+    _tiled_obs_passes(_tile_inputs(dev, *case, p))
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_tiled_mala_steps_match_plain(dev, p, case):
+    _tiled_mala_steps(_tile_inputs(dev, *case, p))
+
+
+@pytest.mark.parametrize("p", [3, 8])
+def test_tiled_kernels_at_the_smallest_tile(dev, p):
+    """n = 3000 observations a unit: one unit a tile (the plan's least),
+    over the 48 KB default. All but every 100th row is masked, so the
+    float32 sums over the unit's rows stay within the tolerance."""
+    from nestmc_torch.ops.cuda.common import TILE_KINDS, tile_plan
+
+    assert all(tile_plan(k, 3000, p)[0] == 1 for k in TILE_KINDS)
+    r = _tile_inputs(dev, 33, 3, 3000, p, sparse=True)
+    _tiled_obs_passes(r)
+    _tiled_mala_steps(r)
+
+
+class _FixedKey:
+    def __init__(self, k0, k1):
+        self.key = (k0, k1)
+
+    def philox_key(self):
+        return self.key
+
+
+def test_tiled_mala_philox_is_deterministic(dev):
+    """Two Philox launches with one key give bitwise-equal outputs, with
+    and without the fold; another key gives other proposals."""
+    r = _tile_inputs(dev, 130, 70, 13, 3)
+    x, m, y, ypo, const = r["x"], r["mask"], r["y"], r["ypo"], r["const"]
+    beta, bpo = r["beta"], r["bpo"]
+    C = beta.shape[0]
+    v, g = loglik.logistic_logp_grad_padded(beta, x, y, m)
+    vp, gp = loglik.poisson_logp_grad_padded(bpo, x, ypo, m, const)
+    ls = torch.full((C, 1), -1.3, device=dev)
+
+    def run(k0, k1, rf=None):
+        return (fused_mala_logistic_step(beta, v, g, ls, r["mu"], r["lt"], x,
+                                         y, m, rng=_FixedKey(k0, k1),
+                                         rhat_fold=rf)
+                + pacc.fused_mala_poisson_step(
+                    bpo, vp, gp, ls, r["bgs"], r["lts"], x, ypo, m,
+                    rng=_FixedKey(k0, k1), const=const))
+
+    for rf in (None, r["fold"]):
+        a, b = run(7, 11, rf), run(7, 11, rf)
+        torch.cuda.synchronize()
+        assert all(torch.equal(s, t) for s, t in zip(a, b))
+    c = run(8, 11)
+    assert not torch.equal(a[0], c[0])
+    assert all(bool(torch.isfinite(t).all()) for t in a + c)
+
+
+@pytest.mark.parametrize("p", [3, 4])
+def test_tile_plan_mirrors_the_launchers(dev, p):
+    """common.tile_plan gives the units a tile and the shared memory that
+    the kernels' launchers compute (csrc/tile_plan.cu)."""
+    import ctypes
+
+    from nestmc_torch.ops.cuda import _build
+    from nestmc_torch.ops.cuda.common import TILE_KINDS, tile_plan
+
+    lib = _build.library(p)
+    for i, kind in enumerate(TILE_KINDS):
+        for n in (1, 10, 13, 20, 32, 50, 500, 3000, 12288 // (p + 2)):
+            tg = ctypes.c_int()
+            smem = lib.nestmc_tile_plan(i, n, ctypes.byref(tg))
+            assert (tg.value, smem) == (tile_plan(kind, n, p)[0],
+                                        tile_plan(kind, n, p)[2]), (kind, n)
