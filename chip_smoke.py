@@ -25,9 +25,12 @@ Needs one CUDA card and this checkout (it builds the kernels from
    and the widest size bucket of that data (C=1024, about 5,400 groups,
    cap 32, p=3) for the bucketed route's obs passes and Newton and MALA
    steps; then (3d) the tiled templates (logp_grad, logp_grad_hess, the
-   MALA step; Logit and Poisson) at partial tiles and odd sizes for p=3
-   and p=4 (C, G, n from 1 to 130, 70, 50, and n=3000 for one unit a
-   tile). mala_step's record times the main path's mode at mala-100k
+   MALA step, the Newton step refresh and frozen, with and without the
+   fold; Logit and Poisson) at partial tiles and odd sizes for p=3 and
+   p=4 (C, G, n from 1 to 130, 70, 50, and n=3000 for one unit a tile),
+   and the segment kernels' tile at its edges (a group longer than a
+   chunk, a group straddling two chunks, empty groups, G and C off the
+   tile, one chain). mala_step's record times the main path's mode at mala-100k
    (Philox noise, no fold; bound without the noise operands) and keeps the
    external-noise time beside it. Dense and masked data, with and without
    the R-hat fold. Each
@@ -243,7 +246,7 @@ def main() -> int:
         fused_newton_logistic_step_plain,
         philox_probe,
     )
-    from nestmc_torch.ops.cuda.common import TILE_KINDS, tile_plan
+    from nestmc_torch.ops.cuda.common import SEG_OBS, TILE_KINDS, tile_plan
     from nestmc_torch.ops.segment import SegmentLayout
     from nestmc_torch.presets import get_preset
     from nestmc_torch.rng import SweepRNG
@@ -877,7 +880,46 @@ def main() -> int:
             torch.cuda.synchronize()
             e, o, _, _ = step_check(out, ref, bpo, logu, 3)
             errs["pois_mala_step"] = (e, o)
-            tgs = sorted({tile_plan(k, N, P)[0] for k in TILE_KINDS})
+            # the Newton steps: Logit refresh and frozen, without and with
+            # the fold; Poisson refresh and frozen
+            lz = torch.zeros(C, G, device=dev)
+            hs = (loglik.logistic_logp_grad_hess_padded(beta, x, y, m),
+                  loglik.poisson_logp_grad_hess_padded(bpo, x, ypo, m, const))
+            for frozen in (False, True):
+                kname = ("newton_step_frozen" if frozen
+                         else "newton_step_refresh")
+                for fold in (None, rf):
+                    args = (beta, *hs[0], lz, mu, lt, x, y, m)
+                    out = fused_newton_logistic_step(
+                        *args, noise=(eps, logu), frozen=frozen,
+                        rhat_fold=fold)
+                    ref = fused_newton_logistic_step_plain(
+                        *args, (eps, logu), frozen=frozen, rhat_fold=fold)
+                    torch.cuda.synchronize()
+                    if frozen and out[3] is not hs[0][2]:
+                        fail("frozen newton_step must return h itself")
+                    keep = [i for i in range(len(out))
+                            if not (frozen and i == 3)]
+                    e, o, _, _ = step_check(
+                        [out[i] for i in keep], [ref[i] for i in keep], beta,
+                        logu, keep.index(4))
+                    prev = errs.get(kname, (0.0, True))
+                    errs[kname] = (max(prev[0], e), prev[1] and o)
+                args = (bpo, *hs[1], lz, bpo + 0.1, lt - 0.7, x, ypo, m)
+                out = pacc.fused_newton_poisson_step(
+                    *args, noise=(eps, logu), frozen=frozen, const=const)
+                ref = pacc.fused_newton_poisson_step_plain(
+                    *args, (eps, logu), frozen=frozen, const=const)
+                torch.cuda.synchronize()
+                if frozen:
+                    if out[3] is not hs[1][2]:
+                        fail("frozen pois_newton_step must return h itself")
+                    out, ref = out[:3] + out[4:], ref[:3] + ref[4:]
+                e, o, _, _ = step_check(out, ref, bpo, logu,
+                                        3 if frozen else 4)
+                errs["pois_" + kname] = (e, o)
+            tgs = sorted({tile_plan(k, N, P)[0] for k in TILE_KINDS
+                          if k != "seg"})
             ok = all(o for _, o in errs.values())
             say(f"tiled kernels [C={C} G={G} n={N} p={P}, units a tile "
                 f"{tgs}]: max_abs_err "
@@ -886,6 +928,52 @@ def main() -> int:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"a tiled kernel at C={C} G={G} n={N} p={P} disagrees "
+                     "with its plain version")
+            for k, (e, _) in errs.items():
+                record(k, e)
+    # the segment kernels' tile (tg groups x 32 chains, observations staged
+    # in chunks of tg x SEG_OBS): a group longer than a chunk and tiles
+    # over the chunk budget, a group straddling a chunk boundary, config
+    # 4's sizes with empty groups at G and C off the tile, fewer groups
+    # than a tile, one chain
+    for P in (3, 4):
+        tg_seg = tile_plan("seg", SEG_OBS, P)[0]
+        for C, sizes in ((33, [1500] + [30] * 39), (20, [40] * 33),
+                         (70, [0 if i % 17 == 3 else 5 + (7 * i) % 26
+                               for i in range(100)]),
+                         (1, [3, 0, 31, 1, 2])):
+            G = len(sizes)
+            ge = torch.Generator(device=dev).manual_seed(17 + C + G)
+            sz = torch.tensor(sizes)
+            sl_ = SegmentLayout.build(
+                torch.repeat_interleave(torch.arange(G), sz), G, device=dev)
+            xs_ = torch.randn(int(sz.sum()), P, generator=ge, device=dev)
+            ys_ = (torch.rand(int(sz.sum()), generator=ge, device=dev)
+                   < 0.5).float()
+            bs_ = 0.7 * torch.randn(C, G, P, generator=ge, device=dev)
+            errs = {}
+            for name, kern, plain, rtols in (
+                ("seg_loglik", lambda *a: (logistic_loglik_segment(*a),),
+                 lambda *a: (logistic_loglik_segment_plain(*a),), (2e-5,)),
+                ("seg_logp_grad", logistic_logp_grad_segment,
+                 logistic_logp_grad_segment_plain, (2e-5, 2e-4)),
+            ):
+                out = kern(bs_, xs_, ys_, sl_)
+                ref = plain(bs_, xs_, ys_, sl_)
+                torch.cuda.synchronize()
+                e, o = seg_err(out, ref, rtols)
+                o &= bool((out[0][:, (sz == 0).to(dev)] == 0).all())
+                errs[name] = (e, o)
+            ok = all(o for _, o in errs.values())
+            say(f"tiled segment kernels [C={C} G={G} N={int(sz.sum())} "
+                f"p={P}, groups of {min(sizes)}..{max(sizes)} obs, "
+                f"{tg_seg} groups a tile, chunks of {tg_seg * SEG_OBS} "
+                "obs]: max_abs_err "
+                + ", ".join(f"{k} {e:.2e}" for k, (e, _) in errs.items())
+                + f" (tol 2e-5 + rtol|ref|, empty groups exactly 0) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"a segment kernel at C={C} G={G} p={P} disagrees "
                      "with its plain version")
             for k, (e, _) in errs.items():
                 record(k, e)

@@ -1,5 +1,7 @@
 // The (unit x chain) tile of the coalesced kernels: mala_step_kernel
-// (mala_kernel.cuh) and logp_grad_kernel (loglik_kernels.cuh).
+// (mala_kernel.cuh), logp_grad_kernel (loglik_kernels.cuh),
+// newton_step_kernel (newton_kernel.cuh) and, over ragged groups,
+// segment_kernel (segment_kernel.cuh).
 //
 // A block covers tg consecutive units x kTileC = 32 consecutive chains:
 //   1. stage in, with asynchronous copies (cp.async) that a thread issues
@@ -38,11 +40,14 @@ constexpr size_t kSmemSM = 233472;     // shared memory of an SM (228 KB)
 constexpr size_t kSmemReserved = 1024; // reserved a block
 constexpr size_t kSmemMax = 232448;    // the most one block may take
 // Blocks an SM the kernels are built for (__launch_bounds__: at most 48
-// registers a thread for logp_grad, 64 for logp_grad_hess and the MALA
-// step); plan_tile keeps the tile's shared memory within the same count.
+// registers a thread for logp_grad and the segment kernels, 64 for
+// logp_grad_hess and the MALA step, 80 for the Newton step); plan_tile
+// keeps the tile's shared memory within the same count.
 constexpr int kLogpGradBlocks = 5;
 constexpr int kHessBlocks = 4;
 constexpr int kMalaBlocks = 4;
+constexpr int kNewtonBlocks = 3;
+constexpr int kSegBlocks = 5;
 
 // Shared memory a block may take so that `blocks` blocks share an SM.
 __host__ __device__ constexpr size_t smem_budget(int blocks) {
@@ -58,11 +63,12 @@ __host__ __device__ constexpr size_t round4(size_t k) {
   return (k + 3) & ~(size_t)3;
 }
 
-// Floats of shared memory a tile of tg units takes: x, y and mask, each
-// from a 16-byte boundary, then one row buffer of kTileC rows for each
-// staged operand of widths w[0..nw).
-inline size_t tile_floats(int tg, int n, int P, const int* w, int nw) {
-  size_t f = round4((size_t)tg * n * P) + 2 * round4((size_t)tg * n);
+// Floats of shared memory a tile of tg units takes: x, y and mask (y alone
+// when streams = 1), each from a 16-byte boundary, then one row buffer of
+// kTileC rows for each staged operand of widths w[0..nw).
+inline size_t tile_floats(int tg, int n, int P, const int* w, int nw,
+                          int streams) {
+  size_t f = round4((size_t)tg * n * P) + streams * round4((size_t)tg * n);
   for (int i = 0; i < nw; ++i) f += (size_t)kTileC * row_stride(tg, w[i]);
   return f;
 }
@@ -72,12 +78,13 @@ struct TilePlan {
   int smem;    // bytes of dynamic shared memory
 };
 
-inline TilePlan plan_tile(int n, int P, const int* w, int nw, int blocks) {
+inline TilePlan plan_tile(int n, int P, const int* w, int nw, int blocks,
+                          int streams = 2) {
   for (int tg = kTileGMax; tg >= 1; tg /= 2) {
-    const size_t b = sizeof(float) * tile_floats(tg, n, P, w, nw);
+    const size_t b = sizeof(float) * tile_floats(tg, n, P, w, nw, streams);
     if (b <= smem_budget(blocks)) return {tg, (int)b};
   }
-  const size_t b = sizeof(float) * tile_floats(1, n, P, w, nw);
+  const size_t b = sizeof(float) * tile_floats(1, n, P, w, nw, streams);
   return b <= kSmemMax ? TilePlan{1, (int)b} : TilePlan{0, 0};
 }
 
@@ -183,7 +190,8 @@ __device__ __forceinline__ void stage_units(
   copy_run(mask + obs, ms, (size_t)t.ng * n);
 }
 
-// The shared-memory carve of a tile: unit data first, then row buffers.
+// The shared-memory carve of a tile: unit data first, then row buffers
+// (a tile of x and y alone, streams = 1, sets next = ms).
 struct TileSmem {
   float* xs;
   float* ys;

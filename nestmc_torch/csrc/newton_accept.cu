@@ -15,20 +15,30 @@
 // select. The fold (optional) folds the input beta into the (2, G, P, C)
 // Welford accumulators.
 //
-// Layout and launch: as loglik_logistic.cu, one thread per cell, one group
-// per block, 128 chains per block; the group's data sits in shared memory.
-// The fold accumulators are chains-minor, so a block's 128 threads read and
-// write them in contiguous runs.
+// Layout and launch: the (unit x chain) tile of cell_tile.cuh
+// (newton_kernel.cuh): 16 consecutive groups x 32 consecutive chains a
+// block at the judged shape and at ragged-10k's widest size bucket, every
+// (C, G, ...) operand (beta, g, the packed h, v, log_scale; eps and log u
+// with external noise) read and written in contiguous runs of a chain row
+// through shared memory, a warp on 32 chains of one group; the fold's
+// chains-minor accumulators are read and written coalesced from device
+// memory, a cell's 4P loads issued before any of its stores.
 //
-// Bound on the H100: at the judged shape a sampling (frozen + fold) call
-// moves about 240 MB (beta, g and their outputs 4 x 16.4 MB, h 41 MB, the
-// fold accumulators 131 MB read and written, v/log_scale/alpha 12 MB), 72 us
-// at 3.35 TB/s, and runs the obs pass of loglik_logistic.cu plus two
-// unrolled P x P Cholesky solves per cell. Measured on an H100 80GB HBM3 at
-// 700 W (PERF.md): 0.30-0.43 ms frozen with the fold, 0.44-0.58 ms refresh,
-// so the obs-pass arithmetic bounds it, as it bounds the eval kernels. The
-// fold rides the beta read the step needs anyway; the Cholesky algebra costs
-// no memory traffic. Vectorised loads and cheaper arithmetic are later work.
+// Bound on the H100: at the judged shape a sampling (frozen + fold) call moves
+// about 276 MB (beta, g and their outputs 4 x 16.4 MB, h 41 MB, the fold
+// accumulators 131 MB read and written, v, log_scale and alpha), 0.082 ms at
+// 3.35 TB/s, and a warmup (refresh) call 186 MB, 0.055 ms. Compiled (sm_90a,
+// __launch_bounds__ 3 blocks of 256 threads an SM: at most 80 registers), a
+// cell's algebra outside the obs pass (two packed Cholesky factors, three
+// triangular solves with IEEE divisions, Philox and Box-Muller) is about 950
+// SASS instructions and the obs pass about 82 an observation (kernel_ab
+// --sass), so with the traffic coalesced the instruction stream at 24 warps an
+// SM bounds it, not memory. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+// with Philox noise (PERF.md; python -m nestmc_torch.kernel_ab, the
+// one-thread-a-cell kernel it replaced in brackets): judged refresh
+// 0.303-0.304 ms (0.450-0.452), frozen + fold 0.256-0.257 (0.317-0.320); the
+// widest ragged-10k bucket refresh 0.998-1.002 (1.759-1.761), frozen
+// 0.822-0.825 (1.109-1.113); bitwise the outputs of the kernel it replaced.
 
 #include "logistic_terms.cuh"
 #include "newton_kernel.cuh"

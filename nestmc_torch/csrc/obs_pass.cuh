@@ -5,9 +5,11 @@
 //                                        (y - mean) and Newton curvature w;
 //   Fam::value(eta, y, m)                the masked loglik term alone.
 // The unit's x (n, P) row-major, y and mask (n) are staged in shared memory
-// by stage_group and read by every thread of the block as broadcasts; eta,
-// the loglik, the P gradient sums and the T packed -Hessian sums stay in
-// registers, so the (C, units, n) lattice never reaches device memory.
+// (by cell_tile.cuh's stage_units in the tiled kernels, by stage_group in
+// the one-thread-a-cell ones) and read by every thread of a warp as
+// broadcasts; eta, the loglik, the P gradient sums and the T packed
+// -Hessian sums stay in registers, so the (C, units, n) lattice never
+// reaches device memory.
 #pragma once
 
 #include "smallchol.cuh"
@@ -67,7 +69,9 @@ __device__ __forceinline__ void obs_pass(const float* xs, const float* ys,
 }
 
 // Stage unit g's x (n*P), y and mask (n) in dynamic shared memory. Every
-// thread of the block must call it (it ends in __syncthreads).
+// thread of the block must call it (it ends in __syncthreads). Only the
+// kernels still one thread a cell, one unit a block use it: loglik_kernel
+// (loglik_kernels.cuh) and rwmh_step_kernel (rwmh_kernel.cuh).
 template <int P>
 __device__ __forceinline__ void stage_group(const float* __restrict__ x,
                                             const float* __restrict__ y,

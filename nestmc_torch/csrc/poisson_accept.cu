@@ -17,28 +17,31 @@
 // Noise from csrc/philox.cuh, or, for the parity checks, given
 // (eps, log u) operands, which the reference takes too.
 //
-// Layout and launch: the MALA step on the tile of cell_tile.cuh (32
-// consecutive subjects x 32 chains a block, its operands and the per-unit
-// prior mean staged in contiguous runs a chain row); the RW and Newton
-// steps one thread per (chain, subject) cell, one subject per block, 128
-// chains per block, the subject's x (n*P floats, 120 B at n=10, P=3), y and
-// mask in shared memory and the packed P x P Cholesky of the Newton step in
-// registers (smallchol.cuh).
+// Layout and launch: the MALA and Newton steps on the tile of
+// cell_tile.cuh (up to 32 consecutive subjects x 32 chains a block, their
+// operands and the per-unit prior mean staged in contiguous runs a chain
+// row, the packed P x P Cholesky of the Newton step in registers,
+// smallchol.cuh); the RW step one thread per (chain, subject) cell, one
+// subject per block, 128 chains per block, the subject's x (n*P floats,
+// 120 B at n=10, P=3), y and mask in shared memory.
 //
 // Bound on the H100 at config 3's shape (C=512, S=4000, n=10, P=3: 2.05 M
 // cells, 20.5 M obs-cells), Philox noise: the RW step reads beta and bg_s
 // (24.6 MB each), the carried loglik and log_scale (8.2 MB each) and writes
-// beta, loglik and alpha: 107 MB, 32 us at 3.35 TB/s; MALA adds the
-// gradient read and written (156 MB, 47 us); Newton adds the packed
-// Hessian (refresh read and written, 255 MB, 76 us; frozen read only,
-// 206 MB, 61 us). The obs pass is one exp and about 4P + 8 more float32
-// operations an obs-cell, and the Cholesky algebra a few hundred a cell,
-// under 15 us at 67 TFLOP/s, so bytes bound all three. The design reads
-// every operand once and writes every output once. Measured on an H100
-// 80GB HBM3 at 700.00 W (PERF.md, PR 5): the MALA step 0.122 ms with
-// Philox noise, 0.137 with external noise (0.387 and 0.421 one thread a
-// cell); the RW and Newton steps' uncoalesced per-cell loads are the next
-// redesigns' work (ROADMAP).
+// beta, loglik and alpha: 107 MB, 32 us at 3.35 TB/s; MALA adds the gradient
+// read and written (156 MB, 47 us); Newton adds the packed Hessian (refresh
+// read and written, 255 MB, 76 us; frozen read only, 206 MB, 61 us). The obs
+// pass is one exp and about 4P + 8 more float32 operations an obs-cell, and
+// the Cholesky algebra a few hundred a cell, under 15 us at 67 TFLOP/s, so
+// bytes set the floor of all three. The design reads every operand once and
+// writes every output once; with the traffic coalesced, the compiled
+// instruction stream is what the tiled steps take (a Newton cell's algebra is
+// about 950 SASS instructions, PERF.md). Measured on an H100 80GB HBM3 at
+// 700.00 W with Philox noise (PERF.md; python -m nestmc_torch.kernel_ab, the
+// one-thread-a-cell kernel each replaced in brackets): the MALA step 0.122 ms
+// (0.387); the Newton step refresh 0.179-0.180 ms (0.694-0.698), frozen
+// 0.149-0.150 (0.444). The RW step's uncoalesced per-cell loads are the
+// next redesign's work (ROADMAP).
 
 #include "mala_kernel.cuh"
 #include "newton_kernel.cuh"

@@ -5,16 +5,20 @@
 #include "logistic_terms.cuh"
 #include "loglik_kernels.cuh"
 #include "mala_kernel.cuh"
+#include "newton_kernel.cuh"
 #include "poisson_terms.cuh"
+#include "segment_kernel.cuh"
 
 #ifndef NESTMC_P
 #error "build with -DNESTMC_P=<covariate count>"
 #endif
 
 // kind: the index in common.py's TILE_KINDS (logp_grad, logp_grad_hess,
-// mala, mala_noise, pois_mala, pois_mala_noise). Writes the units a tile
-// (0: no tile fits) and returns the bytes of dynamic shared memory a block
-// takes, or -1 for an unknown kind.
+// mala, mala_noise, pois_mala, pois_mala_noise, newton, newton_noise,
+// pois_newton, pois_newton_noise, seg; for seg, n stands for the
+// observations a group of a chunk, which the launcher takes as kSegObs).
+// Writes the units a tile (0: no tile fits) and returns the bytes of
+// dynamic shared memory a block takes, or -1 for an unknown kind.
 extern "C" int nestmc_tile_plan(int kind, int n, int* tg) {
   using namespace nestmc;
   constexpr int P = NESTMC_P;
@@ -26,6 +30,11 @@ extern "C" int nestmc_tile_plan(int kind, int n, int* tg) {
     case 3: t = mala_plan<Logit, P, true>(n); break;
     case 4: t = mala_plan<Poisson, P, false>(n); break;
     case 5: t = mala_plan<Poisson, P, true>(n); break;
+    case 6: t = newton_plan<Logit, P, false>(n); break;
+    case 7: t = newton_plan<Logit, P, true>(n); break;
+    case 8: t = newton_plan<Poisson, P, false>(n); break;
+    case 9: t = newton_plan<Poisson, P, true>(n); break;
+    case 10: t = seg_plan<P>(n); break;
     default: return -1;
   }
   *tg = t.tg;

@@ -1,22 +1,37 @@
 """A/B of two kernel source trees on one card.
 
     python -m nestmc_torch.kernel_ab --base DIR [--shapes NAMES] [--out FILE]
-    python -m nestmc_torch.kernel_ab --sass
+    python -m nestmc_torch.kernel_ab --sass [--base DIR]
 
 DIR is another ``csrc`` tree, for example an earlier commit's
 ``nestmc_torch/csrc`` unpacked with ``git archive`` into a git-ignored
-directory. Both trees are built for p=3 and p=4; then every launch mode of
-the two tiled kernel templates (``logp_grad_kernel``: logp_grad and
-logp_grad_hess, Logit and Poisson; ``mala_step_kernel``: external noise,
-with and without the R-hat fold, and Philox noise, Logit and Poisson) runs
-on both builds with the same inputs and the same Philox key, at the shapes
-the main paths give it:
+directory. Both trees are built for p=3 and p=4, and ptxas's registers and
+spills of every instantiation of the tiled kernel templates are printed
+for each tree (one JSON line a kernel); then every launch mode of the
+tiled templates runs on both builds with the same inputs and the same
+Philox key, at the shapes the main paths give it:
+
+- ``logp_grad_kernel``: logp_grad and logp_grad_hess, Logit and Poisson;
+- ``mala_step_kernel``: external noise, with and without the R-hat fold,
+  and Philox noise, Logit and Poisson;
+- ``newton_step_kernel``: Logit refresh, frozen and frozen with the fold,
+  each with external and with Philox noise (at ``judged`` and
+  ``bucket``), Poisson refresh and frozen, external and Philox (at
+  ``config3``);
+- ``segment_kernel``: seg_loglik and seg_logp_grad (at ``segment``).
+
+The shapes:
 
 - ``mala-100k``: C=512 chains, G=100,000 groups, n=20, p=3;
 - ``judged``: C=1024, G=1000, n=50, p=4;
 - ``bucket``: ragged-10k's widest size bucket at seed 0 (C=1024, 5,419
   groups, cap 32, p=3, masked);
-- ``config3``: C=512, S=4000 subjects, n=10, p=3 (the Poisson modes).
+- ``config3``: C=512, S=4000 subjects, n=10, p=3 (the Poisson modes);
+- ``segment``: ragged-10k's full SegmentLayout at seed 0 (C=1024,
+  G=10,000 groups of 5..30 observations, N=175,052, p=3); its first line
+  also gives the share of warp slots the segment tile leaves idle while a
+  block's warps wait for its longest group list (from the layout's group
+  sizes and the tile plan, no timing).
 
 One JSON line a case: the largest |new - base| over every output (0.0:
 bitwise equal) and the two builds' ms, timed in turns base, new, new, base
@@ -24,7 +39,7 @@ bitwise equal) and the two builds' ms, timed in turns base, new, new, base
 warm-up), with the card's nvidia-smi name and power limit. Needs a card.
 
 ``--sass`` builds the checkout's kernels (and DIR's, with ``--base``) for
-p=3 and p=4 and prints, for each instantiation of the two kernel
+p=3 and p=4 and prints, for each instantiation of the tiled kernel
 templates, its instruction count and the instructions of its loops
 (backward branches) as ``cuobjdump -sass`` shows them: the obs pass is the
 loop that holds the MUFU.EX2 operations.
@@ -39,7 +54,9 @@ from pathlib import Path
 
 import torch
 
-SHAPES = ("mala-100k", "judged", "bucket", "config3")
+SHAPES = ("mala-100k", "judged", "bucket", "config3", "segment")
+# the kernel templates on the (unit x chain) tile of csrc/cell_tile.cuh
+TILED = r"logp_grad_kernel|mala_step_kernel|newton_step_kernel|segment_kernel"
 
 
 class _Key:
@@ -106,14 +123,16 @@ def _bucket_inputs(dev, seed):
     return (C, G, wb.cap, p), r
 
 
-def logistic_cases(shape, r):
-    """(name, fn) of every Logit launch mode at ``shape``."""
+def logistic_cases(shape, r, newton=False):
+    """(name, fn) of every Logit launch mode at ``shape`` (``newton``: the
+    Newton step's too)."""
     from nestmc_torch.diagnostics import fold_rhat_scalars
     from nestmc_torch.ops.cuda.loglik_logistic import (
         logistic_logp_grad,
         logistic_logp_grad_hess,
     )
     from nestmc_torch.ops.cuda.mala_accept import fused_mala_logistic_step
+    from nestmc_torch.ops.cuda.newton_accept import fused_newton_logistic_step
 
     C, G, n, p = shape
     x, y, m, beta = r["x"], r["y"], r["mask"], r["beta"]
@@ -122,7 +141,7 @@ def logistic_cases(shape, r):
     args = (beta, v, g, ls, r["mu"], r["lt"], x, y, m)
     noise = (r["eps"], r["logu"])
     fold = (r["fmean"], r["fm2"], fold_rhat_scalars([11.0, 0.0], 11, 512))
-    return [
+    cases = [
         ("logp_grad", lambda: logistic_logp_grad(beta, x, y, m)),
         ("logp_grad_hess", lambda: logistic_logp_grad_hess(beta, x, y, m)),
         ("mala_step noise", lambda: fused_mala_logistic_step(
@@ -132,6 +151,22 @@ def logistic_cases(shape, r):
         ("mala_step philox", lambda: fused_mala_logistic_step(
             *args, rng=_Key(1234, 99))),
     ]
+    if not newton:
+        return cases
+    _, _, h = logistic_logp_grad_hess(beta, x, y, m)
+    nargs = (beta, v, g, h, torch.zeros(C, G, device=beta.device), r["mu"],
+             r["lt"], x, y, m)
+    for mode, kw in (("refresh", {}), ("frozen", {"frozen": True}),
+                     ("frozen+fold", {"frozen": True, "rhat_fold": fold})):
+        cases += [
+            (f"newton_step {mode} noise",
+             lambda kw=kw: fused_newton_logistic_step(*nargs, noise=noise,
+                                                      **kw)),
+            (f"newton_step {mode} philox",
+             lambda kw=kw: fused_newton_logistic_step(
+                 *nargs, rng=_Key(1234, 99), **kw)),
+        ]
+    return cases
 
 
 def poisson_cases(dev, seed):
@@ -151,9 +186,20 @@ def poisson_cases(dev, seed):
              torch.log(torch.rand(C, S, generator=gen, device=dev)
                        .clamp_min(1e-38)))
     const = loglik.poisson_const(d.y, d.mask)
-    v, g = loglik.poisson_logp_grad_padded(beta, d.x, d.y, d.mask, const)
+    v, g, h = loglik.poisson_logp_grad_hess_padded(beta, d.x, d.y, d.mask,
+                                                    const)
     ls = torch.full((C, S), -1.0, device=dev)
     args = (beta, v, g, ls, bgs, lts, d.x, d.y, d.mask)
+    nargs = (beta, v, g, h, torch.zeros(C, S, device=dev), bgs, lts, d.x,
+             d.y, d.mask)
+    newton = [
+        (f"pois_newton_step {mode} {tag}",
+         lambda frozen=frozen, kw=kw: pacc.fused_newton_poisson_step(
+             *nargs, frozen=frozen, const=const, **kw))
+        for mode, frozen in (("refresh", False), ("frozen", True))
+        for tag, kw in (("noise", {"noise": noise}),
+                        ("philox", {"rng": _Key(1234, 99)}))
+    ]
     return (C, S, n, p), [
         ("pois_logp_grad", lambda: pois.poisson_logp_grad(
             beta, d.x, d.y, d.mask, const)),
@@ -163,7 +209,51 @@ def poisson_cases(dev, seed):
             *args, noise=noise, const=const)),
         ("pois_mala_step philox", lambda: pacc.fused_mala_poisson_step(
             *args, rng=_Key(1234, 99), const=const)),
+    ] + newton
+
+
+def segment_cases(dev, seed):
+    """ragged-10k's full segment layout at seed 0: the two segment kernels,
+    and the warp-slot idle share of the segment tile on that layout."""
+    from nestmc_torch.ops.cuda.common import SEG_OBS, tile_plan
+    from nestmc_torch.ops.cuda.loglik_segment import (
+        logistic_logp_grad_segment,
+        logistic_loglik_segment,
+    )
+    from nestmc_torch.ops.segment import SegmentLayout
+    from nestmc_torch.presets import get_preset
+
+    _, rdata, _ = get_preset("ragged-10k", device=dev)
+    G, p = rdata.num_groups, rdata.num_covariates
+    C = 1024
+    layout = SegmentLayout.build(rdata.segment_ids, G)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    beta = 0.5 * torch.randn(C, G, p, generator=gen, device=dev)
+    x, y = rdata.x, rdata.y
+    tg = tile_plan("seg", SEG_OBS, p)[0]
+    idle = warp_idle_share(rdata.sizes().cpu(), tg)
+    return (C, G, rdata.num_obs, p), idle, [
+        ("seg_loglik", lambda: (logistic_loglik_segment(beta, x, y, layout),)),
+        ("seg_logp_grad",
+         lambda: logistic_logp_grad_segment(beta, x, y, layout)),
     ]
+
+
+def warp_idle_share(sizes, tg: int) -> float:
+    """The share of a segment tile's warp slots left idle while its warps
+    wait for the longest: warp w of a tile of tg groups takes the groups
+    w, w + warps, ... (warps = min(tg, 8)) and runs their observations;
+    a block lasts as long as its longest warp. 1 - (observations) /
+    (tiles x warps x longest warp's observations), summed over tiles."""
+    warps = min(tg, 8)
+    sizes = [int(v) for v in sizes]
+    busy = slots = 0
+    for g0 in range(0, len(sizes), tg):
+        tile = sizes[g0:g0 + tg]
+        loads = [sum(tile[w::warps]) for w in range(warps)]
+        busy += sum(loads)
+        slots += warps * max(loads)
+    return 1.0 - busy / max(slots, 1)
 
 
 def sass_loops(lib_path) -> list:
@@ -179,7 +269,7 @@ def sass_loops(lib_path) -> list:
     out, name, ins = [], None, []
 
     def flush():
-        if name and re.search(r"logp_grad_kernel|mala_step_kernel", name):
+        if name and re.search(TILED, name):
             loops = []
             for addr, op in ins:
                 m = re.search(r"BRA\s+0x([0-9a-f]+)", op)
@@ -200,6 +290,32 @@ def sass_loops(lib_path) -> list:
         if m and name:
             ins.append((int(m.group(1), 16), m.group(2)))
     flush()
+    return out
+
+
+def ptxas_report(log: str) -> list:
+    """[{kernel, registers, spill_stores, spill_loads}] of the tiled
+    templates' instantiations in one ``-Xptxas -v`` log."""
+    import re
+
+    out, rec = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            rec = {"kernel": m.group(1)} if re.search(TILED, m.group(1)) \
+                else None
+            if rec:
+                out.append(rec)
+            continue
+        if rec is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            rec.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            rec["registers"] = int(m.group(1))
     return out
 
 
@@ -243,15 +359,18 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     smi = bench.gpu_query()
     new_src, base_src = _build.SRC_DIR, Path(args.base).resolve()
-    for src in (base_src, new_src):
+    out = open(args.out, "a") if args.out else None
+    for tag, src in (("base", base_src), ("new", new_src)):
         _build.SRC_DIR = src
         _build.build([3, 4])
+        for p in (3, 4):
+            log = _build.library_path(p).with_suffix(".log")
+            for rec in ptxas_report(log.read_text() if log.exists() else ""):
+                line = json.dumps({"tree": tag, "p": p, **rec})
+                print(line, flush=True)
+                if out:
+                    out.write(line + "\n")
     _build.SRC_DIR = new_src
-    for p, info in sorted(_build.build_info.items()):
-        for ln in info.get("log", "").splitlines():
-            if any(k in ln for k in ("entry function", "registers", "spill")):
-                print(f"ptxas p={p}: {ln.strip()}", flush=True)
-    out = open(args.out, "a") if args.out else None
 
     def on(src, fn):
         _build.SRC_DIR = src
@@ -260,7 +379,7 @@ def main(argv=None) -> int:
         finally:
             _build.SRC_DIR = new_src
 
-    def report(shape_name, shape, cases):
+    def report(shape_name, shape, cases, extra=None):
         for name, fn in cases:
             a = on(base_src, fn)
             b = on(new_src, fn)
@@ -276,6 +395,7 @@ def main(argv=None) -> int:
                 "max_abs_diff": diff, "bitwise_equal": diff == 0.0,
                 "base_ms": [t[0], t[3]], "new_ms": [t[1], t[2]],
                 "speedup": (t[0] + t[3]) / (t[1] + t[2]), "card": smi,
+                **(extra or {}),
             })
             print(line, flush=True)
             if out:
@@ -283,8 +403,12 @@ def main(argv=None) -> int:
                 out.flush()
 
     for shape_name in args.shapes.split(","):
+        extra = None
         if shape_name == "config3":
             shape, cases = poisson_cases(dev, 6)
+        elif shape_name == "segment":
+            shape, idle, cases = segment_cases(dev, 10)
+            extra = {"warp_slots_idle_share": idle}
         else:
             if shape_name == "bucket":
                 shape, r = _bucket_inputs(dev, 12)
@@ -292,8 +416,8 @@ def main(argv=None) -> int:
                 shape = {"mala-100k": (512, 100_000, 20, 3),
                          "judged": (1024, 1000, 50, 4)}[shape_name]
                 r = _logistic_inputs(shape, dev, 8)
-            cases = logistic_cases(shape, r)
-        report(shape_name, shape, cases)
+            cases = logistic_cases(shape, r, newton=shape_name != "mala-100k")
+        report(shape_name, shape, cases, extra)
         del cases
         torch.cuda.empty_cache()
     if out:

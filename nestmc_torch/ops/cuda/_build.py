@@ -6,7 +6,8 @@ shared library with a plain C interface, specialised to one covariate count
 p (``-DNESTMC_P=p``: the per-cell arrays of the kernels are sized at compile
 time so they stay in registers). The library goes to ``nestmc_torch/_build/``
 (git-ignored), named by a hash of the sources, the flags and p, so a changed
-source rebuilds and an unchanged one loads at once. Nothing is built when
+source rebuilds and an unchanged one loads at once; ptxas's report of each
+kernel (registers, spills) goes beside it (``.log``). Nothing is built when
 the package is imported: the first kernel launch builds, or :func:`build`
 builds several p at once.
 """
@@ -112,6 +113,7 @@ def _compile(p: int, out: Path) -> None:
             raise RuntimeError(
                 f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
             )
+        out.with_suffix(".log").write_text("\n".join(logs))
         os.replace(lib, out)  # atomic: a reader never sees a partial file
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)

@@ -39,7 +39,9 @@ def stream_of(t: torch.Tensor) -> int:
 
 def check_smem(n: int, p: int) -> None:
     """The group's data must fit the 48 KB of default dynamic shared
-    memory a block may use."""
+    memory a block may use: the stage of the one-thread-a-cell kernels
+    (obs_pass.cuh::stage_group), which only the RW-MH step and the
+    value-only loglik still use."""
     if 4 * n * (p + 2) > 48 * 1024:
         raise ValueError(
             f"n={n} observations per group at p={p} exceed the kernels' "
@@ -58,21 +60,32 @@ SMEM_MAX = 232_448
 # launch modes of the tiled kernels, in the order of csrc/tile_plan.cu, with
 # the blocks an SM each is built for (its __launch_bounds__)
 TILE_KINDS = ("logp_grad", "logp_grad_hess", "mala", "mala_noise",
-              "pois_mala", "pois_mala_noise")
+              "pois_mala", "pois_mala_noise", "newton", "newton_noise",
+              "pois_newton", "pois_newton_noise", "seg")
 TILE_BLOCKS = {"logp_grad": 5, "logp_grad_hess": 4, "mala": 4,
-               "mala_noise": 4, "pois_mala": 4, "pois_mala_noise": 4}
+               "mala_noise": 4, "pois_mala": 4, "pois_mala_noise": 4,
+               "newton": 3, "newton_noise": 3, "pois_newton": 3,
+               "pois_newton_noise": 3, "seg": 5}
+# observations a group of a chunk of the segment kernel's tile (its "n",
+# csrc/segment_kernel.cuh::kSegObs)
+SEG_OBS = 32
 
 
 def _tile_widths(kind: str, p: int) -> tuple:
     """Floats a unit of each row buffer (one row a chain): for logp_grad
     the gradient and the loglik (and the packed Hessian) on their way out;
-    for the MALA step beta, g, v, log_scale (then eps and log u with
-    external noise, then the per-unit prior mean of the Poisson step)."""
+    for the MALA step beta, g, v, log_scale, for the Newton step beta, g,
+    the packed h, v, log_scale (then eps and log u with external noise,
+    then the per-unit prior mean of the Poisson steps); for the segment
+    kernel the gradient and the loglik on their way out."""
+    T = p * (p + 1) // 2
     if kind == "logp_grad":
         return (p, 1)
     if kind == "logp_grad_hess":
-        return (p, 1, p * (p + 1) // 2)
-    w = (p, p, 1, 1)
+        return (p, 1, T)
+    if kind == "seg":
+        return (p, 1)
+    w = (p, p, T, 1, 1) if "newton" in kind else (p, p, 1, 1)
     if kind.endswith("_noise"):
         w += (p, 1)
     if kind.startswith("pois_"):
@@ -81,13 +94,14 @@ def _tile_widths(kind: str, p: int) -> tuple:
 
 
 def tile_bytes(kind: str, n: int, p: int, tg: int) -> int:
-    """Dynamic shared memory of a tile of ``tg`` units: x, y and mask, each
-    from a 16-byte boundary, and TILE_C rows of odd stride (tg w) | 1 for
-    each staged operand of width w."""
+    """Dynamic shared memory of a tile of ``tg`` units: x, y and mask (the
+    segment kernel: x and y), each from a 16-byte boundary, and TILE_C rows
+    of odd stride (tg w) | 1 for each staged operand of width w."""
     def r4(k):
         return (k + 3) // 4 * 4
 
-    floats = r4(tg * n * p) + 2 * r4(tg * n) + sum(
+    streams = 1 if kind == "seg" else 2
+    floats = r4(tg * n * p) + streams * r4(tg * n) + sum(
         TILE_C * ((tg * w) | 1) for w in _tile_widths(kind, p))
     return 4 * floats
 
@@ -95,6 +109,7 @@ def tile_bytes(kind: str, n: int, p: int, tg: int) -> int:
 def tile_plan(kind: str, n: int, p: int) -> tuple:
     """(units a tile, chains a tile, shared-memory bytes) of a launch of
     the tiled kernel ``kind`` (one of TILE_KINDS) at n observations a unit
+    (for "seg", a group's share of a chunk: its launcher takes SEG_OBS)
     and p covariates, as the kernel's launcher computes it: the largest
     power-of-two unit depth up to TILE_G_MAX whose tile still lets the
     kernel's TILE_BLOCKS blocks share an SM, else one unit up to SMEM_MAX.

@@ -20,12 +20,12 @@ from nestmc_torch.diagnostics import fold_rhat_update
 from nestmc_torch.ops import loglik as _loglik
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
-    check_smem,
     check_tensor,
     fold_scalars,
     on_cpu,
     ptr,
     stream_of,
+    tile_plan,
 )
 from nestmc_torch.ops.smallchol import (
     chol_packed,
@@ -116,7 +116,7 @@ def _launch(lib, beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau,
     fsc = fold_scalars(rhat_fold)
     for name, t, shape in checks:
         check_tensor(t, name, shape, dev)
-    check_smem(n, p)
+    tile_plan("newton" if noise is None else "newton_noise", n, p)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)

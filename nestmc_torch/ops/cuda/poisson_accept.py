@@ -150,9 +150,10 @@ def fused_newton_poisson_step_plain(beta, v_cache, g_cache, h_cache,
 
 
 def _prepare(beta, operands, log_scale, bg_s, log_tau_s, x, y, mask, noise,
-             const, tiled=False):
-    """Check every operand of a step launch (``tiled``: the MALA step's
-    tile plan); returns (const, eps, logu)."""
+             const, tiled=None):
+    """Check every operand of a step launch (``tiled``: the tiled step,
+    "pois_mala" or "pois_newton", whose tile plan must fit; None: the
+    one-thread-a-cell RW step's stage); returns (const, eps, logu)."""
     C, S, p = beta.shape
     n = x.shape[1]
     T = p * (p + 1) // 2
@@ -174,7 +175,7 @@ def _prepare(beta, operands, log_scale, bg_s, log_tau_s, x, y, mask, noise,
     for name, t, shape in checks:
         check_tensor(t, name, shape, beta.device)
     if tiled:
-        tile_plan("pois_mala" if noise is None else "pois_mala_noise", n, p)
+        tile_plan(tiled if noise is None else tiled + "_noise", n, p)
     else:
         check_smem(n, p)
     return const, eps, logu
@@ -238,7 +239,7 @@ def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
         log_scale = log_scale.contiguous()
         const, eps, logu = _prepare(
             beta, [("v_cache", v_cache), ("g_cache", g_cache)], log_scale,
-            bg_s, log_tau_s, x, y, mask, noise, const, tiled=True,
+            bg_s, log_tau_s, x, y, mask, noise, const, tiled="pois_mala",
         )
         out = (_empty(dev, C, S, p), _empty(dev, C, S),
                _empty(dev, C, S, p), _empty(dev, C, S))
@@ -279,6 +280,7 @@ def fused_newton_poisson_step(beta, v_cache, g_cache, h_cache, log_scale,
             beta, [("v_cache", v_cache), ("g_cache", g_cache),
                    ("h_cache", h_cache)],
             log_scale, bg_s, log_tau_s, x, y, mask, noise, const,
+            tiled="pois_newton",
         )
         out_beta, out_v, out_g, out_alpha = (
             _empty(dev, C, S, p), _empty(dev, C, S), _empty(dev, C, S, p),

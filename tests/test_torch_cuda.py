@@ -767,3 +767,131 @@ def test_tile_plan_mirrors_the_launchers(dev, p):
             smem = lib.nestmc_tile_plan(i, n, ctypes.byref(tg))
             assert (tg.value, smem) == (tile_plan(kind, n, p)[0],
                                         tile_plan(kind, n, p)[2]), (kind, n)
+
+
+# ---- newton_step_kernel and segment_kernel on the tile: the Logit and
+# Poisson Newton steps in every mode, and the ragged segment passes, at
+# partial tiles and odd sizes.
+def _tiled_newton_steps(r):
+    """The Logit Newton step refresh and frozen, without and with the
+    fold, and the Poisson one refresh and frozen, external noise: kernel
+    vs plain; frozen passes h itself through."""
+    x, m, y, ypo, const = r["x"], r["mask"], r["y"], r["ypo"], r["const"]
+    beta, bpo = r["beta"], r["bpo"]
+    C, G, _ = beta.shape
+    noise = (r["eps"], r["logu"])
+    v, g, h = loglik.logistic_logp_grad_hess_padded(beta, x, y, m)
+    ls = torch.full((C, 1), -0.3, device=beta.device)
+    reset_launch_counts()
+    for frozen in (False, True):
+        for rf in (None, r["fold"]):
+            args = (beta, v, g, h, ls.expand(C, G), r["mu"], r["lt"], x, y, m)
+            out = fused_newton_logistic_step(*args, noise=noise,
+                                             frozen=frozen, rhat_fold=rf)
+            ref = fused_newton_logistic_step_plain(*args, noise,
+                                                   frozen=frozen,
+                                                   rhat_fold=rf)
+            torch.cuda.synchronize()
+            if frozen:
+                assert out[3] is h
+                out, ref = out[:3] + out[4:], ref[:3] + ref[4:]
+            _check_step(out, ref, beta, r["logu"], 3 if frozen else 4)
+    vp, gp, hp = loglik.poisson_logp_grad_hess_padded(bpo, x, ypo, m, const)
+    lsp = torch.full((C, G), -0.3, device=beta.device)
+    for frozen in (False, True):
+        args = (bpo, vp, gp, hp, lsp, r["bgs"], r["lts"], x, ypo, m)
+        out = pacc.fused_newton_poisson_step(*args, noise=noise,
+                                             frozen=frozen, const=const)
+        ref = pacc.fused_newton_poisson_step_plain(*args, noise,
+                                                   frozen=frozen, const=const)
+        torch.cuda.synchronize()
+        if frozen:
+            assert out[3] is hp
+            out, ref = out[:3] + out[4:], ref[:3] + ref[4:]
+        _check_step(out, ref, bpo, r["logu"], 3 if frozen else 4)
+    assert {k: n for k, n in LAUNCHES.items() if n} == {
+        "newton_step_refresh": 2, "newton_step_frozen": 2,
+        "pois_newton_step_refresh": 1, "pois_newton_step_frozen": 1}
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_tiled_newton_steps_match_plain(dev, p, case):
+    _tiled_newton_steps(_tile_inputs(dev, *case, p))
+
+
+@pytest.mark.parametrize("p", [3, 8])
+def test_tiled_newton_steps_at_the_smallest_tile(dev, p):
+    """n = 3000 observations a unit: one unit a Newton tile, over the
+    48 KB the one-unit stage allowed (sparse rows, as above)."""
+    from nestmc_torch.ops.cuda.common import tile_plan
+
+    assert all(tile_plan(k, 3000, p)[0] == 1 for k in (
+        "newton", "newton_noise", "pois_newton", "pois_newton_noise"))
+    _tiled_newton_steps(_tile_inputs(dev, 33, 3, 3000, p, sparse=True))
+
+
+def test_tiled_newton_philox_is_deterministic(dev):
+    """Two Philox launches with one key give bitwise-equal outputs in
+    every mode; another key gives other proposals."""
+    r = _tile_inputs(dev, 130, 70, 13, 3)
+    x, m, y, ypo, const = r["x"], r["mask"], r["y"], r["ypo"], r["const"]
+    beta, bpo = r["beta"], r["bpo"]
+    C, G, _ = beta.shape
+    v, g, h = loglik.logistic_logp_grad_hess_padded(beta, x, y, m)
+    vp, gp, hp = loglik.poisson_logp_grad_hess_padded(bpo, x, ypo, m, const)
+    ls = torch.zeros(C, G, device=dev)
+
+    def run(k0, k1, frozen, rf=None):
+        return (fused_newton_logistic_step(
+                    beta, v, g, h, ls, r["mu"], r["lt"], x, y, m,
+                    rng=_FixedKey(k0, k1), frozen=frozen, rhat_fold=rf)
+                + pacc.fused_newton_poisson_step(
+                    bpo, vp, gp, hp, ls, r["bgs"], r["lts"], x, ypo, m,
+                    rng=_FixedKey(k0, k1), frozen=frozen, const=const))
+
+    for frozen, rf in ((False, None), (True, None), (True, r["fold"])):
+        a, b = run(7, 11, frozen, rf), run(7, 11, frozen, rf)
+        torch.cuda.synchronize()
+        assert all(torch.equal(s, t) for s, t in zip(a, b))
+        c = run(8, 11, frozen, rf)
+        assert not torch.equal(a[0], c[0])
+        assert all(bool(torch.isfinite(t).all()) for t in a + c)
+
+
+@pytest.mark.parametrize("case", [
+    # (C, G, p, sizes)
+    # one group of 1500 observations, longer than a chunk (32 groups x 32
+    # observations at p=3), so its sums carry across chunks, and a tile
+    # whose observations exceed the chunk budget
+    (33, 40, 3, [1500] + [30] * 39),
+    # groups of 40 at p=4 (32 groups a tile, chunks of 1024 observations):
+    # every full tile spans two chunks and one group straddles the chunk
+    # boundary; C below one chain tile
+    (20, 33, 4, [40] * 33),
+    # config 4's 5..30 observations, G not a multiple of the tile, empty
+    # groups among them, C not a multiple of 32
+    (70, 100, 3, [0 if i % 17 == 3 else 5 + (7 * i) % 26
+                  for i in range(100)]),
+    # fewer groups than a tile; a single chain
+    (1, 5, 3, [3, 0, 31, 1, 2]),
+    (40, 9, 8, [0, 300, 1, 0, 64, 65, 7, 0, 2]),
+])
+def test_segment_tile_edges_match_plain(dev, case):
+    """The tiled segment passes at the tile's ragged edges: kernel vs plain
+    within the segment contract (loglik 2e-5 + 2e-5|b|, gradient 2e-5 +
+    2e-4|b|), empty groups exactly 0."""
+    C, G, p, sizes = case
+    beta, x, y, layout = _ragged_inputs(dev, C, G, p, sizes)
+    reset_launch_counts()
+    v = logistic_loglik_segment(beta, x, y, layout)
+    vg, g = logistic_logp_grad_segment(beta, x, y, layout)
+    rv = logistic_loglik_segment_plain(beta, x, y, layout)
+    rvg, rg = logistic_logp_grad_segment_plain(beta, x, y, layout)
+    torch.cuda.synchronize()
+    assert LAUNCHES["seg_loglik"] == LAUNCHES["seg_logp_grad"] == 1
+    for a, b, rtol in ((v, rv, 2e-5), (vg, rvg, 2e-5), (g, rg, 2e-4)):
+        assert bool(((a - b).abs() <= 2e-5 + rtol * b.abs()).all()), \
+            float((a - b).abs().max())
+    empty = torch.as_tensor(sizes, device=dev) == 0
+    assert bool((v[:, empty] == 0).all() and (g[:, empty] == 0).all())

@@ -10,6 +10,7 @@ import pytest
 
 from nestmc_torch.kernel_ab import main as kernel_ab_main
 from nestmc_torch.ops.cuda.common import (
+    SEG_OBS,
     SMEM_MAX,
     TILE_BLOCKS,
     TILE_C,
@@ -63,6 +64,25 @@ def test_tile_plan_fits_every_preset(name):
     ("logp_grad_hess", 50, 4, 16, 50304),
     # config 3 (n=10, p=3), the Poisson MALA step with external noise
     ("pois_mala_noise", 10, 3, 16, 34816),
+    # the Newton step (3 blocks an SM: 76,800 bytes a block; rows beta, g
+    # (p), h (T), v, log_scale (1), + eps (p), log u (1) with external
+    # noise, + the per-unit prior mean (p) for Poisson): judged (n=50,
+    # p=4, T=10), 16 units: 4800 + 32 (65 + 65 + 161 + 17 + 17) floats
+    ("newton", 50, 4, 16, 60800),
+    ("newton_noise", 50, 4, 16, 71296),
+    # the widest ragged-10k bucket (n=32, p=3, T=6), 16 units: 2560 + 32
+    # (49 + 49 + 97 + 17 + 17) floats; 32 units would take 78,464 bytes
+    ("newton", 32, 3, 16, 39552),
+    ("newton_noise", 32, 3, 16, 48000),
+    # config 3 (n=10, p=3): 32 subjects fill the budget exactly, 1600 + 32
+    # (97 + 97 + 193 + 33 + 33 + 97) floats; with external noise 16
+    ("pois_newton", 10, 3, 32, 76800),
+    ("pois_newton_noise", 10, 3, 16, 47232),
+    # the segment kernel (5 blocks an SM: 45,670 bytes a block), x and y of
+    # a chunk of 32 observations a group, rows gradient (p) and loglik (1):
+    # 32 groups, p=3: 4096 + 32 (97 + 33) floats; p=4: 5120 + 32 (129 + 33)
+    ("seg", 32, 3, 32, 33024),
+    ("seg", 32, 4, 32, 41216),
 ])
 def test_tile_plan_at_the_main_shapes(kind, n, p, tg, smem):
     """The plan at the main paths' shapes, by hand: 4 (x, y, mask of tg
@@ -112,6 +132,71 @@ def test_tile_plan_raises_where_no_tile_fits(kind):
 def test_tile_plan_rejects_unknown_kinds():
     with pytest.raises(ValueError, match="unknown tiled kernel"):
         tile_plan("loglik", 20, 3)
+
+
+@pytest.mark.parametrize("kind", ["newton", "newton_noise"])
+@pytest.mark.parametrize("n, p", [(50, 4), (32, 3), (16, 3), (8, 3)])
+def test_newton_tile_keeps_four_units_at_the_main_shapes(kind, n, p):
+    """The judged shape and every ragged-10k size bucket keep at least 4
+    units a Newton tile (8 warps on at least 4 units), with the Philox and
+    the external noise."""
+    assert tile_plan(kind, n, p)[0] >= 4
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+def test_segment_tile_fits_every_p(p):
+    """The segment kernel's launcher plans with SEG_OBS observations a
+    group of a chunk; it fits for every p the kernels take, at least 4
+    groups a tile, and its chunk holds tg SEG_OBS observations."""
+    tg, tc, smem = tile_plan("seg", SEG_OBS, p)
+    assert tc == 32 and tg >= 4
+    assert smem == tile_bytes("seg", SEG_OBS, p, tg)
+    # x (tg SEG_OBS p) and y (tg SEG_OBS), no mask, then the two rows
+    floats = tg * SEG_OBS * (p + 1) + 32 * (((tg * p) | 1) + (tg | 1))
+    assert smem == 4 * floats
+
+
+def test_warp_idle_share_by_hand():
+    """kernel_ab's imbalance count of the segment tile: warp w takes the
+    groups w, w + 8, ...; a block lasts as long as its longest warp."""
+    from nestmc_torch.kernel_ab import warp_idle_share
+
+    assert warp_idle_share([3] * 16, 8) == 0.0
+    # one tile of 8 groups, one busy warp: 8 of 64 warp-slot units busy
+    assert warp_idle_share([8, 0, 0, 0, 0, 0, 0, 0], 8) == 1.0 - 8 / 64
+    # two tiles of 4 groups (4 warps): loads (4, 2, 2, 0) and (1, 1, 1, 1)
+    assert warp_idle_share([4, 2, 2, 0, 1, 1, 1, 1], 4) == \
+        1.0 - 12 / (4 * 4 + 4 * 1)
+
+
+def test_ptxas_report_reads_the_tiled_kernels():
+    """kernel_ab's reader of an -Xptxas -v log keeps the tiled templates'
+    registers and spills and skips the other kernels."""
+    from nestmc_torch.kernel_ab import ptxas_report
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN6nestmc18newton_step_kernelINS_5LogitELi4ELb1ELb1ELb0EEEvNS_"
+        "10NewtonArgsEi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN6nestmc18newton_step",
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill "
+        "loads",
+        "ptxas info    : Used 80 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN6nestmc13loglik_kernelINS_5LogitELi3EEEvPKfS3_S3_S3_S3_Pfiii'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 30 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN6nestmc14segment_kernelILi3ELb1EEEvPKfS2_PKiS2_PfS5_iii' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+    ])
+    got = ptxas_report(log)
+    assert [r["registers"] for r in got] == [80, 40]
+    assert (got[0]["spill_stores"], got[0]["spill_loads"]) == (12, 16)
+    assert "segment_kernel" in got[1]["kernel"]
 
 
 def test_kernel_ab_needs_a_card():
