@@ -25,9 +25,10 @@ Needs one CUDA card and this checkout (it builds the kernels from
    and the widest size bucket of that data (C=1024, about 5,400 groups,
    cap 32, p=3) for the bucketed route's obs passes and Newton and MALA
    steps; then (3d) the tiled templates (logp_grad, logp_grad_hess, the
-   MALA step, the Newton step refresh and frozen, with and without the
-   fold; Logit and Poisson) at partial tiles and odd sizes for p=3 and
-   p=4 (C, G, n from 1 to 130, 70, 50, and n=3000 for one unit a tile),
+   value-only loglik, the RW-MH step, the MALA step, the Newton step
+   refresh and frozen, with and without the fold; Logit and Poisson) at
+   partial tiles and odd sizes for p=3 and p=4 (C, G, n from 1 to 130,
+   70, 50, and n=3000 for one unit a tile),
    and the segment kernels' tile at its edges (a group longer than a
    chunk, a group straddling two chunks, empty groups, G and C off the
    tile, one chain). mala_step's record times the main path's mode at mala-100k
@@ -918,6 +919,32 @@ def main() -> int:
                 e, o, _, _ = step_check(out, ref, bpo, logu,
                                         3 if frozen else 4)
                 errs["pois_" + kname] = (e, o)
+            # the value-only loglik and the RW-MH steps, Logit and Poisson
+            for name, kern, plain, a in (
+                ("loglik", logistic_loglik, loglik.logistic_loglik_padded,
+                 (beta, x, y, m)),
+                ("pois_loglik", pois.poisson_loglik,
+                 loglik.poisson_loglik_padded, (bpo, x, ypo, m, const)),
+            ):
+                out, ref = kern(*a), plain(*a)
+                torch.cuda.synchronize()
+                errs[name] = max_err(out, ref, 1e-4)
+            args = (beta, loglik.logistic_loglik_padded(beta, x, y, m), ls,
+                    mu, lt, x, y, m)
+            out = fused_rwmh_logistic_step(*args, noise=(eps, logu))
+            ref = fused_rwmh_logistic_step_plain(*args, (eps, logu))
+            torch.cuda.synchronize()
+            e, o, _, _ = step_check(out, ref, beta, logu, 2)
+            errs["rwmh_step"] = (e, o)
+            args = (bpo, loglik.poisson_loglik_padded(bpo, x, ypo, m, const),
+                    ls, bpo + 0.1, lt - 0.7, x, ypo, m)
+            out = pacc.fused_rwmh_poisson_step(*args, noise=(eps, logu),
+                                               const=const)
+            ref = pacc.fused_rwmh_poisson_step_plain(*args, (eps, logu),
+                                                     const=const)
+            torch.cuda.synchronize()
+            e, o, _, _ = step_check(out, ref, bpo, logu, 2)
+            errs["pois_rwmh_step"] = (e, o)
             tgs = sorted({tile_plan(k, N, P)[0] for k in TILE_KINDS
                           if k != "seg"})
             ok = all(o for _, o in errs.values())

@@ -1,7 +1,8 @@
-// The (unit x chain) tile of the coalesced kernels: mala_step_kernel
-// (mala_kernel.cuh), logp_grad_kernel (loglik_kernels.cuh),
-// newton_step_kernel (newton_kernel.cuh) and, over ragged groups,
-// segment_kernel (segment_kernel.cuh).
+// The (unit x chain) tile of every kernel of the port: rwmh_step_kernel
+// (rwmh_kernel.cuh), mala_step_kernel (mala_kernel.cuh), newton_step_kernel
+// (newton_kernel.cuh), logp_grad_kernel and loglik_kernel
+// (loglik_kernels.cuh) and, over ragged groups, segment_kernel
+// (segment_kernel.cuh).
 //
 // A block covers tg consecutive units x kTileC = 32 consecutive chains:
 //   1. stage in, with asynchronous copies (cp.async) that a thread issues
@@ -39,10 +40,14 @@ constexpr int kTileWarps = 8;          // warps a block at most
 constexpr size_t kSmemSM = 233472;     // shared memory of an SM (228 KB)
 constexpr size_t kSmemReserved = 1024; // reserved a block
 constexpr size_t kSmemMax = 232448;    // the most one block may take
-// Blocks an SM the kernels are built for (__launch_bounds__: at most 48
-// registers a thread for logp_grad and the segment kernels, 64 for
-// logp_grad_hess and the MALA step, 80 for the Newton step); plan_tile
-// keeps the tile's shared memory within the same count.
+// Blocks an SM the kernels are built for (__launch_bounds__: at most 40
+// registers a thread for the value-only loglik, whose blocks have
+// kLoglikWarps warps, 48 for logp_grad and the segment kernels, 64 for
+// logp_grad_hess, the RW-MH and the MALA step, 80 for the Newton step);
+// plan_tile keeps the tile's shared memory within the same count.
+constexpr int kLoglikWarps = 4;
+constexpr int kLoglikBlocks = 12;
+constexpr int kRwBlocks = 4;
 constexpr int kLogpGradBlocks = 5;
 constexpr int kHessBlocks = 4;
 constexpr int kMalaBlocks = 4;
@@ -88,9 +93,9 @@ inline TilePlan plan_tile(int n, int P, const int* w, int nw, int blocks,
   return b <= kSmemMax ? TilePlan{1, (int)b} : TilePlan{0, 0};
 }
 
-// Threads a block: a warp a unit of the tile, at most kTileWarps.
-inline int tile_threads(int tg) {
-  return 32 * (tg < kTileWarps ? tg : kTileWarps);
+// Threads a block: a warp a unit of the tile, at most `warps`.
+inline int tile_threads(int tg, int warps = kTileWarps) {
+  return 32 * (tg < warps ? tg : warps);
 }
 
 // Lets one kernel take up to kSmemMax bytes of dynamic shared memory, once

@@ -5,14 +5,12 @@
 // Replaces nestmc/ops/pallas/loglik_logistic.py::logistic_logp_grad_pallas,
 // ::logistic_logp_grad_hess_pallas and ::logistic_loglik_padded_pallas.
 //
-// Design: logp_grad and logp_grad_hess run the tile of cell_tile.cuh
-// (loglik_kernels.cuh): a block stages 16-32 consecutive groups' x, y and
-// mask (x: n*P floats a group, 240 B at n=20, P=3) in shared memory, a warp
-// steps 32 chains through one group at a time with every per-obs value in
-// registers, so the (C, G, n) lattice never reaches device memory, and the
-// loglik, gradient and Hessian leave through row buffers in contiguous runs
-// a chain row. The value-only loglik keeps one thread a cell and one group
-// a block across 128 chains.
+// Design: all three run the tile of cell_tile.cuh (loglik_kernels.cuh): a
+// block stages 16-32 consecutive groups' x, y and mask (x: n*P floats a
+// group, 240 B at n=20, P=3) in shared memory, a warp steps 32 chains
+// through one group at a time with every per-obs value in registers, so the
+// (C, G, n) lattice never reaches device memory, and the loglik, gradient
+// and Hessian leave through row buffers in contiguous runs a chain row.
 //
 // Bound on the H100: at the mala-100k shape (C=512, G=100,000, n=20, P=3)
 // logp_grad reads beta (614 MB) and writes the loglik and gradient (819
@@ -30,13 +28,17 @@
 // outputs.
 //
 // The value-only loglik reads beta and writes (C, G): at the RW preset's
-// shape (C=64, G=100, n=50, P=4) 128 KB, far below a microsecond of HBM
+// shape (C=64, G=100, n=50, P=4) 0.2 MB, far below a microsecond of HBM
 // time, so launch latency bounds it there; at C=512, G=100,000, n=20, P=3
-// it moves 820 MB (245 us at 3.35 TB/s) against 1.02 G obs-cells of one
-// exp and one log1p each. Measured on an H100 80GB HBM3 at 700 W (PERF.md):
-// 0.023-0.026 ms at the RW shape, 1.87 ms at the larger one (7.3x its
-// bound): its per-cell loads with the chain on the thread index are
-// uncoalesced (ROADMAP: the next redesigns).
+// it moves 859 MB (0.26 ms at 3.35 TB/s) against 1.02 G obs-cells of one
+// exp and one log1p each, about 52 SASS instructions an obs-cell: 1.6 ms
+// of instruction issue, which bounds it. The tile reads two observations'
+// x, y and mask as 8-byte pairs (obs_pass.cuh), which took the loop from
+// 56 to 52.5 instructions an obs-cell (the one-thread-a-cell kernel's: 54),
+// and runs 4-warp blocks, 12 an SM. Measured on an H100 80GB HBM3 at
+// 700.00 W (PERF.md, PR 7; kernel_ab): 1.795-1.796 ms at the larger shape
+// (1.857-1.859 one thread a cell); at the RW preset's shape 9.7 us of
+// device time a sweep against 5.4 (prof): 26 blocks, two groups a warp.
 
 #include "logistic_terms.cuh"
 #include "loglik_kernels.cuh"

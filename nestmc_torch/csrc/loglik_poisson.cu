@@ -12,10 +12,8 @@
 // full one, as the model's cache convention wants, with no extra (C, S)
 // passes.
 //
-// Design: as loglik_logistic.cu: logp_grad and logp_grad_hess on the tile
-// of cell_tile.cuh (32 consecutive subjects x 32 chains a block at config
-// 3's shape), the value-only loglik one thread a cell, one subject a block
-// across 128 chains.
+// Design: as loglik_logistic.cu: all three on the tile of cell_tile.cuh
+// (32 consecutive subjects x 32 chains a block at config 3's shape).
 //
 // Bound on the H100 at config 3's shape (C=512, S=4000, n=10, P=3; 20.5 M
 // obs-cells): the loglik reads beta (24.6 MB) and writes (C, S) (8.2 MB),
@@ -25,8 +23,8 @@
 // bytes bound all three. The design reads each operand once and writes
 // each output once. Measured on an H100 80GB HBM3 at 700.00 W (PERF.md,
 // PR 5): logp_grad 0.057-0.058 ms, logp_grad_hess 0.075 (0.163 and 0.405
-// one thread a cell); the value-only loglik's uncoalesced per-cell loads
-// are the next redesigns' work (ROADMAP).
+// one thread a cell); the value-only loglik 0.045-0.046 (0.063, PR 7;
+// kernel_ab).
 
 #include "loglik_kernels.cuh"
 #include "poisson_terms.cuh"

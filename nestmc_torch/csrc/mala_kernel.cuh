@@ -6,7 +6,7 @@
 // Per (chain, unit) cell, in registers:
 //   1. the full-conditional gradient at beta: the carried likelihood
 //      gradient g plus the Gaussian prior's, g - (beta - mean)/tau^2, the
-//      mean per chain or per unit (prior_mean);
+//      mean per chain or per unit (Fam::kUnitMean);
 //   2. the Langevin proposal beta + (s^2/2) g + s eps, s = e^log_scale (eps
 //      from Philox or given);
 //   3. one obs pass at the proposal: loglik (minus the unit's constant when

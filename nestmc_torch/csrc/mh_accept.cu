@@ -12,20 +12,30 @@
 // (the log tau terms cancel); accept (log u < log alpha; NaN rejects) and
 // the selects of beta and the carried loglik.
 //
-// Layout and launch: as loglik_logistic.cu, one thread per cell, one group
-// per block, 128 chains per block, the group's data in shared memory.
+// Layout and launch: the (unit x chain) tile of cell_tile.cuh
+// (rwmh_kernel.cuh): a block stages up to 32 consecutive groups' x, y and
+// mask and, one contiguous run a chain row, beta, the carried loglik and
+// log_scale (+ eps and log u with external noise) of 32 chains; a warp
+// steps its 32 chains through one group at a time; beta, the loglik and
+// alpha leave through the same row buffers.
 //
 // Bound on the H100: a call reads beta (C G P floats), the carried loglik
 // and log_scale (C G each) and writes beta, loglik and alpha. At the RW
-// preset's shape (C=64, G=100, n=50, P=4) that is 260 KB, well under a
+// preset's shape (C=64, G=100, n=50, P=4) that is 0.6 MB, well under a
 // microsecond of HBM time, so launch latency bounds it there; at C=512,
-// G=100,000, n=20, P=3 it moves 2.46 GB (0.73 ms at 3.35 TB/s) against
-// 1.02 G obs-cells of one exp and one log1p each. Measured on an H100
-// 80GB HBM3 at 700 W (PERF.md), with external noise: 0.044 ms at the RW
-// preset's shape; 6.75 ms at the larger one, 7.8x its bound and 3.6x the
-// value-only loglik there, because the per-cell (C, G, ...) loads are
-// uncoalesced (the chain is on the thread index). Coalesced loads are
-// later work.
+// G=100,000, n=20, P=3 it moves 2.91 GB with external noise (0.87 ms at
+// 3.35 TB/s) against 1.02 G obs-cells of one exp and one log1p each.
+// Coalesced, the compiled value-only obs pass (about 52 SASS instructions
+// an obs-cell, PERF.md) and, with Philox noise, a cell's ~350 instructions
+// of Philox and Box-Muller are what bound it: 1.6 and 0.55 ms of
+// instruction issue at 1.98 GHz. Measured on an H100 80GB HBM3 at 700.00 W
+// (PERF.md, PR 7; python -m nestmc_torch.kernel_ab, the one-thread-a-cell
+// kernel it replaced in brackets): at C=512, G=100,000 2.650-2.658 ms with
+// external noise (6.734-6.735), 3.107-3.115 with Philox noise
+// (5.813-5.814). At the RW preset's shape the tile has 14 blocks and a warp
+// steps through two groups, so the kernel takes 14.4 us of device time a
+// sweep against the one-unit kernel's 7.3 (python -m nestmc_torch.prof), a
+// latency floor on a path whose sweep the host paces.
 
 #include "logistic_terms.cuh"
 #include "rwmh_kernel.cuh"

@@ -5,8 +5,7 @@
 //                                        (y - mean) and Newton curvature w;
 //   Fam::value(eta, y, m)                the masked loglik term alone.
 // The unit's x (n, P) row-major, y and mask (n) are staged in shared memory
-// (by cell_tile.cuh's stage_units in the tiled kernels, by stage_group in
-// the one-thread-a-cell ones) and read by every thread of a warp as
+// by cell_tile.cuh's stage_units and read by every thread of a warp as
 // broadcasts; eta, the loglik, the P gradient sums and the T packed
 // -Hessian sums stay in registers, so the (C, units, n) lattice never
 // reaches device memory.
@@ -16,13 +15,42 @@
 
 namespace nestmc {
 
-// Value-only pass (the RW-MH step and the value-only eval kernel).
+// Value-only pass (the RW-MH step and the value-only eval kernel). With n
+// even it reads two observations' x (2P floats), y and mask as 8-byte
+// pairs: the tile stages its units back to back from 16-byte boundaries
+// (cell_tile.cuh), so each unit's x, y and mask then start 8-byte aligned,
+// and the pairs halve the shared-memory loads of the loop. The sum runs
+// over i in order either way.
 template <class Fam, int P>
 __device__ __forceinline__ float obs_loglik(const float* xs, const float* ys,
                                             const float* ms, int n,
                                             const float (&b)[P]) {
   float ll = 0.0f;
-  for (int i = 0; i < n; ++i) {
+  int i = 0;
+  if ((n & 1) == 0) {
+    const float2* x2 = reinterpret_cast<const float2*>(xs);
+    const float2* y2 = reinterpret_cast<const float2*>(ys);
+    const float2* m2 = reinterpret_cast<const float2*>(ms);
+    for (; i < n; i += 2) {
+      float xv[2 * P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float2 t = x2[(i >> 1) * P + j];
+        xv[2 * j] = t.x;
+        xv[2 * j + 1] = t.y;
+      }
+      const float2 yv = y2[i >> 1], mv = m2[i >> 1];
+      float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        e0 = fmaf(xv[k], b[k], e0);
+        e1 = fmaf(xv[P + k], b[k], e1);
+      }
+      ll += Fam::value(e0, yv.x, mv.x);
+      ll += Fam::value(e1, yv.y, mv.y);
+    }
+  }
+  for (; i < n; ++i) {
     float eta = 0.0f;
 #pragma unroll
     for (int k = 0; k < P; ++k) eta = fmaf(xs[i * P + k], b[k], eta);
@@ -66,36 +94,6 @@ __device__ __forceinline__ void obs_pass(const float* xs, const float* ys,
       }
     }
   }
-}
-
-// Stage unit g's x (n*P), y and mask (n) in dynamic shared memory. Every
-// thread of the block must call it (it ends in __syncthreads). Only the
-// kernels still one thread a cell, one unit a block use it: loglik_kernel
-// (loglik_kernels.cuh) and rwmh_step_kernel (rwmh_kernel.cuh).
-template <int P>
-__device__ __forceinline__ void stage_group(const float* __restrict__ x,
-                                            const float* __restrict__ y,
-                                            const float* __restrict__ mask,
-                                            int g, int n, float* xs,
-                                            float* ys, float* ms) {
-  const size_t xoff = (size_t)g * n * P;
-  for (int i = threadIdx.x; i < n * P; i += blockDim.x) xs[i] = x[xoff + i];
-  const size_t yoff = (size_t)g * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    ys[i] = y[yoff + i];
-    ms[i] = mask[yoff + i];
-  }
-  __syncthreads();
-}
-
-// The unit's Gaussian prior mean of coordinate k: per chain, mean (C, P),
-// for the hierarchical logistic groups (beta_g ~ N(mu, tau^2)); per unit,
-// mean (C, units, P), for the nested Poisson subjects (beta_s ~
-// N(beta_g[group of s], tau_s^2)). Fam::kUnitMean picks the layout.
-template <class Fam, int P>
-__device__ __forceinline__ float prior_mean(const float* mean, int c,
-                                            size_t cell, int k) {
-  return Fam::kUnitMean ? mean[cell * P + k] : mean[c * P + k];
 }
 
 }  // namespace nestmc

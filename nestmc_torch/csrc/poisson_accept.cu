@@ -17,13 +17,11 @@
 // Noise from csrc/philox.cuh, or, for the parity checks, given
 // (eps, log u) operands, which the reference takes too.
 //
-// Layout and launch: the MALA and Newton steps on the tile of
-// cell_tile.cuh (up to 32 consecutive subjects x 32 chains a block, their
-// operands and the per-unit prior mean staged in contiguous runs a chain
-// row, the packed P x P Cholesky of the Newton step in registers,
-// smallchol.cuh); the RW step one thread per (chain, subject) cell, one
-// subject per block, 128 chains per block, the subject's x (n*P floats,
-// 120 B at n=10, P=3), y and mask in shared memory.
+// Layout and launch: all three on the tile of cell_tile.cuh (up to 32
+// consecutive subjects x 32 chains a block, the subjects' x (n*P floats,
+// 120 B at n=10, P=3), y and mask and the cells' operands and per-unit
+// prior mean staged in contiguous runs a chain row, the packed P x P
+// Cholesky of the Newton step in registers, smallchol.cuh).
 //
 // Bound on the H100 at config 3's shape (C=512, S=4000, n=10, P=3: 2.05 M
 // cells, 20.5 M obs-cells), Philox noise: the RW step reads beta and bg_s
@@ -38,10 +36,10 @@
 // instruction stream is what the tiled steps take (a Newton cell's algebra is
 // about 950 SASS instructions, PERF.md). Measured on an H100 80GB HBM3 at
 // 700.00 W with Philox noise (PERF.md; python -m nestmc_torch.kernel_ab, the
-// one-thread-a-cell kernel each replaced in brackets): the MALA step 0.122 ms
-// (0.387); the Newton step refresh 0.179-0.180 ms (0.694-0.698), frozen
-// 0.149-0.150 (0.444). The RW step's uncoalesced per-cell loads are the
-// next redesign's work (ROADMAP).
+// one-thread-a-cell kernel each replaced in brackets): the RW step
+// 0.1006-0.1008 ms (0.258-0.261; PR 7); the MALA step 0.122 ms (0.387); the
+// Newton step refresh 0.179-0.180 ms (0.694-0.698), frozen 0.149-0.150
+// (0.444).
 
 #include "mala_kernel.cuh"
 #include "newton_kernel.cuh"

@@ -1,12 +1,13 @@
-// The tile plan of the coalesced kernels (cell_tile.cuh) as the launchers
-// compute it, so that nestmc_torch/ops/cuda/common.py::tile_plan can be
-// held against it on the card.
+// The tile plan of the kernels (cell_tile.cuh) as the launchers compute it,
+// so that nestmc_torch/ops/cuda/common.py::tile_plan can be held against it
+// on the card.
 
 #include "logistic_terms.cuh"
 #include "loglik_kernels.cuh"
 #include "mala_kernel.cuh"
 #include "newton_kernel.cuh"
 #include "poisson_terms.cuh"
+#include "rwmh_kernel.cuh"
 #include "segment_kernel.cuh"
 
 #ifndef NESTMC_P
@@ -15,8 +16,9 @@
 
 // kind: the index in common.py's TILE_KINDS (logp_grad, logp_grad_hess,
 // mala, mala_noise, pois_mala, pois_mala_noise, newton, newton_noise,
-// pois_newton, pois_newton_noise, seg; for seg, n stands for the
-// observations a group of a chunk, which the launcher takes as kSegObs).
+// pois_newton, pois_newton_noise, seg, rwmh, rwmh_noise, pois_rwmh,
+// pois_rwmh_noise, loglik; for seg, n stands for the observations a group
+// of a chunk, which the launcher takes as kSegObs).
 // Writes the units a tile (0: no tile fits) and returns the bytes of
 // dynamic shared memory a block takes, or -1 for an unknown kind.
 extern "C" int nestmc_tile_plan(int kind, int n, int* tg) {
@@ -35,6 +37,11 @@ extern "C" int nestmc_tile_plan(int kind, int n, int* tg) {
     case 8: t = newton_plan<Poisson, P, false>(n); break;
     case 9: t = newton_plan<Poisson, P, true>(n); break;
     case 10: t = seg_plan<P>(n); break;
+    case 11: t = rwmh_plan<Logit, P, false>(n); break;
+    case 12: t = rwmh_plan<Logit, P, true>(n); break;
+    case 13: t = rwmh_plan<Poisson, P, false>(n); break;
+    case 14: t = rwmh_plan<Poisson, P, true>(n); break;
+    case 15: t = loglik_plan<P>(n); break;
     default: return -1;
   }
   *tg = t.tg;

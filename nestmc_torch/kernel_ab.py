@@ -1,6 +1,7 @@
 """A/B of two kernel source trees on one card.
 
-    python -m nestmc_torch.kernel_ab --base DIR [--shapes NAMES] [--out FILE]
+    python -m nestmc_torch.kernel_ab --base DIR [--shapes NAMES]
+        [--cases REGEX] [--out FILE]
     python -m nestmc_torch.kernel_ab --sass [--base DIR]
 
 DIR is another ``csrc`` tree, for example an earlier commit's
@@ -12,6 +13,10 @@ tiled templates runs on both builds with the same inputs and the same
 Philox key, at the shapes the main paths give it:
 
 - ``logp_grad_kernel``: logp_grad and logp_grad_hess, Logit and Poisson;
+- ``loglik_kernel``: the value-only loglik, Logit (at ``mala-100k`` and
+  ``rw``) and Poisson;
+- ``rwmh_step_kernel``: external and Philox noise, Logit (at
+  ``mala-100k`` and ``rw``) and Poisson;
 - ``mala_step_kernel``: external noise, with and without the R-hat fold,
   and Philox noise, Logit and Poisson;
 - ``newton_step_kernel``: Logit refresh, frozen and frozen with the fold,
@@ -31,12 +36,17 @@ The shapes:
   G=10,000 groups of 5..30 observations, N=175,052, p=3); its first line
   also gives the share of warp slots the segment tile leaves idle while a
   block's warps wait for its longest group list (from the layout's group
-  sizes and the tile plan, no timing).
+  sizes and the tile plan, no timing);
+- ``rw``: hier-logistic-100-rw's shape, C=64, G=100, n=50, p=4 (the
+  value-only loglik and the RW-MH step only; a few blocks, so the times
+  are mostly the wrapper's).
 
 One JSON line a case: the largest |new - base| over every output (0.0:
 bitwise equal) and the two builds' ms, timed in turns base, new, new, base
 (CUDA events; median over 7 batches of 10 back-to-back launches after
 warm-up), with the card's nvidia-smi name and power limit. Needs a card.
+``--cases`` keeps the cases whose name matches a regular expression (a
+tuning A/B of one kernel).
 
 ``--sass`` builds the checkout's kernels (and DIR's, with ``--base``) for
 p=3 and p=4 and prints, for each instantiation of the tiled kernel
@@ -49,14 +59,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 from pathlib import Path
 
 import torch
 
-SHAPES = ("mala-100k", "judged", "bucket", "config3", "segment")
+SHAPES = ("mala-100k", "judged", "bucket", "config3", "segment", "rw")
+# the Logit case groups of each logistic shape (logistic_cases)
+GROUPS = {"mala-100k": ("obs", "mala", "rw"),
+          "judged": ("obs", "mala", "newton"),
+          "bucket": ("obs", "mala", "newton"), "rw": ("rw",)}
 # the kernel templates on the (unit x chain) tile of csrc/cell_tile.cuh
-TILED = r"logp_grad_kernel|mala_step_kernel|newton_step_kernel|segment_kernel"
+TILED = (r"logp_grad_kernel|loglik_kernel|rwmh_step_kernel|mala_step_kernel|"
+         r"newton_step_kernel|segment_kernel")
 
 
 class _Key:
@@ -123,37 +139,56 @@ def _bucket_inputs(dev, seed):
     return (C, G, wb.cap, p), r
 
 
-def logistic_cases(shape, r, newton=False):
-    """(name, fn) of every Logit launch mode at ``shape`` (``newton``: the
-    Newton step's too)."""
+def logistic_cases(shape, r, groups):
+    """(name, fn) of the Logit launch modes at ``shape`` in ``groups``:
+    "obs" (logp_grad, logp_grad_hess), "mala", "newton" and "rw" (the
+    value-only loglik and the RW-MH step)."""
     from nestmc_torch.diagnostics import fold_rhat_scalars
     from nestmc_torch.ops.cuda.loglik_logistic import (
+        logistic_loglik,
         logistic_logp_grad,
         logistic_logp_grad_hess,
     )
     from nestmc_torch.ops.cuda.mala_accept import fused_mala_logistic_step
+    from nestmc_torch.ops.cuda.mh_accept import fused_rwmh_logistic_step
     from nestmc_torch.ops.cuda.newton_accept import fused_newton_logistic_step
 
     C, G, n, p = shape
     x, y, m, beta = r["x"], r["y"], r["mask"], r["beta"]
-    v, g = logistic_logp_grad(beta, x, y, m)
     ls = torch.full((C, G), -1.3, device=beta.device)
-    args = (beta, v, g, ls, r["mu"], r["lt"], x, y, m)
     noise = (r["eps"], r["logu"])
     fold = (r["fmean"], r["fm2"], fold_rhat_scalars([11.0, 0.0], 11, 512))
-    cases = [
-        ("logp_grad", lambda: logistic_logp_grad(beta, x, y, m)),
-        ("logp_grad_hess", lambda: logistic_logp_grad_hess(beta, x, y, m)),
-        ("mala_step noise", lambda: fused_mala_logistic_step(
-            *args, noise=noise)),
-        ("mala_step noise+fold", lambda: fused_mala_logistic_step(
-            *args, noise=noise, rhat_fold=fold)),
-        ("mala_step philox", lambda: fused_mala_logistic_step(
-            *args, rng=_Key(1234, 99))),
-    ]
-    if not newton:
+    cases = []
+    if "obs" in groups:
+        cases += [
+            ("logp_grad", lambda: logistic_logp_grad(beta, x, y, m)),
+            ("logp_grad_hess",
+             lambda: logistic_logp_grad_hess(beta, x, y, m)),
+        ]
+    if "rw" in groups:
+        rargs = (beta, logistic_loglik(beta, x, y, m), ls, r["mu"], r["lt"],
+                 x, y, m)
+        cases += [
+            ("loglik", lambda: (logistic_loglik(beta, x, y, m),)),
+            ("rwmh_step noise", lambda: fused_rwmh_logistic_step(
+                *rargs, noise=noise)),
+            ("rwmh_step philox", lambda: fused_rwmh_logistic_step(
+                *rargs, rng=_Key(1234, 99))),
+        ]
+    if "mala" in groups:
+        v, g = logistic_logp_grad(beta, x, y, m)
+        args = (beta, v, g, ls, r["mu"], r["lt"], x, y, m)
+        cases += [
+            ("mala_step noise", lambda: fused_mala_logistic_step(
+                *args, noise=noise)),
+            ("mala_step noise+fold", lambda: fused_mala_logistic_step(
+                *args, noise=noise, rhat_fold=fold)),
+            ("mala_step philox", lambda: fused_mala_logistic_step(
+                *args, rng=_Key(1234, 99))),
+        ]
+    if "newton" not in groups:
         return cases
-    _, _, h = logistic_logp_grad_hess(beta, x, y, m)
+    v, g, h = logistic_logp_grad_hess(beta, x, y, m)
     nargs = (beta, v, g, h, torch.zeros(C, G, device=beta.device), r["mu"],
              r["lt"], x, y, m)
     for mode, kw in (("refresh", {}), ("frozen", {"frozen": True}),
@@ -201,6 +236,14 @@ def poisson_cases(dev, seed):
                         ("philox", {"rng": _Key(1234, 99)}))
     ]
     return (C, S, n, p), [
+        ("pois_loglik", lambda: (pois.poisson_loglik(
+            beta, d.x, d.y, d.mask, const),)),
+        ("pois_rwmh_step noise", lambda: pacc.fused_rwmh_poisson_step(
+            beta, v, ls, bgs, lts, d.x, d.y, d.mask, noise=noise,
+            const=const)),
+        ("pois_rwmh_step philox", lambda: pacc.fused_rwmh_poisson_step(
+            beta, v, ls, bgs, lts, d.x, d.y, d.mask, rng=_Key(1234, 99),
+            const=const)),
         ("pois_logp_grad", lambda: pois.poisson_logp_grad(
             beta, d.x, d.y, d.mask, const)),
         ("pois_logp_grad_hess", lambda: pois.poisson_logp_grad_hess(
@@ -259,7 +302,6 @@ def warp_idle_share(sizes, tg: int) -> float:
 def sass_loops(lib_path) -> list:
     """[(kernel, instructions, [(loop instructions, MUFU.EX2 in it)])] of
     the tiled templates in one built library, from cuobjdump -sass."""
-    import re
     import shutil
     import subprocess
 
@@ -296,8 +338,6 @@ def sass_loops(lib_path) -> list:
 def ptxas_report(log: str) -> list:
     """[{kernel, registers, spill_stores, spill_loads}] of the tiled
     templates' instantiations in one ``-Xptxas -v`` log."""
-    import re
-
     out, rec = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -333,6 +373,9 @@ def main(argv=None) -> int:
                     "counts instead of timing")
     ap.add_argument("--shapes", default=",".join(SHAPES),
                     help=f"comma-separated subset of {SHAPES}")
+    ap.add_argument("--cases", default="",
+                    help="time only the cases whose name matches this "
+                    "regular expression")
     ap.add_argument("--out", default=None, help="also append the lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -381,6 +424,8 @@ def main(argv=None) -> int:
 
     def report(shape_name, shape, cases, extra=None):
         for name, fn in cases:
+            if not re.search(args.cases, name):
+                continue
             a = on(base_src, fn)
             b = on(new_src, fn)
             torch.cuda.synchronize()
@@ -414,9 +459,10 @@ def main(argv=None) -> int:
                 shape, r = _bucket_inputs(dev, 12)
             else:
                 shape = {"mala-100k": (512, 100_000, 20, 3),
-                         "judged": (1024, 1000, 50, 4)}[shape_name]
+                         "judged": (1024, 1000, 50, 4),
+                         "rw": (64, 100, 50, 4)}[shape_name]
                 r = _logistic_inputs(shape, dev, 8)
-            cases = logistic_cases(shape, r, newton=shape_name != "mala-100k")
+            cases = logistic_cases(shape, r, GROUPS[shape_name])
         report(shape_name, shape, cases, extra)
         del cases
         torch.cuda.empty_cache()

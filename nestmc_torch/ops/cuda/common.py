@@ -37,35 +37,27 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_smem(n: int, p: int) -> None:
-    """The group's data must fit the 48 KB of default dynamic shared
-    memory a block may use: the stage of the one-thread-a-cell kernels
-    (obs_pass.cuh::stage_group), which only the RW-MH step and the
-    value-only loglik still use."""
-    if 4 * n * (p + 2) > 48 * 1024:
-        raise ValueError(
-            f"n={n} observations per group at p={p} exceed the kernels' "
-            "48 KB shared-memory stage"
-        )
-
-
-# The tile of the coalesced kernels (csrc/cell_tile.cuh): chains a tile,
-# units a tile at most, an SM's shared memory (H100: 228 KB, 1 KB reserved a
-# block) and the most one block may take.
+# The tile of every kernel (csrc/cell_tile.cuh): chains a tile, units a tile
+# at most, an SM's shared memory (H100: 228 KB, 1 KB reserved a block) and
+# the most one block may take.
 TILE_C = 32
 TILE_G_MAX = 32
 SMEM_SM = 233_472
 SMEM_RESERVED = 1024
 SMEM_MAX = 232_448
 # launch modes of the tiled kernels, in the order of csrc/tile_plan.cu, with
-# the blocks an SM each is built for (its __launch_bounds__)
+# the blocks an SM each is built for (its __launch_bounds__); "loglik" is
+# the value-only pass of both families
 TILE_KINDS = ("logp_grad", "logp_grad_hess", "mala", "mala_noise",
               "pois_mala", "pois_mala_noise", "newton", "newton_noise",
-              "pois_newton", "pois_newton_noise", "seg")
+              "pois_newton", "pois_newton_noise", "seg", "rwmh",
+              "rwmh_noise", "pois_rwmh", "pois_rwmh_noise", "loglik")
 TILE_BLOCKS = {"logp_grad": 5, "logp_grad_hess": 4, "mala": 4,
                "mala_noise": 4, "pois_mala": 4, "pois_mala_noise": 4,
                "newton": 3, "newton_noise": 3, "pois_newton": 3,
-               "pois_newton_noise": 3, "seg": 5}
+               "pois_newton_noise": 3, "seg": 5, "rwmh": 4,
+               "rwmh_noise": 4, "pois_rwmh": 4, "pois_rwmh_noise": 4,
+               "loglik": 12}
 # observations a group of a chunk of the segment kernel's tile (its "n",
 # csrc/segment_kernel.cuh::kSegObs)
 SEG_OBS = 32
@@ -73,11 +65,13 @@ SEG_OBS = 32
 
 def _tile_widths(kind: str, p: int) -> tuple:
     """Floats a unit of each row buffer (one row a chain): for logp_grad
-    the gradient and the loglik (and the packed Hessian) on their way out;
-    for the MALA step beta, g, v, log_scale, for the Newton step beta, g,
-    the packed h, v, log_scale (then eps and log u with external noise,
-    then the per-unit prior mean of the Poisson steps); for the segment
-    kernel the gradient and the loglik on their way out."""
+    the gradient and the loglik (and the packed Hessian) on their way out,
+    for the value-only loglik the loglik; for the RW-MH step beta, the
+    carried loglik, log_scale, for the MALA step beta, g, v, log_scale, for
+    the Newton step beta, g, the packed h, v, log_scale (then eps and log u
+    with external noise, then the per-unit prior mean of the Poisson
+    steps); for the segment kernel the gradient and the loglik on their way
+    out."""
     T = p * (p + 1) // 2
     if kind == "logp_grad":
         return (p, 1)
@@ -85,7 +79,14 @@ def _tile_widths(kind: str, p: int) -> tuple:
         return (p, 1, T)
     if kind == "seg":
         return (p, 1)
-    w = (p, p, T, 1, 1) if "newton" in kind else (p, p, 1, 1)
+    if kind == "loglik":
+        return (1,)
+    if "rwmh" in kind:
+        w = (p, 1, 1)
+    elif "newton" in kind:
+        w = (p, p, T, 1, 1)
+    else:
+        w = (p, p, 1, 1)
     if kind.endswith("_noise"):
         w += (p, 1)
     if kind.startswith("pois_"):

@@ -14,7 +14,6 @@ import torch
 from nestmc_torch.ops import loglik as _plain
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
-    check_smem,
     check_tensor,
     on_cpu,
     ptr,
@@ -27,9 +26,9 @@ logistic_logp_grad_plain = _plain.logistic_logp_grad_padded
 logistic_logp_grad_hess_plain = _plain.logistic_logp_grad_hess_padded
 
 
-def _check(beta, x, y, mask, kind=None):
-    """Check every operand; ``kind`` names the tiled kernel's launch mode
-    (common.TILE_KINDS), None the value-only loglik."""
+def _check(beta, x, y, mask, kind):
+    """Check every operand and that the tile of ``kind`` (the kernel's
+    launch mode, common.TILE_KINDS) fits."""
     C, G, p = beta.shape
     n = x.shape[1]
     for name, t, shape in (
@@ -37,10 +36,7 @@ def _check(beta, x, y, mask, kind=None):
         ("y", y, (G, n)), ("mask", mask, (G, n)),
     ):
         check_tensor(t, name, shape, beta.device)
-    if kind is None:
-        check_smem(n, p)
-    else:
-        tile_plan(kind, n, p)
+    tile_plan(kind, n, p)
 
 
 def _launch(lib, beta, x, y, mask, hess: bool, stream: int):
@@ -71,7 +67,7 @@ def logistic_loglik(beta, x, y, mask):
     lib = _build.library(beta.shape[-1])
     C, G, _ = beta.shape
     with torch.cuda.device(beta.device):
-        _check(beta, x, y, mask)
+        _check(beta, x, y, mask, "loglik")
         out = torch.empty((C, G), dtype=torch.float32, device=beta.device)
         rc = lib.nestmc_loglik(ptr(x), ptr(y), ptr(mask), ptr(beta),
                                ptr(out), C, G, x.shape[1], stream_of(beta))

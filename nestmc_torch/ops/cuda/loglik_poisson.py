@@ -16,7 +16,6 @@ import torch
 from nestmc_torch.ops import loglik as _plain
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
-    check_smem,
     check_tensor,
     on_cpu,
     ptr,
@@ -29,10 +28,10 @@ poisson_logp_grad_plain = _plain.poisson_logp_grad_padded
 poisson_logp_grad_hess_plain = _plain.poisson_logp_grad_hess_padded
 
 
-def _checked(beta, x, y, mask, const, kind=None):
-    """const (S,) on beta's device, after checking every operand; ``kind``
-    names the tiled kernel's launch mode (common.TILE_KINDS), None the
-    value-only loglik."""
+def _checked(beta, x, y, mask, const, kind):
+    """const (S,) on beta's device, after checking every operand and that
+    the tile of ``kind`` (the kernel's launch mode, common.TILE_KINDS)
+    fits."""
     C, S, p = beta.shape
     n = x.shape[1]
     if const is None:
@@ -42,10 +41,7 @@ def _checked(beta, x, y, mask, const, kind=None):
         ("mask", mask, (S, n)), ("const", const, (S,)),
     ):
         check_tensor(t, name, shape, beta.device)
-    if kind is None:
-        check_smem(n, p)
-    else:
-        tile_plan(kind, n, p)
+    tile_plan(kind, n, p)
     return const
 
 
@@ -78,7 +74,7 @@ def poisson_loglik(beta, x, y, mask, const=None):
     lib = _build.library(beta.shape[-1])
     C, S, _ = beta.shape
     with torch.cuda.device(beta.device):
-        const = _checked(beta, x, y, mask, const)
+        const = _checked(beta, x, y, mask, const, "loglik")
         out = torch.empty((C, S), dtype=torch.float32, device=beta.device)
         rc = lib.nestmc_pois_loglik(ptr(x), ptr(y), ptr(mask), ptr(const),
                                     ptr(beta), ptr(out), C, S, x.shape[1],

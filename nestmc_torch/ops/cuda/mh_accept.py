@@ -17,11 +17,11 @@ import torch
 from nestmc_torch.ops import loglik as _loglik
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
-    check_smem,
     check_tensor,
     on_cpu,
     ptr,
     stream_of,
+    tile_plan,
 )
 
 
@@ -67,7 +67,7 @@ def _launch(lib, beta, lik, log_scale, mu, log_tau, x, y, mask, noise, key,
         checks += [("eps", eps, (C, G, p)), ("logu", logu, (C, G))]
     for name, t, shape in checks:
         check_tensor(t, name, shape, dev)
-    check_smem(n, p)
+    tile_plan("rwmh" if noise is None else "rwmh_noise", n, p)
     out_beta = torch.empty((C, G, p), dtype=torch.float32, device=dev)
     out_lik = torch.empty((C, G), dtype=torch.float32, device=dev)
     out_alpha = torch.empty((C, G), dtype=torch.float32, device=dev)

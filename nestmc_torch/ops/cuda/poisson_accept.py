@@ -24,7 +24,6 @@ import torch
 from nestmc_torch.ops import loglik as _loglik
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
-    check_smem,
     check_tensor,
     on_cpu,
     ptr,
@@ -150,10 +149,10 @@ def fused_newton_poisson_step_plain(beta, v_cache, g_cache, h_cache,
 
 
 def _prepare(beta, operands, log_scale, bg_s, log_tau_s, x, y, mask, noise,
-             const, tiled=None):
-    """Check every operand of a step launch (``tiled``: the tiled step,
-    "pois_mala" or "pois_newton", whose tile plan must fit; None: the
-    one-thread-a-cell RW step's stage); returns (const, eps, logu)."""
+             const, kind):
+    """Check every operand of a step launch and that the tile of ``kind``
+    ("pois_rwmh", "pois_mala" or "pois_newton"; with external noise its
+    "_noise" mode) fits; returns (const, eps, logu)."""
     C, S, p = beta.shape
     n = x.shape[1]
     T = p * (p + 1) // 2
@@ -174,10 +173,7 @@ def _prepare(beta, operands, log_scale, bg_s, log_tau_s, x, y, mask, noise,
         checks += [("eps", eps, (C, S, p)), ("logu", logu, (C, S))]
     for name, t, shape in checks:
         check_tensor(t, name, shape, beta.device)
-    if tiled:
-        tile_plan(tiled if noise is None else tiled + "_noise", n, p)
-    else:
-        check_smem(n, p)
+    tile_plan(kind if noise is None else kind + "_noise", n, p)
     return const, eps, logu
 
 
@@ -204,7 +200,8 @@ def fused_rwmh_poisson_step(beta, lik, log_scale, bg_s, log_tau_s, x, y,
     with torch.cuda.device(dev):
         log_scale = log_scale.contiguous()
         const, eps, logu = _prepare(beta, [("lik", lik)], log_scale, bg_s,
-                                    log_tau_s, x, y, mask, noise, const)
+                                    log_tau_s, x, y, mask, noise, const,
+                                    "pois_rwmh")
         out = (_empty(dev, C, S, p), _empty(dev, C, S), _empty(dev, C, S))
         rc = lib.nestmc_pois_rwmh_step(
             ptr(x), ptr(y), ptr(mask), ptr(const), ptr(beta), ptr(lik),
@@ -239,7 +236,7 @@ def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
         log_scale = log_scale.contiguous()
         const, eps, logu = _prepare(
             beta, [("v_cache", v_cache), ("g_cache", g_cache)], log_scale,
-            bg_s, log_tau_s, x, y, mask, noise, const, tiled="pois_mala",
+            bg_s, log_tau_s, x, y, mask, noise, const, "pois_mala",
         )
         out = (_empty(dev, C, S, p), _empty(dev, C, S),
                _empty(dev, C, S, p), _empty(dev, C, S))
@@ -280,7 +277,7 @@ def fused_newton_poisson_step(beta, v_cache, g_cache, h_cache, log_scale,
             beta, [("v_cache", v_cache), ("g_cache", g_cache),
                    ("h_cache", h_cache)],
             log_scale, bg_s, log_tau_s, x, y, mask, noise, const,
-            tiled="pois_newton",
+            "pois_newton",
         )
         out_beta, out_v, out_g, out_alpha = (
             _empty(dev, C, S, p), _empty(dev, C, S), _empty(dev, C, S, p),

@@ -859,6 +859,86 @@ def test_tiled_newton_philox_is_deterministic(dev):
         assert all(bool(torch.isfinite(t).all()) for t in a + c)
 
 
+# ---- rwmh_step_kernel and loglik_kernel on the tile: the Logit and
+# Poisson value-only passes and RW-MH steps at partial tiles and odd sizes.
+def _tiled_rw_steps(r):
+    """The Logit and Poisson value-only loglik and RW-MH step, external
+    noise: kernel vs plain."""
+    x, m, y, ypo, const = r["x"], r["mask"], r["y"], r["ypo"], r["const"]
+    beta, bpo = r["beta"], r["bpo"]
+    C, G, _ = beta.shape
+    noise = (r["eps"], r["logu"])
+    reset_launch_counts()
+    for kern, plain, a in (
+        (logistic_loglik, loglik.logistic_loglik_padded, (beta, x, y, m)),
+        (pois.poisson_loglik, loglik.poisson_loglik_padded,
+         (bpo, x, ypo, m, const)),
+    ):
+        out, ref = kern(*a), plain(*a)
+        torch.cuda.synchronize()
+        _assert_close(out, ref, kern.__name__)
+    lik = loglik.logistic_loglik_padded(beta, x, y, m)
+    ls = torch.full((C, 1), -1.6, device=beta.device)
+    args = (beta, lik, ls, r["mu"], r["lt"], x, y, m)
+    out = fused_rwmh_logistic_step(*args, noise=noise)
+    ref = fused_rwmh_logistic_step_plain(*args[:2], ls.expand(C, G),
+                                         *args[3:], noise)
+    torch.cuda.synchronize()
+    _check_step(out, ref, beta, r["logu"], 2)
+    likp = loglik.poisson_loglik_padded(bpo, x, ypo, m, const)
+    lsp = torch.full((C, G), -1.8, device=beta.device)
+    args = (bpo, likp, lsp, r["bgs"], r["lts"], x, ypo, m)
+    out = pacc.fused_rwmh_poisson_step(*args, noise=noise, const=const)
+    ref = pacc.fused_rwmh_poisson_step_plain(*args, noise, const=const)
+    torch.cuda.synchronize()
+    _check_step(out, ref, bpo, r["logu"], 2)
+    assert {k: n for k, n in LAUNCHES.items() if n} == {
+        "loglik": 1, "pois_loglik": 1, "rwmh_step": 1, "pois_rwmh_step": 1}
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_tiled_rw_steps_match_plain(dev, p, case):
+    _tiled_rw_steps(_tile_inputs(dev, *case, p))
+
+
+@pytest.mark.parametrize("p", [3, 8])
+def test_tiled_rw_steps_at_the_smallest_tile(dev, p):
+    """n = 3000 observations a unit: one unit a tile, over the 48 KB the
+    one-unit RW step and loglik took (sparse rows, as above)."""
+    from nestmc_torch.ops.cuda.common import tile_plan
+
+    assert all(tile_plan(k, 3000, p)[0] == 1 for k in (
+        "rwmh", "rwmh_noise", "pois_rwmh", "pois_rwmh_noise", "loglik"))
+    _tiled_rw_steps(_tile_inputs(dev, 33, 3, 3000, p, sparse=True))
+
+
+def test_tiled_rw_philox_is_deterministic(dev):
+    """Two Philox launches of the RW steps with one key give bitwise-equal
+    outputs; another key gives other proposals."""
+    r = _tile_inputs(dev, 130, 70, 13, 3)
+    x, m, y, ypo, const = r["x"], r["mask"], r["y"], r["ypo"], r["const"]
+    beta, bpo = r["beta"], r["bpo"]
+    C = beta.shape[0]
+    lik = loglik.logistic_loglik_padded(beta, x, y, m)
+    likp = loglik.poisson_loglik_padded(bpo, x, ypo, m, const)
+    ls = torch.full((C, 1), -1.6, device=dev)
+
+    def run(k0, k1):
+        return (fused_rwmh_logistic_step(beta, lik, ls, r["mu"], r["lt"], x,
+                                         y, m, rng=_FixedKey(k0, k1))
+                + pacc.fused_rwmh_poisson_step(
+                    bpo, likp, ls, r["bgs"], r["lts"], x, ypo, m,
+                    rng=_FixedKey(k0, k1), const=const))
+
+    a, b = run(7, 11), run(7, 11)
+    torch.cuda.synchronize()
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+    c = run(8, 11)
+    assert not torch.equal(a[0], c[0])
+    assert all(bool(torch.isfinite(t).all()) for t in a + c)
+
+
 @pytest.mark.parametrize("case", [
     # (C, G, p, sizes)
     # one group of 1500 observations, longer than a chunk (32 groups x 32

@@ -1,9 +1,10 @@
-"""The tile plan of the coalesced kernels (nestmc_torch/ops/cuda/common.py
+"""The tile plan of the kernels (nestmc_torch/ops/cuda/common.py
 ::tile_plan, the Python mirror of csrc/cell_tile.cuh::plan_tile): every
-shape the presets and the ragged size buckets give fits, every (n, p) the
-one-unit kernels' 48 KB stage accepts still fits, no tile asks for more
-than a block may take, and what cannot fit raises. On the card,
-tests/test_torch_cuda.py holds the mirror against the launchers' own plan.
+shape the presets and the ragged size buckets give fits, every (n, p) that
+the 48 KB stage of the one-unit kernels the tile replaced accepted still
+fits, no tile asks for more than a block may take, and what cannot fit
+raises. On the card, tests/test_torch_cuda.py holds the mirror against the
+launchers' own plan.
 """
 
 import pytest
@@ -18,7 +19,6 @@ from nestmc_torch.ops.cuda.common import (
     TILE_KINDS,
     SMEM_RESERVED,
     SMEM_SM,
-    check_smem,
     tile_bytes,
     tile_plan,
 )
@@ -83,6 +83,19 @@ def test_tile_plan_fits_every_preset(name):
     # 32 groups, p=3: 4096 + 32 (97 + 33) floats; p=4: 5120 + 32 (129 + 33)
     ("seg", 32, 3, 32, 33024),
     ("seg", 32, 4, 32, 41216),
+    # the RW-MH step (4 blocks an SM: 57,344 bytes a block; rows beta (p),
+    # the carried loglik, log_scale (1), + eps (p), log u (1) with external
+    # noise, + the per-unit prior mean (p) for Poisson): config 3's
+    # pois_rwmh_step with Philox noise, 32 subjects, 1600 + 32 (97 + 33 +
+    # 33 + 97) floats; mala-100k with external noise, 32 units, 3200 + 32
+    # (97 + 33 + 33 + 97 + 33) floats
+    ("pois_rwmh", 10, 3, 32, 39680),
+    ("rwmh_noise", 20, 3, 32, 50304),
+    # the value-only loglik of both families (12 blocks an SM: 18,432 bytes
+    # a block; one row, the loglik): config 3's pois_loglik, 32 subjects,
+    # 1600 + 32 x 33 floats; mala-100k, 32 units, 3200 + 32 x 33 floats
+    ("loglik", 10, 3, 32, 10624),
+    ("loglik", 20, 3, 32, 17024),
 ])
 def test_tile_plan_at_the_main_shapes(kind, n, p, tg, smem):
     """The plan at the main paths' shapes, by hand: 4 (x, y, mask of tg
@@ -92,15 +105,20 @@ def test_tile_plan_at_the_main_shapes(kind, n, p, tg, smem):
     assert _check_plan(kind, n, p) == (tg, smem)
 
 
+# the stage of the one-unit kernels the tile replaced: a unit's x, y and
+# mask, n (p + 2) floats, within the 48 KB of default dynamic shared memory
+# a block may use
+ONE_UNIT_STAGE_BYTES = 48 * 1024
+
+
 @pytest.mark.parametrize("p", range(1, 9))
 def test_tile_plan_accepts_what_the_one_unit_stage_accepted(p):
-    """Every (n, p) with n (p + 2) floats within 48 KB (common.check_smem,
-    the stage of the one-unit kernels) fits every tiled launch mode, and
+    """Every (n, p) with n (p + 2) floats within 48 KB (the stage of the
+    one-unit kernels the tile replaced) fits every tiled launch mode, and
     the unit depth never grows with n."""
-    n_max = 48 * 1024 // (4 * (p + 2))
-    check_smem(n_max, p)
-    with pytest.raises(ValueError):
-        check_smem(n_max + 1, p)
+    n_max = ONE_UNIT_STAGE_BYTES // (4 * (p + 2))
+    assert 4 * n_max * (p + 2) <= ONE_UNIT_STAGE_BYTES
+    assert 4 * (n_max + 1) * (p + 2) > ONE_UNIT_STAGE_BYTES
     ns = sorted(set(range(1, 65)) | set(range(65, n_max, 97)) | {n_max})
     for kind in TILE_KINDS:
         last = TILE_G_MAX
@@ -130,8 +148,10 @@ def test_tile_plan_raises_where_no_tile_fits(kind):
 
 
 def test_tile_plan_rejects_unknown_kinds():
+    """A launch counter's name is no tile kind: both families' value-only
+    passes plan as "loglik"."""
     with pytest.raises(ValueError, match="unknown tiled kernel"):
-        tile_plan("loglik", 20, 3)
+        tile_plan("pois_loglik", 20, 3)
 
 
 @pytest.mark.parametrize("kind", ["newton", "newton_noise"])
@@ -171,7 +191,7 @@ def test_warp_idle_share_by_hand():
 
 def test_ptxas_report_reads_the_tiled_kernels():
     """kernel_ab's reader of an -Xptxas -v log keeps the tiled templates'
-    registers and spills and skips the other kernels."""
+    registers and spills and skips the other kernels (the Philox probe)."""
     from nestmc_torch.kernel_ab import ptxas_report
 
     log = "\n".join([
@@ -188,15 +208,20 @@ def test_ptxas_report_reads_the_tiled_kernels():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 30 registers, used 1 barriers",
         "ptxas info    : Compiling entry function "
+        "'_ZN6nestmc19philox_probe_kernelEPfS0_ijj' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 24 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function "
         "'_ZN6nestmc14segment_kernelILi3ELb1EEEvPKfS2_PKiS2_PfS5_iii' for "
         "'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, used 1 barriers",
     ])
     got = ptxas_report(log)
-    assert [r["registers"] for r in got] == [80, 40]
+    assert [r["registers"] for r in got] == [80, 30, 40]
     assert (got[0]["spill_stores"], got[0]["spill_loads"]) == (12, 16)
-    assert "segment_kernel" in got[1]["kernel"]
+    assert "loglik_kernel" in got[1]["kernel"]
+    assert "segment_kernel" in got[2]["kernel"]
 
 
 def test_kernel_ab_needs_a_card():
