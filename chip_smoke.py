@@ -31,13 +31,19 @@ Needs one CUDA card and this checkout (it builds the kernels from
    70, 50, and n=3000 for one unit a tile),
    and the segment kernels' tile at its edges (a group longer than a
    chunk, a group straddling two chunks, empty groups, G and C off the
-   tile, one chain). mala_step's record times the main path's mode at mala-100k
-   (Philox noise, no fold; bound without the noise operands) and keeps the
-   external-noise time beside it. Dense and masked data, with and without
-   the R-hat fold. Each
-   line: the max error against the stated tolerance (1e-3 + 1e-4 |ref|
-   where no other is said), the accept decisions that differ
-   (all must lie within |log alpha - log u| < 1e-3), both times (CUDA
+   tile, one chain); then (3e) the Newton path's kernels (logp_grad,
+   logp_grad_hess, newton_step refresh, frozen and frozen+fold) at config
+   2's shape (C=64, G=100, n=50, p=4), the 1k-group presets' (C=256,
+   G=1000, n=50, p=4; with mala_step's fold mode for -mala) and
+   mala-100k-newton's (the mala-100k shape; parity and plain version on
+   the first 64 chains), timed with Philox noise (the main paths' mode)
+   as extra "cells" of each kernel's record. mala_step's record times the
+   main path's mode at mala-100k (Philox noise, no fold; bound without the
+   noise operands) and keeps the external-noise time beside it. Dense and
+   masked data, with and without the R-hat fold. Each line: the max error
+   against the stated tolerance (1e-3 + 1e-4 |ref| where no other is
+   said), the accept decisions that differ (all must lie within
+   |log alpha - log u| < 1e-3), both times (CUDA
    events; median over 7 batches of 10 back-to-back launches, after
    warm-up; the plain version at full width unless it runs out of memory,
    then on the slice, which the line says) and the bound (below);
@@ -49,10 +55,17 @@ Needs one CUDA card and this checkout (it builds the kernels from
    population parameters within 4 combined MCSEs, mean beta / beta_s
    acceptance within 0.05);
 6. the end-to-end paths at full width, launch counters reset just before
-   each and read just after: the RW-MH preset (hier-logistic-100-rw,
-   streamed R-hat switched on), config 3 (nested-poisson-1k), config 4
-   (ragged-10k: Newton-MH per size bucket; both at full schedule, never
-   cut), config 5 (mala-100k), config 4's data on the segment-kernel
+   each and read just after: the RW-MH preset (hier-logistic-100-rw),
+   config 2 (hier-logistic-100: frozen-metric Newton-MH), config 1
+   (eight-schools: plain PyTorch, no launch; its posterior mu, tau and
+   theta against a dense float64 quadrature of the posterior within 6
+   standard errors), the exactness tier (the conjugate normal model's
+   posterior moments within 5 standard errors of the closed form, as
+   tests/test_torch_exactness.py), config 3 (nested-poisson-1k), config 4
+   (ragged-10k: Newton-MH per size bucket; these five at full schedule,
+   never cut), config 5's Newton variant (mala-100k-newton at full width,
+   200/300 sweeps: its launches asserted, its R-hat printed), config 5
+   (mala-100k), config 4's data on the segment-kernel
    route (ragged-10k-mala's model built with loglik_impl='pallas-segment':
    MALA, then RW-MH on a short schedule whose R-hat is printed, not
    asserted), config 3's MALA and Newton variants and the judged config.
@@ -93,7 +106,8 @@ HBM_BPS = 3.35e12           # H100 SXM memory rate, bytes/s
 FP32_OPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 JUDGED = (1024, 1000, 50, 4)        # C, G, n, p
 M100K = (512, 100_000, 20, 3)
-RW = (64, 100, 50, 4)
+RW = (64, 100, 50, 4)                # config 2 (both its presets)
+HL1K = (256, 1000, 50, 4)           # hier-logistic-1k (and -mala)
 POIS = (512, 4000, 10, 3)           # C, S (subjects), n, p: config 3
 SLICE = 64                  # chains the plain versions run on at M100K
 SRC = {
@@ -196,6 +210,33 @@ def work(kernel: str, C: int, G: int, n: int, p: int, noise: bool = True,
             + cells * (4 * p ** 3 + 30 * p + (8 * p if fold else 0)))
 
 
+def eight_schools_quadrature() -> dict:
+    """Posterior moments of the eight-schools model (mu ~ N(0, 10^2), tau ~
+    HalfCauchy(5)) by dense float64 grid quadrature over (mu, log tau),
+    theta integrated out in closed form; the grid and formulas of the
+    reference's test (tests/test_eight_schools.py)."""
+    import numpy as np
+
+    y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
+    sigma = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
+    MU, LT = np.meshgrid(np.linspace(-25.0, 40.0, 800),
+                         np.linspace(-7.0, 4.5, 800), indexing="ij")
+    TAU = np.exp(LT)
+    var = sigma[None, None, :] ** 2 + TAU[..., None] ** 2
+    loglik = -0.5 * np.sum((y - MU[..., None]) ** 2 / var
+                           + np.log(2 * np.pi * var), axis=-1)
+    logpost = (loglik - 0.5 * (MU / 10.0) ** 2 - np.log1p((TAU / 5.0) ** 2)
+               + LT)
+    w = np.exp(logpost - logpost.max())
+    w /= w.sum()
+    mu_mean = np.sum(w * MU)
+    a, b = 1.0 / sigma**2, 1.0 / TAU[..., None] ** 2
+    theta_cond = (a * y + b * MU[..., None]) / (a + b)
+    return {"mu_mean": mu_mean, "mu_var": np.sum(w * (MU - mu_mean) ** 2),
+            "tau_mean": np.sum(w * TAU),
+            "theta_mean": np.sum(w[..., None] * theta_cond, axis=(0, 1))}
+
+
 def bound(nbytes: float, ops: float):
     t_b, t_o = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -212,10 +253,13 @@ def main() -> int:
     # fails outside a checkout of the repo
     from nestmc_torch import KernelConfig, RunConfig, SamplerConfig, sample
     from nestmc_torch import bench
-    from nestmc_torch.diagnostics import fold_rhat_scalars
+    from nestmc_torch.diagnostics import ess, fold_rhat_scalars
     from nestmc_torch.models import (
+        analytic_hier_normal_posterior,
         make_hier_logistic,
+        make_hier_normal_known_scales,
         make_nested_poisson,
+        synth_hier_normal,
         synth_logistic,
         synth_poisson3,
     )
@@ -1006,6 +1050,138 @@ def main() -> int:
                 record(k, e)
     torch.cuda.empty_cache()
 
+    # ---- 3e. the Newton path's kernels at config 2's, the 1k-group
+    # presets' and mala-100k-newton's shapes, and MALA at p=4 ----
+    def cell(name, shape, err, ms, pms, w, plain_on, **extra):
+        """A timed record of ``name`` at another shape than its main one."""
+        record(name, err)
+        b_ms, by = bound(*w)
+        kernels[name].setdefault("cells", []).append({
+            "shape_C_G_n_p": list(shape), "ms": ms, "plain_ms": pms,
+            "plain_on": plain_on, "bound_ms": b_ms, "bound_by": by,
+            "max_abs_err": err, **extra})
+
+    for shape, data_seed, seed in ((RW, 1000, 14), (HL1K, 2000, 15),
+                                   (M100K, 5000, 16)):
+        C, G, N, P = shape
+        # the plain versions' (C, G, n) temporaries are 4.1 GB each at
+        # mala-100k's width: there they run on the first chains only
+        S = C if shape != M100K else SLICE
+        plain_on = "full width" if S == C else f"{S} chains"
+        d = inputs(shape, data_seed, seed)
+        beta, mu, lt, eps, logu = (d[k] for k in ("beta", "mu", "lt", "eps",
+                                                  "logu"))
+        x, y, m = d["datasets"]["dense"]
+        for name, kern, plain in (
+            ("logp_grad", logistic_logp_grad,
+             loglik.logistic_logp_grad_padded),
+            ("logp_grad_hess", logistic_logp_grad_hess,
+             loglik.logistic_logp_grad_hess_padded),
+        ):
+            out, ref = kern(beta, x, y, m), plain(beta[:S], x, y, m)
+            torch.cuda.synchronize()
+            errs = [max_err(a[:S], b, 1e-4) for a, b in zip(out, ref)]
+            err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+            ms = timed(lambda: kern(beta, x, y, m))
+            pms = timed(lambda: plain(beta[:S], x, y, m))
+            w = work(name, C, G, N, P)
+            say(f"kernel {name} [C={C} G={G} n={N} p={P}, parity and plain "
+                f"on {plain_on}]: max_abs_err {err:.3e} (tol 1e-3 + "
+                f"1e-4|ref|) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms; {bound_str(w)}")
+            if not ok:
+                fail(f"{name} at C={C} G={G} disagrees with its plain version")
+            cell(name, shape, err, ms, pms, w, plain_on)
+            del out, ref
+        v, g, h = logistic_logp_grad_hess(beta, x, y, m)
+        ls = torch.zeros(C, G, device=dev)
+        sl = tuple(a[:S] for a in (beta, v, g, h, ls, mu, lt))
+        # refresh (warmup), frozen (mala-100k-newton's sampling: its R-hat
+        # is thinned, so nothing folds in the kernel) and frozen+fold
+        # (config 2's and hier-logistic-1k's sampling)
+        for frozen, fold in ((False, False), (True, False), (True, True)):
+            rf = rf_s = None
+            if fold:
+                fm = torch.randn(2, G, P, C, generator=d["gen"], device=dev)
+                fm2 = torch.rand(2, G, P, C, generator=d["gen"], device=dev)
+                sc = fold_rhat_scalars([11.0, 0.0], 11, 2048)
+                rf, rf_s = (fm, fm2, sc), (fm[..., :S], fm2[..., :S], sc)
+            args = (beta, v, g, h, ls, mu, lt, x, y, m)
+            out = fused_newton_logistic_step(*args, noise=(eps, logu),
+                                             frozen=frozen, rhat_fold=rf)
+            ref = fused_newton_logistic_step_plain(
+                *sl, x, y, m, (eps[:S], logu[:S]), frozen=frozen,
+                rhat_fold=rf_s)
+            torch.cuda.synchronize()
+            if frozen and out[3] is not h:
+                fail("frozen newton_step must return h itself")
+            out_s = [o[:S] for o in out[:5]] + [o[..., :S] for o in out[5:]]
+            keep = [i for i in range(len(out_s)) if not (frozen and i == 3)]
+            err, ok, n_diff, n_bad = step_check(
+                [out_s[i] for i in keep], [ref[i] for i in keep], beta[:S],
+                logu[:S], keep.index(4))
+            ms_ext = timed(lambda: fused_newton_logistic_step(
+                *args, noise=(eps, logu), frozen=frozen, rhat_fold=rf))
+            key = SweepRNG(seed, dev)
+            ms = timed(lambda: fused_newton_logistic_step(
+                *args, rng=key, frozen=frozen, rhat_fold=rf))
+            pms = timed(lambda: fused_newton_logistic_step_plain(
+                *sl, x, y, m, (eps[:S], logu[:S]), frozen=frozen,
+                rhat_fold=rf_s))
+            kname = "newton_step_frozen" if frozen else "newton_step_refresh"
+            w = work(kname, C, G, N, P, noise=False, fold=fold)
+            case = (f"{'frozen' if frozen else 'refresh'}"
+                    f"{'+fold' if fold else ''}")
+            say(f"kernel newton_step {case} [C={C} G={G} n={N} p={P}, parity "
+                f"and plain on {plain_on}]: max_abs_err {err:.3e} (tol 1e-3 "
+                f"+ 1e-4|ref|, alpha 2e-3|ref|); accept decisions differ in "
+                f"{n_diff} of {S * G} cells, {n_bad} outside |log a - log u| "
+                f"< 1e-3 {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+                f"(Philox noise; external noise {ms_ext:.4f} ms), plain "
+                f"{pms:.4f} ms; {bound_str(w)} (Philox)")
+            if not ok:
+                fail(f"newton_step {case} at C={C} G={G} disagrees with its "
+                     "plain version")
+            cell(kname, shape, err, ms, pms, w, plain_on, fold=fold,
+                 ms_external_noise=ms_ext)
+            del out, ref, out_s, rf, rf_s, args
+        if shape == HL1K:
+            # hier-logistic-1k-mala's step: Philox noise with the fold
+            vg = logistic_logp_grad(beta, x, y, m)
+            lsm = torch.full((C, G), -1.3, device=dev)
+            rf = (torch.randn(2, G, P, C, generator=d["gen"], device=dev),
+                  torch.rand(2, G, P, C, generator=d["gen"], device=dev),
+                  fold_rhat_scalars([11.0, 0.0], 11, 2048))
+            args = (beta, *vg, lsm, mu, lt, x, y, m)
+            out = fused_mala_logistic_step(*args, noise=(eps, logu),
+                                           rhat_fold=rf)
+            ref = fused_mala_logistic_step_plain(*args, (eps, logu),
+                                                 rhat_fold=rf)
+            torch.cuda.synchronize()
+            err, ok, n_diff, n_bad = step_check(out, ref, beta, logu, 3)
+            ms_ext = timed(lambda: fused_mala_logistic_step(
+                *args, noise=(eps, logu), rhat_fold=rf))
+            key = SweepRNG(seed, dev)
+            ms = timed(lambda: fused_mala_logistic_step(*args, rng=key,
+                                                        rhat_fold=rf))
+            pms = timed(lambda: fused_mala_logistic_step_plain(
+                *args, (eps, logu), rhat_fold=rf))
+            w = work("mala_step", C, G, N, P, noise=False, fold=True)
+            say(f"kernel mala_step fold [C={C} G={G} n={N} p={P}]: "
+                f"max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|, alpha "
+                f"2e-3|ref|); accept decisions differ in {n_diff} of "
+                f"{C * G} cells, {n_bad} outside |log a - log u| < 1e-3 "
+                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (Philox "
+                f"noise; external noise {ms_ext:.4f} ms), plain {pms:.4f} "
+                f"ms; {bound_str(w)} (Philox)")
+            if not ok:
+                fail("mala_step at p=4 disagrees with its plain version")
+            cell("mala_step", shape, err, ms, pms, w, "full width", fold=True,
+                 ms_external_noise=ms_ext)
+            del out, ref, vg, rf, args
+        del d, beta, mu, lt, eps, logu, x, y, m, v, g, h, ls, sl
+        torch.cuda.empty_cache()
+
     # ---- 4. Philox moments ----
     nrm, uni = philox_probe(512 * 256, (1234, 99), dev, p=4)
     x = nrm.double().cpu()
@@ -1106,9 +1282,10 @@ def main() -> int:
                 "beta_s": (512, D, 8, 3)}
 
     def run_path(preset, expect, block, acc_range, shapes, full_rhat=None,
-                 warmup=None, draws=None, gate=True, runner=None):
+                 warmup=None, draws=None, gate=True, runner=None, check=None):
         """Drive one path (bench.run of ``preset``, or ``runner``) and check
-        its launches, R-hat, acceptance, finiteness and draw shapes."""
+        its launches, R-hat, acceptance, finiteness and draw shapes, then
+        ``check(post)`` where given."""
         runner = runner or (lambda **kw: bench.run(preset=preset, **kw))
         reset_launch_counts()
         result, post, run_info = runner(warmup=warmup, draws=draws,
@@ -1149,6 +1326,8 @@ def main() -> int:
         got = {k: tuple(v.shape) for k, v in post.draws.items()}
         if got != shapes(D):
             fail(f"{preset}: draw shapes {got} != {shapes(D)}")
+        if check is not None:
+            check(post)
         del post
         torch.cuda.empty_cache()
 
@@ -1186,6 +1365,87 @@ def main() -> int:
               "loglik": lambda W, D: W + D + 1},
              "beta", (0.1, 0.5), logistic_shapes(64, 4, 16), full_rhat=True)
 
+    # config 2: frozen-metric Newton, one step and one Laplace interweave
+    # (its Hessian pass in warmup and once for the initial cache, its
+    # gradient pass in sampling) a sweep, at full schedule
+    newton_path = {"newton_step_refresh": lambda W, D: W,
+                   "newton_step_frozen": lambda W, D: D,
+                   "logp_grad_hess": lambda W, D: W + 1,
+                   "logp_grad": lambda W, D: D}
+    run_path("hier-logistic-100", newton_path, "beta", (0.5, 1.0),
+             logistic_shapes(64, 4, 16))
+
+    # config 1: plain PyTorch (no kernel), 4 chains, full schedule, against
+    # the dense quadrature of the posterior
+    ref8 = eight_schools_quadrature()
+
+    def check_eight_schools(post):
+        d = post.diagnostics()
+        mu_err = abs(float(d["mu"]["mean"]) - ref8["mu_mean"])
+        mu_se = float(d["mu"]["mcse_mean"])
+        mu_var = float(post.var("mu"))
+        var_tol = 6 * ref8["mu_var"] * math.sqrt(
+            2 / float(d["mu"]["ess_bulk"]))
+        tau = torch.exp(post.draws["log_tau"])
+        tau_se = float(tau.std()) / math.sqrt(float(ess(tau)))
+        tau_err = abs(float(tau.mean()) - ref8["tau_mean"])
+        th_err = (d["theta"]["mean"].cpu().double()
+                  - torch.tensor(ref8["theta_mean"])).abs()
+        th_ratio = float((th_err / d["theta"]["mcse_mean"].cpu()).max())
+        ok = (mu_err < 6 * mu_se and abs(mu_var - ref8["mu_var"]) < var_tol
+              and tau_err < 6 * tau_se and th_ratio < 6)
+        say(f"eight-schools vs quadrature: mu {float(d['mu']['mean']):.4f} "
+            f"(quadrature {ref8['mu_mean']:.4f}, |err|/mcse "
+            f"{mu_err / mu_se:.2f}), var {mu_var:.3f} ({ref8['mu_var']:.3f},"
+            f" tol {var_tol:.3f}); tau {float(tau.mean()):.4f} "
+            f"({ref8['tau_mean']:.4f}, |err|/se {tau_err / tau_se:.2f}); "
+            f"theta max |err|/mcse {th_ratio:.2f} (tol 6) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("eight-schools disagrees with the quadrature")
+
+    run_path("eight-schools", {}, "z", (0.2, 0.7),
+             lambda D: {"z": (4, D, 8), "mu": (4, D), "log_tau": (4, D),
+                        "theta": (4, D, 8)},
+             check=check_eight_schools)
+
+    # the exactness tier: the conjugate model's moments against the closed
+    # form (tests/test_torch_exactness.py's schedule and z)
+    t0 = time.perf_counter()
+    edata = synth_hier_normal(11, G=15, n=8, sigma=1.0, tau=1.5, m0=0.0,
+                              s0=3.0, device=dev)
+    reset_launch_counts()
+    epost = sample(
+        make_hier_normal_known_scales(edata, sigma=1.0, tau=1.5, m0=0.0,
+                                      s0=3.0),
+        edata, SamplerConfig(run=RunConfig(chains=32, warmup=1500,
+                                           draws=2500, seed=2,
+                                           log_every_segment=False)))
+    if any(launch_counts().values()):
+        fail(f"the conjugate model launched {launch_counts()}")
+    truth = analytic_hier_normal_posterior(edata, 1.0, 1.5, 0.0, 3.0)
+    d = epost.diagnostics()
+    e_mu = abs(float(d["mu"]["mean"]) - truth["mu_mean"]) / float(
+        d["mu"]["mcse_mean"])
+    e_muv = abs(float(epost.var("mu")) - truth["mu_var"]) / (
+        truth["mu_var"] * math.sqrt(2.0 / float(d["mu"]["ess_bulk"])))
+    e_th = float(((d["theta"]["mean"].cpu().double()
+                   - torch.tensor(truth["theta_mean"])).abs()
+                  / d["theta"]["mcse_mean"].cpu()).max())
+    e_thv = float(((epost.var("theta").cpu().double()
+                    - torch.tensor(truth["theta_var"])).abs()
+                   / (torch.tensor(truth["theta_var"]) * torch.sqrt(
+                       2.0 / d["theta"]["ess_bulk"].cpu().double()))).max())
+    e_rhat = epost.worst_rhat()
+    ok = e_rhat < 1.02 and max(e_mu, e_muv, e_th, e_thv) < 5.0
+    say(f"exactness tier on the card ({time.perf_counter() - t0:.1f} s): "
+        f"R-hat {e_rhat:.5f} (< 1.02); |err| in units of its standard error "
+        f"(< 5): mu mean {e_mu:.2f}, mu var {e_muv:.2f}, theta means "
+        f"{e_th:.2f}, theta vars {e_thv:.2f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the exactness tier on the card")
+    del epost, edata
+
     run_path("nested-poisson-1k",
              {"pois_rwmh_step": lambda W, D: W + D,
               "pois_loglik": lambda W, D: 1 + 2 * (W + D)},
@@ -1200,6 +1460,12 @@ def main() -> int:
               "logp_grad_hess": lambda W, D: B * (W + 1),
               "logp_grad": lambda W, D: B * D},
              "beta", (0.5, 1.0), logistic_shapes(1024, 3, 8))
+
+    # config 5's Newton variant at full width, depth cut: its launches
+    # asserted, its R-hat printed (the full schedule's gate comes from
+    # python -m nestmc_torch.bench --preset mala-100k-newton)
+    run_path("mala-100k-newton", newton_path, "beta", (0.5, 1.0),
+             logistic_shapes(512, 3, 8), warmup=200, draws=300, gate=False)
 
     full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)
     j_min, p_min, s_min = (300, 512), (1000, 2048), (200, 512)
@@ -1297,13 +1563,9 @@ def main() -> int:
         say(f"CUT judged: {full[0]}/{full[1]} needs ~{need_j:.0f} s, "
             f"{avail:.0f} s left: running warmup {j_sched[0]}, draws "
             f"{j_sched[1]} at full width")
-    run_path("judged",
-             {"newton_step_refresh": lambda W, D: W,
-              "newton_step_frozen": lambda W, D: D,
-              "logp_grad_hess": lambda W, D: W + 1,
-              "logp_grad": lambda W, D: D},
-             "beta", (0.5, 1.0), logistic_shapes(1024, 4, 8),
-             warmup=j_sched[0], draws=j_sched[1], gate=j_sched == full)
+    run_path("judged", newton_path, "beta", (0.5, 1.0),
+             logistic_shapes(1024, 4, 8), warmup=j_sched[0],
+             draws=j_sched[1], gate=j_sched == full)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SRC[k][0],
@@ -1313,8 +1575,8 @@ def main() -> int:
          "bound_ms": kernels[k]["bound_ms"],
          "bound_by": kernels[k]["bound_by"], "library_ms": None,
          "shape_C_G_n_p": list(kernels[k]["shape"]),
-         **({"ms_external_noise": kernels[k]["ms_external_noise"]}
-            if "ms_external_noise" in kernels[k] else {})}
+         **{key: kernels[k][key] for key in ("ms_external_noise", "cells")
+            if key in kernels[k]}}
         for k in SRC
     ]}), flush=True)
     say(f"total {time.perf_counter() - T_START:.1f} s")

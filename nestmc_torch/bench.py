@@ -4,18 +4,22 @@ Port of the repo's bench.py. The default preset, ``judged``, is bench.py's
 config: the 1k-group hierarchical logistic model (G=1000 groups x n=50 obs,
 p=4), 1024 chains, 1500 warmup sweeps and 4096 retained draws,
 frozen-metric Newton-MH with the fused step, the inverse-gamma tau prior,
-streamed split R-hat over all 4008 parameters. ``--preset mala-100k`` (config
-5: G=100,000, n=20, p=3, 512 chains, MALA, half-normal tau, R-hat streamed
-on every 4th draw over all 300,006 parameters), ``--preset
-hier-logistic-100-rw`` (config 2's RW-MH state; its streamed R-hat is
-switched on here) and ``--preset nested-poisson-1k`` (config 3: G=1000
-groups x 4 subjects x 10 obs, p=3, 512 chains, 1000/16384, RW-MH on the
-subjects, R-hat over all 15,009 parameters; ``-mala`` and ``-newton`` change
-the subject update) and ``--preset ragged-10k`` (config 4: G=10,000 ragged
-groups of 5..30 obs, p=3, 1024 chains, 800/2048, Newton-MH per size bucket,
-R-hat over all 30,006 parameters; ``-mala`` for MALA) run the others
-(nestmc_torch/presets.py). ``--seed`` picks the run's seed (the data and
-the chains; default 0).
+streamed split R-hat over all 4008 parameters. ``--preset NAME`` runs
+any other name of nestmc_torch/presets.py: ``eight-schools`` (config 1: 4
+chains, 1000/10,000, RW-MH, plain PyTorch); ``hier-logistic-100`` (config
+2: G=100, n=50, p=4, 64 chains, 1500/4096, frozen-metric Newton-MH, R-hat
+over all 408 parameters) and its RW-MH state ``hier-logistic-100-rw``;
+``hier-logistic-1k`` (and ``-mala``: G=1000, 256 chains, 1000/2048);
+``nested-poisson-1k`` (config 3: G=1000 groups x 4 subjects x 10 obs,
+p=3, 512 chains, 1000/16384, RW-MH on the subjects, R-hat over all 15,009
+parameters; ``-mala`` and ``-newton`` change the subject update);
+``ragged-10k`` (config 4: G=10,000 ragged groups of 5..30 obs, p=3, 1024
+chains, 800/2048, Newton-MH per size bucket, R-hat over all 30,006
+parameters; ``-mala`` for MALA); ``mala-100k`` (config 5: G=100,000,
+n=20, p=3, 512 chains, MALA, half-normal tau, R-hat streamed on every 4th
+draw over all 300,006 parameters) and ``mala-100k-newton`` (its data,
+frozen-metric Newton-MH, 1500/8192). ``--seed`` picks the run's seed (the
+data and the chains; default 0).
 
 Prints one JSON line with bench.py's fields; ``value`` is the sum of bulk
 ESS over the collected scalars (judged: mu 4 + log_tau 4 + the first 8
@@ -41,13 +45,22 @@ import time
 
 import torch
 
+from nestmc_torch.data import data_device
 from nestmc_torch.engine import sample
 from nestmc_torch.presets import PRESETS, get_preset
 
 TITLES = {
+    "eight-schools": "8-schools hierarchical normal, RW-MH",
+    "hier-logistic-100": "100-group hierarchical logistic, Newton-MH",
+    "hier-logistic-100-newton": "100-group hierarchical logistic, Newton-MH",
+    "hier-logistic-100-rw": "100-group hierarchical logistic, RW-MH",
+    "hier-logistic-1k": "1k-group hierarchical logistic, 256 chains",
+    "hier-logistic-1k-newton": "1k-group hierarchical logistic, 256 chains",
+    "hier-logistic-1k-mala":
+        "1k-group hierarchical logistic, 256 chains, MALA",
     "judged": "1k-group hierarchical logistic",
     "mala-100k": "100k-group hierarchical logistic, MALA",
-    "hier-logistic-100-rw": "100-group hierarchical logistic, RW-MH",
+    "mala-100k-newton": "100k-group hierarchical logistic, Newton-MH",
     "nested-poisson-1k": "3-level nested Poisson GLMM, 1k groups",
     "nested-poisson-1k-mala": "3-level nested Poisson GLMM, 1k groups, MALA",
     "nested-poisson-1k-newton":
@@ -103,9 +116,12 @@ def measure(model, data, cfg, label: str, title: str,
             chains: int | None = None, warmup: int | None = None,
             draws: int | None = None, full_rhat: bool | None = None,
             seed: int = 0):
-    """:func:`run` for a given (model, data, cfg) on a CUDA device:
-    ``label`` names it in the info dict, ``title`` in the metric."""
-    device = data.device
+    """:func:`run` for a given (model, data, cfg): ``label`` names it in
+    the info dict, ``title`` in the metric. On a CPU device (the tests'
+    small runs) the result names the CPU and the device memory, power
+    limit and card are not measured (None)."""
+    device = data_device(data)
+    cuda = device.type == "cuda"
     over = {k: v for k, v in (("chains", chains), ("warmup", warmup),
                               ("draws", draws), ("full_rhat", full_rhat))
             if v is not None}
@@ -114,12 +130,17 @@ def measure(model, data, cfg, label: str, title: str,
                                      **over)
     )
     rc = cfg.run
-    dev = torch.device(device)
-    torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     post = sample(model, data, cfg)
-    peak_sampling = torch.cuda.max_memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    peak_sampling = peak_gb()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     t_d = time.perf_counter()
     worst = post.worst_rhat()
     worst_at = post.worst_rhat_at()
@@ -138,8 +159,8 @@ def measure(model, data, cfg, label: str, title: str,
         "wall_s": wall, "diagnostics_s": diag_s,
         "worst_rhat_at": worst_at,
         "worst_unit_accept": _unit_accept(post, worst_at),
-        "peak_mem_gb_sampling": peak_sampling / 1e9,
-        "peak_mem_gb_diagnostics": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "peak_mem_gb_sampling": peak_sampling,
+        "peak_mem_gb_diagnostics": peak_gb(),
         "sweeps_per_s": (rc.warmup + rc.draws)
         / (post.timings["warmup_s"] + sample_s),
         **post.timings,
@@ -168,8 +189,8 @@ def measure(model, data, cfg, label: str, title: str,
             f"{floor_all['block']}{list(floor_all['index'])}"
             if floor_all else None
         ),
-        "device": torch.cuda.get_device_name(torch.device(device)),
-        "power_limit": gpu_query().split(",")[-1].strip(),
+        "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "power_limit": gpu_query().split(",")[-1].strip() if cuda else None,
     }
     return result, post, info
 

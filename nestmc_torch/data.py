@@ -8,6 +8,7 @@ of :class:`nestmc.data.RaggedData` and the three-level
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -16,7 +17,10 @@ import torch
 
 @dataclass(frozen=True)
 class NestedData:
-    """x (G, n, p) covariates, y and mask (G, n), sizes (G,) int32.
+    """x (G, n, p) covariates (p = 0 for models without covariates), y and
+    mask (G, n), sizes (G,) int32, extra {name: tensor} of further
+    per-group or per-obs arrays (e.g. the eight-schools model's known
+    scales).
 
     All tensors live on one device; the sampler runs on that device.
     """
@@ -25,6 +29,7 @@ class NestedData:
     mask: torch.Tensor
     sizes: torch.Tensor
     x: torch.Tensor
+    extra: dict = dataclasses.field(default_factory=dict)
 
     @property
     def num_groups(self) -> int:
@@ -37,6 +42,27 @@ class NestedData:
     @property
     def device(self) -> torch.device:
         return self.y.device
+
+
+def data_device(data) -> torch.device:
+    """The device ``data`` lives on: its ``device`` attribute where it has
+    one, else that of the first tensor among a dict's values (data are
+    opaque to the sampler, e.g. a plain {"y": (C, G, n)} dict)."""
+    dev = _find_device(data)
+    if dev is None:
+        raise ValueError(f"no tensor in the data: {type(data).__name__}")
+    return dev
+
+
+def _find_device(obj):
+    dev = getattr(obj, "device", None)
+    if isinstance(dev, torch.device):
+        return dev
+    for item in obj.values() if isinstance(obj, dict) else ():
+        dev = _find_device(item)
+        if dev is not None:
+            return dev
+    return None
 
 
 def check_device(device) -> torch.device:
@@ -57,18 +83,23 @@ def _tensor(a, device, dtype=torch.float32):
     )
 
 
-def from_numpy(x, y, mask, device="cuda") -> NestedData:
+def from_numpy(x, y, mask, device="cuda", extra=None) -> NestedData:
     """Build padded data from numpy arrays (e.g. the JAX package's), as
     float32 tensors on ``device`` (the card unless the caller asks for
-    another)."""
+    another). ``x`` None gives a model without covariates an empty
+    (G, n, 0) x; ``extra`` {name: array} is carried as float32 tensors."""
     device = check_device(device)
     mask_np = np.asarray(mask, np.float32)
     sizes = (mask_np > 0.5).sum(axis=1).astype(np.int32)
+    if x is None:
+        x = np.zeros(mask_np.shape + (0,), np.float32)
     return NestedData(
         y=_tensor(np.asarray(y, np.float32), device),
         mask=_tensor(mask_np, device),
         sizes=_tensor(sizes, device, torch.int32),
         x=_tensor(np.asarray(x, np.float32), device),
+        extra={k: _tensor(np.asarray(v, np.float32), device)
+               for k, v in (extra or {}).items()},
     )
 
 

@@ -3,8 +3,9 @@
 Port of :mod:`nestmc.engine` for one device. PyTorch runs eagerly, so each
 phase is a loop over sweeps on the data's device; the two phases stay
 separate and the metric freezes at warmup end (KernelConfig.newton_freeze).
-Retained draws go into buffers of shape (C, D, ...) allocated before the
-sampling loop. With RunConfig.full_rhat every block streams split-R-hat
+Retained draws (RunConfig.collect: blocks, and the model's derived
+quantities computed from the position) go into buffers of shape
+(C, D, ...) allocated before the sampling loop. With RunConfig.full_rhat every block streams split-R-hat
 Welford accumulators; blocks whose fused step folds them in-kernel
 (kernels/gibbs.rhat_fold_names) fold each draw one sweep late, with the
 pre-update value, and the last draw is flushed after the loop. With
@@ -26,6 +27,7 @@ import time
 import torch
 
 from nestmc_torch.config import SamplerConfig, validate
+from nestmc_torch.data import data_device
 from nestmc_torch.diagnostics import (
     fold_ess_finalize,
     fold_rhat_finalize,
@@ -46,13 +48,15 @@ from nestmc_torch.rng import SweepRNG
 log = logging.getLogger("nestmc_torch")
 
 
-def _collect_index(position, spec):
-    """{name: (C, *shape) view} of what RunConfig.collect retains."""
+def _collect(position, spec, derived):
+    """{name: (C, *shape)} of what RunConfig.collect retains: block names
+    and the model's derived quantities (computed from the position), all
+    of both when ``spec`` is None."""
     if spec is None:
-        return dict(position)
+        return {**position, **{k: fn(position) for k, fn in derived.items()}}
     out = {}
     for name, k in spec.items():
-        v = position[name]
+        v = derived[name](position) if name in derived else position[name]
         if k is None:
             out[name] = v
         elif isinstance(k, int):
@@ -83,12 +87,13 @@ def sample(
     cfg: SamplerConfig | None = None,
     rng: SweepRNG | None = None,
 ) -> Posterior:
-    """Run the sampler end to end on the data's device; returns a
+    """Run the sampler end to end on the data's device (data_device: its
+    ``device``, else that of its first tensor); returns a
     :class:`Posterior`. ``rng`` defaults to SweepRNG(cfg.run.seed)."""
     cfg = cfg or SamplerConfig()
     validate(cfg)
     rc = cfg.run
-    device = data.device
+    device = data_device(data)
     if rng is None:
         rng = SweepRNG(rc.seed, device)
 
@@ -129,7 +134,7 @@ def sample(
             k: v for k, v in state.position.items() if k not in fold_names
         })
         fold_acc = fold_rhat_init(state.position, fold_names)
-    views = _collect_index(state.position, rc.collect)
+    views = _collect(state.position, rc.collect, model.derived)
     draws = {
         k: torch.empty((v.shape[0], D) + tuple(v.shape[1:]), device=device)
         for k, v in views.items()
@@ -161,7 +166,8 @@ def sample(
                 std_acc = streaming_rhat_update(
                     std_acc, state.position, j // rthin, half_len
                 )
-            for k, v in _collect_index(state.position, rc.collect).items():
+            for k, v in _collect(state.position, rc.collect,
+                                 model.derived).items():
                 draws[k][:, j] = v
         if rc.log_every_segment:
             _sync(device)

@@ -30,14 +30,23 @@ def newton_update(rng, block: Block, model: ModelSpec, position, log_scale,
     cache: optional carried {'v', 'g', 'h'} of the self part at the current
     value. frozen: the cached Hessian is a constant metric (requires the
     cache); the proposal's obs pass computes only (value, grad).
-    Grouped blocks with a 1-D per-unit vector only: value (C, U, p).
+    Grouped blocks with a 1-D per-unit vector, value (C, U, p), or with
+    scalar units, value (C, U), run as p = 1: the hooks then return grad
+    and Hessian both (C, U), lifted here to (C, U, 1) and squeezed back.
+    Noise: eps (C, U, p) (p = 1 for scalar units), then log u (C, U).
     Returns (new_value, alpha (C, U), new_cache).
     """
-    if not block.units or len(block.unit_shape) != 1:
+    scalar_units = bool(block.units) and len(block.unit_shape) == 0
+    if not block.units or not (scalar_units or len(block.unit_shape) == 1):
         raise NotImplementedError(
-            f"newton_update: block {block.name!r} needs grouped 1-D units"
+            f"newton_update: block {block.name!r} needs grouped 1-D or "
+            "scalar units"
         )
-    p = int(block.unit_shape[0])
+    p = 1 if scalar_units else int(block.unit_shape[0])
+    # the algebra runs with a trailing parameter axis; the hooks see the
+    # block's own shape
+    ex = (lambda a: a[..., None]) if scalar_units else (lambda a: a)
+    sq = (lambda a: a[..., 0]) if scalar_units else (lambda a: a)
     value = position[block.name]
     self_vgh, rest_vgh = model.cond_cached_newton[block.name]
     if cache is not None:
@@ -46,11 +55,11 @@ def newton_update(rng, block: Block, model: ModelSpec, position, log_scale,
         sv, sg, sh = self_vgh(value, data)
     rv_old, rg_old, rh_old = rest_vgh(value, position, data)
     d_old = sv + as_cu(rv_old, block)
-    L_old = chol_packed(sh + rh_old, p)
-    mean_old = value + spd_solve(L_old, sg + rg_old, p)
+    L_old = chol_packed(ex(sh + rh_old), p)
+    mean_old = ex(value) + spd_solve(L_old, ex(sg + rg_old), p)
     sc = torch.exp(log_scale)[..., None]
     eps = rng.normal(mean_old.shape)
-    prop = mean_old + sc * solve_upper_t(L_old, eps, p)
+    prop = sq(mean_old + sc * solve_upper_t(L_old, eps, p))
 
     if frozen:
         if cache is None:
@@ -63,12 +72,12 @@ def newton_update(rng, block: Block, model: ModelSpec, position, log_scale,
         v_new, g_new, h_new = self_vgh(prop, data)
     rv_new, rg_new, rh_new = rest_vgh(prop, position, data)
     d_new = v_new + as_cu(rv_new, block)
-    L_new = chol_packed(h_new + rh_new, p)
-    mean_new = prop + spd_solve(L_new, g_new + rg_new, p)
+    L_new = chol_packed(ex(h_new + rh_new), p)
+    mean_new = ex(prop) + spd_solve(L_new, ex(g_new + rg_new), p)
 
     inv_c = torch.exp(-2.0 * log_scale)
-    w_fwd = lt_vec(L_old, prop - mean_old, p)
-    w_rev = lt_vec(L_new, value - mean_new, p)
+    w_fwd = lt_vec(L_old, ex(prop) - mean_old, p)
+    w_rev = lt_vec(L_new, ex(value) - mean_new, p)
     log_q_fwd = -0.5 * inv_c * torch.sum(w_fwd * w_fwd, dim=-1) + half_logdet(
         L_old, p
     )

@@ -47,17 +47,18 @@ def scale_units(block, cfg: SamplerConfig) -> int:
 
 def init_kernel_state(model: ModelSpec, cfg: SamplerConfig, rng, data,
                       position: dict | None = None) -> KernelState:
-    """Build the initial carry on the data's device. ``position``
-    overrides the model's init. A block gets the cache its algorithm
-    carries, from one obs pass: the self part's value (RW-MH), value and
-    gradient (MALA), or value, gradient and Hessian (Newton-MH, whose
-    log_scale is 0: c = 1, never adapted)."""
+    """Build the initial carry on the position's device (the model's init
+    draws it on the rng's). ``position`` overrides the model's init; the
+    data are opaque here, passed only to the model's hooks. A block gets
+    the cache its algorithm carries, from one obs pass: the self part's
+    value (RW-MH), value and gradient (MALA), or value, gradient and
+    Hessian (Newton-MH, whose log_scale is 0: c = 1, never adapted)."""
     from nestmc_torch.kernels.gibbs import block_algorithm, grad_cache_live
 
     chains = cfg.run.chains
     if position is None:
         position = model.init_state(rng, data, chains)
-    dev = data.device
+    dev = next(iter(position.values())).device
     log_scale, accept_sum, cache = {}, {}, {}
     for b in model.blocks:
         u = scale_units(b, cfg)

@@ -1,7 +1,8 @@
 """Model abstraction: parameter blocks + the hooks the sampler calls.
 
 Port of :mod:`nestmc.model` reduced to the fields the RW-MH, MALA and
-Newton-MH paths read.
+Newton-MH paths, the draw collection and the calibration tiers (Geweke,
+exactness) read.
 A block with ``units = U > 0`` declares that its leading axis indexes U
 conditionally independent units (groups) given the rest of the state: its
 MH accept/reject is made per unit, for all units and all chains at once.
@@ -50,6 +51,13 @@ class ModelSpec:
     cond_logdensity(name, value, state, data) -> (C, U) or (C,): every term
       of the joint that involves block ``name``, at ``value``.
     joint_logdensity(state, data) -> (C,): the full joint log density.
+    prior_sample(rng, data, chains) -> {name: (C, *shape)}: an exact draw
+      from the prior (Geweke / SBC); optional.
+    sample_data(rng, state, data) -> data: responses simulated given chain
+      0's parameters, in the form of ``data``; optional.
+    derived: {name: fn(position) -> (C, ...)}: deterministic quantities
+      computed from the state when draws are collected (e.g. the centred
+      theta = mu + tau z of a non-centred model), collectable by name.
     cond_value_and_grad(name, value, state, data) -> (value, grad) of the
       same in closed form, or None (kernels/mala.py then differentiates
       cond_logdensity with torch.autograd).
@@ -81,6 +89,9 @@ class ModelSpec:
     cond_logdensity: Callable | None = None
     cond_value_and_grad: Callable | None = None
     joint_logdensity: Callable | None = None
+    prior_sample: Callable | None = None
+    sample_data: Callable | None = None
+    derived: dict = dataclasses.field(default_factory=dict)
     cond_cached: dict = dataclasses.field(default_factory=dict)
     cond_cached_grad: dict = dataclasses.field(default_factory=dict)
     gibbs_draws: dict = dataclasses.field(default_factory=dict)

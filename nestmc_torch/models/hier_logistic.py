@@ -11,8 +11,10 @@ both tau priors (half-normal: an MH block on log tau; inverse-gamma: an
 exact conjugate draw), the exact conjugate mu draw, the fused RW-MH, MALA
 and Newton-MH group-block updates (ops/cuda/mh_accept, mala_accept,
 newton_accept) and the joint (mu, log tau) interweaving move in its three
-modes (random walk, bound-metric Langevin, Laplace). The obs passes run
-the CUDA kernels on CUDA tensors and their plain versions on CPU tensors.
+modes (random walk, bound-metric Langevin, Laplace), and the joint density
+with the prior and data simulators of the calibration tiers. The obs
+passes run the CUDA kernels on CUDA tensors and their plain versions on
+CPU tensors.
 
 Ragged data (:class:`~nestmc_torch.data.RaggedData`) take one of two
 routes, chosen by ``loglik_impl`` as in the reference's _resolve_loglik:
@@ -31,7 +33,12 @@ import weakref
 import numpy as np
 import torch
 
-from nestmc_torch.data import RaggedData, from_numpy, from_numpy_ragged
+from nestmc_torch.data import (
+    NestedData,
+    RaggedData,
+    from_numpy,
+    from_numpy_ragged,
+)
 from nestmc_torch.diagnostics import fold_rhat_update
 from nestmc_torch.distributions import (
     log_scale_guard,
@@ -519,12 +526,49 @@ def make_hier_logistic(
             0.5 * (torch.log(rate) - torch.log(g)), -12.0, 12.0
         )
 
+    def joint(state, data):
+        return (
+            torch.sum(lik_fn(state["beta"], data), dim=-1)
+            + torch.sum(_gprior(state), dim=-1)
+            + torch.sum(logpdf_normal(state["mu"], 0.0, prior_mu_scale),
+                        dim=-1)
+            + torch.sum(_tau_logprior(state["log_tau"]), dim=-1)
+        )
+
     def init_state(rng, data, chains):
         return {
             "beta": 0.5 * rng.normal((chains, G, p)),
             "mu": 0.5 * rng.normal((chains, p)),
             "log_tau": -0.5 + 0.3 * rng.normal((chains, p)),
         }
+
+    def prior_sample(rng, data, chains):
+        """An exact draw from the prior of the chosen tau prior."""
+        mu = prior_mu_scale * rng.normal((chains, p))
+        if conj_tau:
+            tau = torch.sqrt(b_ig / rng.gamma(a_ig, (chains, p)))
+        else:
+            tau = prior_tau_scale * torch.abs(rng.normal((chains, p)))
+        beta = mu[:, None, :] + tau[:, None, :] * rng.normal((chains, G, p))
+        return {"beta": beta, "mu": mu, "log_tau": torch.log(tau)}
+
+    def sample_data(rng, state, data):
+        """Bernoulli responses given chain 0's beta, in the form of
+        ``data`` (zero where masked): y = [log u < log sigmoid(eta)]."""
+        beta = state["beta"][0]                          # (G, p)
+        if ragged:
+            eta = torch.sum(beta.index_select(0, data.segment_ids) * data.x,
+                            dim=-1)
+            y = (rng.log_uniform(eta.shape)
+                 < torch.nn.functional.logsigmoid(eta)).float()
+            return RaggedData(y=y, segment_ids=data.segment_ids,
+                              num_groups=data.num_groups, x=data.x,
+                              offsets=data.offsets)
+        eta = torch.einsum("gnp,gp->gn", data.x, beta)
+        y = (rng.log_uniform(eta.shape)
+             < torch.nn.functional.logsigmoid(eta)).float()
+        return NestedData(y=y * data.mask, mask=data.mask, sizes=data.sizes,
+                          x=data.x, extra=data.extra)
 
     return ModelSpec(
         name="hier_logistic",
@@ -535,6 +579,9 @@ def make_hier_logistic(
         ),
         init_state=init_state,
         cond_logdensity=cond,
+        joint_logdensity=joint,
+        prior_sample=prior_sample,
+        sample_data=sample_data,
         cond_value_and_grad=cond_value_and_grad,
         cond_cached={
             "beta": (

@@ -13,16 +13,20 @@ conjugate mu and beta_g draws, the fused RW-MH, MALA and Newton-MH subject
 updates (ops/cuda/poisson_accept) and the two interweaving moves:
 tau_g's Laplace move, which touches no data, and tau_s's move in its RW,
 Langevin (gradient cache) and Laplace (Newton cache, refresh or frozen)
-modes. The obs passes run the CUDA kernels on CUDA tensors and their plain
-versions on CPU tensors. Subject -> group sums are deterministic
-(NestedData3.group_sum).
+modes, and the prior and data simulators of the calibration tiers. The
+obs passes run the CUDA kernels on CUDA tensors and their plain versions
+on CPU tensors. Subject -> group sums are deterministic
+(NestedData3.group_sum). The model reads S, G and p from ``data`` once, so
+its hooks also take data whose y carries a chains axis, (C, S, n) (the
+Geweke tier), with x and mask shared.
 
-Not ported yet (ROADMAP Queue 1, item 9): the per-unit logliks for WAIC /
-LOO (``derived``), ``prior_sample`` and ``sample_data`` (the Geweke tier).
+Not ported yet (ROADMAP Queue 1, WAIC and LOO): the per-unit logliks
+(``derived``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -461,6 +465,30 @@ def make_nested_poisson(
             + _pprior(state)
         )
 
+    def _tau_prior_sample(rng, chains):
+        if conj_tau:
+            return torch.sqrt(b_ig / rng.gamma(a_ig, (chains, p)))
+        return prior_tau_scale * torch.abs(rng.normal((chains, p)))
+
+    def prior_sample(rng, d, chains):
+        """An exact draw from the prior of the chosen tau prior."""
+        mu = prior_mu_scale * rng.normal((chains, p))
+        tau_g = _tau_prior_sample(rng, chains)
+        tau_s = _tau_prior_sample(rng, chains)
+        beta_g = mu[:, None, :] + tau_g[:, None, :] * rng.normal(
+            (chains, G, p))
+        beta_s = d.to_subjects(beta_g) + tau_s[:, None, :] * rng.normal(
+            (chains, S, p))
+        return {
+            "beta_s": beta_s, "beta_g": beta_g, "mu": mu,
+            "log_tau_s": torch.log(tau_s), "log_tau_g": torch.log(tau_g),
+        }
+
+    def sample_data(rng, state, d):
+        """Poisson counts given chain 0's beta_s, zero where masked."""
+        eta = torch.einsum("snp,sp->sn", d.x, state["beta_s"][0])
+        return dataclasses.replace(d, y=rng.poisson(torch.exp(eta)) * d.mask)
+
     def init_state(rng, d, chains):
         return {
             "beta_s": 0.2 * rng.normal((chains, S, p)),
@@ -482,6 +510,8 @@ def make_nested_poisson(
         init_state=init_state,
         cond_logdensity=cond,
         joint_logdensity=joint,
+        prior_sample=prior_sample,
+        sample_data=sample_data,
         # the obs-level likelihood depends only on beta_s: carried across
         # sweeps so each sweep evaluates it once (for the proposal)
         cond_cached={

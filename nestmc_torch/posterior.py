@@ -115,6 +115,13 @@ class Posterior:
                 }
         return best
 
+    def var(self, name: str):
+        """Posterior variance (ddof 1) of a collected quantity over chains
+        and draws."""
+        x = self.draws[name]
+        return torch.var(x.reshape((-1,) + tuple(x.shape[2:])), dim=0,
+                         correction=1)
+
     def summary_table(self) -> str:
         """Fixed-width table of per-block aggregates."""
         lines = [

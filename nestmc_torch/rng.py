@@ -40,6 +40,10 @@ class SweepRNG:
         conc = torch.full(tuple(shape), float(a), device=self.device)
         return torch._standard_gamma(conc, generator=self.generator)
 
+    def poisson(self, rate: torch.Tensor) -> torch.Tensor:
+        """Poisson(rate) counts as float32, elementwise (sample_data)."""
+        return torch.poisson(rate, generator=self.generator)
+
     def philox_key(self) -> tuple:
         """Two 32-bit words keying one kernel launch's Philox streams."""
         w = torch.randint(
