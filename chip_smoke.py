@@ -39,7 +39,12 @@ Needs one CUDA card and this checkout (it builds the kernels from
    the first 64 chains), timed with Philox noise (the main paths' mode)
    as extra "cells" of each kernel's record, and the value-only loglik at
    the judged and 1k-group shapes (where group_loglik collection launches
-   it once a retained draw). mala_step's record times the
+   it once a retained draw); (3f) the binomial family's operands at
+   config 2's shape (the mask a trials weight, integers 0..10 with
+   zero-weight runs inside groups, y the fraction of successes: what
+   models/hier_glm.py's binomial delegate feeds the logistic kernels) for
+   loglik, logp_grad and newton_step refresh and frozen+fold, as more
+   cells. mala_step's record times the
    main path's mode at mala-100k (Philox noise, no fold; bound without the
    noise operands) and keeps the external-noise time beside it. Dense and
    masked data, with and without the R-hat fold. Each line: the max error
@@ -79,7 +84,10 @@ Needs one CUDA card and this checkout (it builds the kernels from
    MALA path (each runs its full schedule only if the script would still
    end within 60% of its budget), then the judged run; mala-100k's draws
    only if even minimal other runs would not fit. The script says so.
-   These decisions keep P7_S seconds for phase 7;
+   Phases 7 and 8 run after the fixed paths (the five configs and
+   mala-100k-newton) and before the cut ones (mala-100k, the segment
+   paths, config 3's variants, judged), so each cut is decided on the
+   time actually left, whatever the host's speed;
 7. the command line (nestmc_torch/cli.py, in-process ``cli.main``, on the
    card by default), launch counters reset just before each call and read
    just after: (a) ``run --preset hier-logistic-100`` at full width and
@@ -98,7 +106,29 @@ Needs one CUDA card and this checkout (it builds the kernels from
    PSIS-LOO and WAIC: finite elpd, k_hat > 0.7 counts printed; (d) config
    3's subject_loglik and group_loglik on the card vs the CPU's plain
    version at one position, timed as a pois_loglik cell; (e) ``python -m
-   nestmc_torch list-presets`` in its own process.
+   nestmc_torch list-presets`` in its own process;
+8. the generic hierarchical GLM, posterior-predictive checks and the CSV
+   loader (models/hier_glm.py, predictive.py, io/), on the card, launch
+   counters reset just before each run and read just after: (a) the
+   binomial family at config 2's width (synth_glm G=100, n=50, p=4, 10
+   trials, 64 chains, invgamma tau, frozen Newton 1500/4096, beta and
+   group_loglik collected in full): config 2's launches plus one loglik a
+   retained draw (the reweighting adds none), the gate over 408
+   parameters, group_loglik at four draws against the plain pass plus the
+   log binomial coefficient; (d) posterior_predictive on its draws: 64
+   replicates (64, 100, 50) of counts in [0, 10], the masked-mean p-value
+   in (0.02, 0.98), timed; (b) the poisson family at config 3's unit width
+   (G=4000, n=10, p=3, 512 chains): Newton at 1000/2048 (the Poisson
+   steps' and obs passes' exact counts; its R-hat and the units its Laplace
+   proposal traps printed, not asserted) and MALA at 2000/16384 (exact
+   counts, the gate over 12,006 parameters); (c)
+   gaussian and negbin at config 2's width (plain PyTorch, Newton on the
+   zero-self split, 500/1024: no launch, the gate, mu and the aux block's
+   posterior means within 4 posterior sds of synth_glm's truth); (e) a CSV
+   of ragged-10k's seed-0 data through load_csv, native parser and numpy
+   path (both timed; the arrays equal from_numpy_ragged's), then 50
+   sweeps of config 4's bucket-route Newton on the loaded data (launches
+   asserted, R-hat printed).
 
 Bound: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -132,7 +162,6 @@ RW = (64, 100, 50, 4)                # config 2 (both its presets)
 HL1K = (256, 1000, 50, 4)           # hier-logistic-1k (and -mala)
 POIS = (512, 4000, 10, 3)           # C, S (subjects), n, p: config 3
 SLICE = 64                  # chains the plain versions run on at M100K
-P7_S = 150.0                # phase 7's need, kept out of phase 6's cuts
 SRC = {
     "loglik": ("nestmc_torch/csrc/loglik_logistic.cu",
                "nestmc/ops/pallas/loglik_logistic.py:191"),
@@ -381,6 +410,7 @@ def main() -> int:
         return float(d.max()), bool((d <= 1e-3 + rtol * b.abs()).all())
 
     kernels = {}
+    launches_total = {}
 
     def record(name, err, ms=None, plain_ms=None, shape=None, w=None):
         k = kernels.setdefault(name, {"max_abs_err": 0.0})
@@ -389,6 +419,15 @@ def main() -> int:
             b_ms, by = bound(*w)
             k.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                      shape=shape)
+
+    def cell(name, shape, err, ms, pms, w, plain_on, **extra):
+        """A timed record of ``name`` at another shape than its main one."""
+        record(name, err)
+        b_ms, by = bound(*w)
+        kernels[name].setdefault("cells", []).append({
+            "shape_C_G_n_p": list(shape), "ms": ms, "plain_ms": pms,
+            "plain_on": plain_on, "bound_ms": b_ms, "bound_by": by,
+            "max_abs_err": err, **extra})
 
     def bound_str(w):
         b_ms, by = bound(*w)
@@ -1075,15 +1114,6 @@ def main() -> int:
 
     # ---- 3e. the Newton path's kernels at config 2's, the 1k-group
     # presets' and mala-100k-newton's shapes, and MALA at p=4 ----
-    def cell(name, shape, err, ms, pms, w, plain_on, **extra):
-        """A timed record of ``name`` at another shape than its main one."""
-        record(name, err)
-        b_ms, by = bound(*w)
-        kernels[name].setdefault("cells", []).append({
-            "shape_C_G_n_p": list(shape), "ms": ms, "plain_ms": pms,
-            "plain_on": plain_on, "bound_ms": b_ms, "bound_by": by,
-            "max_abs_err": err, **extra})
-
     for shape, data_seed, seed in ((RW, 1000, 14), (HL1K, 2000, 15),
                                    (M100K, 5000, 16)):
         C, G, N, P = shape
@@ -1229,6 +1259,87 @@ def main() -> int:
         del d, beta, x, y, m, out, ref
         torch.cuda.empty_cache()
 
+    # ---- 3f. the binomial family's operands at config 2's shape: the
+    # mask a trials weight (integers 0..10, zero-weight runs inside
+    # groups), y the fraction of successes (hier_glm's binomial delegate)
+    C, G, N, P = RW
+    d = inputs(RW, 1000, 21)
+    beta, mu, lt, eps, logu = (d[k] for k in ("beta", "mu", "lt", "eps",
+                                              "logu"))
+    x, gen = d["datasets"]["dense"][0], d["gen"]
+    wm = torch.randint(0, 11, (G, N), generator=gen, device=dev).float()
+    wm[::7, N // 2 - 2:N // 2 + 2] = 0.0
+    yb = torch.where(wm > 0, torch.floor(
+        torch.rand(G, N, generator=gen, device=dev) * (wm + 1.0))
+        / wm.clamp_min(1.0), torch.zeros_like(wm))
+    wlabel = "binomial weights 0..10"
+    for name, kern, plain in (
+        ("loglik", lambda *a: (logistic_loglik(*a),),
+         lambda *a: (loglik.logistic_loglik_padded(*a),)),
+        ("logp_grad", logistic_logp_grad, loglik.logistic_logp_grad_padded),
+    ):
+        out, ref = kern(beta, x, yb, wm), plain(beta, x, yb, wm)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b, 1e-4) for a, b in zip(out, ref)]
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+        ms = timed(lambda: kern(beta, x, yb, wm))
+        pms = timed(lambda: plain(beta, x, yb, wm))
+        w = work(name, C, G, N, P)
+        say(f"kernel {name} [{wlabel}, C={C} G={G} n={N} p={P}]: "
+            f"max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|) "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms; {bound_str(w)}")
+        if not ok:
+            fail(f"{name} on a binomial-weighted mask disagrees with its "
+                 "plain version")
+        cell(name, RW, err, ms, pms, w, "full width", mask=wlabel)
+        del out, ref
+    v, g, h = loglik.logistic_logp_grad_hess_padded(beta, x, yb, wm)
+    ls = torch.zeros(C, G, device=dev)
+    for frozen, fold in ((False, False), (True, True)):
+        rf = None
+        if fold:
+            rf = (torch.randn(2, G, P, C, generator=gen, device=dev),
+                  torch.rand(2, G, P, C, generator=gen, device=dev),
+                  fold_rhat_scalars([11.0, 0.0], 11, 2048))
+        args = (beta, v, g, h, ls, mu, lt, x, yb, wm)
+        out = fused_newton_logistic_step(*args, noise=(eps, logu),
+                                         frozen=frozen, rhat_fold=rf)
+        ref = fused_newton_logistic_step_plain(*args, (eps, logu),
+                                               frozen=frozen, rhat_fold=rf)
+        torch.cuda.synchronize()
+        if frozen and out[3] is not h:
+            fail("frozen newton_step must return h itself")
+        keep = [i for i in range(len(out)) if not (frozen and i == 3)]
+        err, ok, n_diff, n_bad = step_check(
+            [out[i] for i in keep], [ref[i] for i in keep], beta, logu,
+            keep.index(4))
+        ms_ext = timed(lambda: fused_newton_logistic_step(
+            *args, noise=(eps, logu), frozen=frozen, rhat_fold=rf))
+        key = SweepRNG(22, dev)
+        ms = timed(lambda: fused_newton_logistic_step(
+            *args, rng=key, frozen=frozen, rhat_fold=rf))
+        pms = timed(lambda: fused_newton_logistic_step_plain(
+            *args, (eps, logu), frozen=frozen, rhat_fold=rf))
+        kname = "newton_step_frozen" if frozen else "newton_step_refresh"
+        w = work(kname, C, G, N, P, noise=False, fold=fold)
+        case = f"{'frozen' if frozen else 'refresh'}{'+fold' if fold else ''}"
+        say(f"kernel newton_step {case} [{wlabel}, C={C} G={G} n={N} "
+            f"p={P}]: max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|, alpha "
+            f"2e-3|ref|); accept decisions differ in {n_diff} of {C * G} "
+            f"cells, {n_bad} outside |log a - log u| < 1e-3 "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (Philox noise; "
+            f"external noise {ms_ext:.4f} ms), plain {pms:.4f} ms; "
+            f"{bound_str(w)} (Philox)")
+        if not ok:
+            fail(f"newton_step {case} on a binomial-weighted mask disagrees "
+                 "with its plain version")
+        cell(kname, RW, err, ms, pms, w, "full width", fold=fold,
+             mask=wlabel, ms_external_noise=ms_ext)
+        del out, ref, rf, args
+    del d, beta, mu, lt, eps, logu, x, gen, wm, yb, v, g, h, ls
+    torch.cuda.empty_cache()
+
     # ---- 4. Philox moments ----
     nrm, uni = philox_probe(512 * 256, (1234, 99), dev, p=4)
     x = nrm.double().cpu()
@@ -1317,7 +1428,6 @@ def main() -> int:
                         "beta_s")
 
     # ---- 6. the end-to-end paths at full width ----
-    launches_total = {}
 
     def logistic_shapes(C_, P_, k_):
         return lambda D: {"mu": (C_, D, P_), "log_tau": (C_, D, P_),
@@ -1329,9 +1439,11 @@ def main() -> int:
                 "beta_s": (512, D, 8, 3)}
 
     def run_path(preset, expect, block, acc_range, shapes, full_rhat=None,
-                 warmup=None, draws=None, gate=True, runner=None, check=None):
+                 warmup=None, draws=None, gate=True, runner=None, check=None,
+                 why="a short or cut schedule"):
         """Drive one path (bench.run of ``preset``, or ``runner``) and check
-        its launches, R-hat, acceptance, finiteness and draw shapes, then
+        its launches, R-hat (unless ``gate`` is False, for the reason
+        ``why``), acceptance, finiteness and draw shapes, then
         ``check(post)`` where given."""
         runner = runner or (lambda **kw: bench.run(preset=preset, **kw))
         reset_launch_counts()
@@ -1356,8 +1468,8 @@ def main() -> int:
             fail(f"{preset}: streamed R-hat covers {covered} of {n_par} "
                  "parameters")
         say(f"{preset}: worst all-param R-hat {worst:.5f} over {n_par} "
-            f"parameters ({'gate < 1.01' if gate else 'NOT asserted: a short '
-            'or cut schedule'}); {block} sampling acceptance {acc:.4f} (in "
+            f"parameters ({'gate < 1.01' if gate else 'NOT asserted: ' + why}"
+            f"); {block} sampling acceptance {acc:.4f} (in "
             f"{acc_range}); ESS/s/GPU {result['value']} min-ESS/s "
             f"{result['min_ess_per_sec_per_chip']} on '{smi}'")
         if gate and not worst < 1.01:
@@ -1514,106 +1626,8 @@ def main() -> int:
     run_path("mala-100k-newton", newton_path, "beta", (0.5, 1.0),
              logistic_shapes(512, 3, 8), warmup=200, draws=300, gate=False)
 
-    full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)
-    j_min, p_min, s_min = (300, 512), (1000, 2048), (200, 512)
-    s_rw = (200, 200)           # the segment RW path: short, R-hat printed
-    seg_mala = segment_runner("mala")
-    est = {k: per_sweep(k) for k in ("mala-100k", "judged",
-                                     "nested-poisson-1k-mala",
-                                     "nested-poisson-1k-newton")}
-    est["segment"] = per_sweep(None, seg_mala)
-    variants = ("nested-poisson-1k-mala", "nested-poisson-1k-newton")
-
-    def need_seg(sched):
-        # the RW path: about the MALA one's cost a sweep
-        return need_s(est["segment"], sched) + need_s(est["segment"], s_rw)
-
-    need_m = need_s(est["mala-100k"], full)
-    spare = (left_s() - 60.0 - P7_S - need_m - need_s(est["judged"], j_min)
-             - sum(need_s(est[v], p_min) for v in variants)
-             - need_seg(s_min))
-    m_sched = full
-    if spare < 0:
-        scale = max(0.25, 1.0 + spare / need_m)
-        m_sched = (full[0], max(1024, int(full[1] * scale) // 4 * 4))
-        say(f"CUT mala-100k: {full[0]}/{full[1]} needs ~{need_m:.0f} s and "
-            f"{left_s():.0f} s are left: running warmup {m_sched[0]}, draws "
-            f"{m_sched[1]} at full width")
-    run_path("mala-100k",
-             {"mala_step": lambda W, D: W + D,
-              "logp_grad": lambda W, D: W + D + 1},
-             "beta", (0.3, 0.9), logistic_shapes(512, 3, 8),
-             warmup=m_sched[0], draws=m_sched[1], gate=m_sched == full)
-
-    # config 4's segment route: ragged-10k-mala's model on the segment
-    # kernels, MALA at full schedule unless the script would then not end
-    # within 60% of its budget with the variants at their least and the
-    # full judged run (its draws shrink then, to s_min at the least)
-    need_v_min = sum(need_s(est[v], p_min) for v in variants)
-    room = (left_s() - 0.4 * BUDGET_S - P7_S - need_s(est["judged"], full)
-            - need_v_min)
-    sm_sched = s_full
-    if need_seg(s_full) > room:
-        scale = max(room - need_seg(s_min), 0.0) / max(
-            need_seg(s_full) - need_seg(s_min), 1e-9)
-        sm_sched = (s_full[0], s_min[1] + int(
-            (s_full[1] - s_min[1]) * min(scale, 1.0)) // 2 * 2)
-        if scale <= 0.0:
-            sm_sched = s_min
-        say(f"CUT the segment MALA path: {s_full[0]}/{s_full[1]} needs "
-            f"~{need_seg(s_full):.0f} s and {left_s():.0f} s are left: "
-            f"running warmup {sm_sched[0]}, draws {sm_sched[1]} at full "
-            "width")
-    run_path("ragged-10k pallas-segment mala",
-             {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D)},
-             "beta", (0.3, 0.9), logistic_shapes(1024, 3, 8),
-             warmup=sm_sched[0], draws=sm_sched[1], gate=sm_sched == s_full,
-             runner=seg_mala)
-    run_path("ragged-10k pallas-segment rwmh",
-             {"seg_loglik": lambda W, D: 1 + 2 * (W + D)},
-             "beta", (0.1, 0.5), logistic_shapes(1024, 3, 8),
-             warmup=s_rw[0], draws=s_rw[1], gate=False,
-             runner=segment_runner("rwmh"))
-
-    # config 3's variants run their full schedule only if the script would
-    # still end within 60% of its budget after them and the full judged
-    # run; otherwise their draws shrink first (to p_min at the least)
-    need_v = sum(need_s(est[v], p_full) for v in variants)
-    room = left_s() - 0.4 * BUDGET_S - P7_S - need_s(est["judged"], full)
-    v_sched = p_full
-    if need_v > room:
-        scale = max(room, 0.0) / need_v
-        v_sched = (p_full[0], max(p_min[1], int(p_full[1] * scale) // 2 * 2))
-        say(f"CUT config 3's variants: {p_full[0]}/{p_full[1]} needs "
-            f"~{need_v:.0f} s and {left_s():.0f} s are left: running "
-            f"warmup {v_sched[0]}, draws {v_sched[1]} at full width")
-    run_path("nested-poisson-1k-mala",
-             {"pois_mala_step": lambda W, D: W + D,
-              "pois_logp_grad": lambda W, D: 1 + 2 * (W + D)},
-             "beta_s", (0.3, 0.9), poisson_shapes,
-             warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
-    run_path("nested-poisson-1k-newton",
-             {"pois_newton_step_refresh": lambda W, D: W,
-              "pois_newton_step_frozen": lambda W, D: D,
-              "pois_logp_grad_hess": lambda W, D: 1 + 2 * W,
-              "pois_logp_grad": lambda W, D: 2 * D},
-             "beta_s", (0.5, 1.0), poisson_shapes,
-             warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
-
-    need_j = need_s(est["judged"], full)
-    avail = left_s() - 60.0 - P7_S
-    j_sched = full
-    if need_j > avail:
-        scale = avail / need_j
-        j_sched = (max(j_min[0], int(full[0] * scale)),
-                   max(j_min[1], int(full[1] * scale) // 2 * 2))
-        say(f"CUT judged: {full[0]}/{full[1]} needs ~{need_j:.0f} s, "
-            f"{avail:.0f} s left: running warmup {j_sched[0]}, draws "
-            f"{j_sched[1]} at full width")
-    run_path("judged", newton_path, "beta", (0.5, 1.0),
-             logistic_shapes(1024, 4, 8), warmup=j_sched[0],
-             draws=j_sched[1], gate=j_sched == full)
-
+    # phases 7 and 8 run here, between phase 6's fixed paths and its cut
+    # ones, so the cuts below see the time they actually took
     # ---- 7. the command line: run -> checkpoint -> resume -> compare ----
     import contextlib
     import io
@@ -1829,6 +1843,352 @@ def main() -> int:
         fail(f"python -m nestmc_torch list-presets: {r.stderr[-2000:]}")
     shutil.rmtree(tmp, ignore_errors=True)
     say(f"phase 7 (the command line) took {time.perf_counter() - t7:.1f} s")
+
+    # ---- 8. the hierarchical GLM, posterior-predictive checks, the CSV
+    # loader (models/hier_glm.py, predictive.py, io/), on the card ----
+    from nestmc_torch import posterior_predictive, predictive_pvalue
+    from nestmc_torch.io import load_csv
+    from nestmc_torch.io.build import native_lib
+    from nestmc_torch.io.loaders import _load_csv_native, _load_csv_python
+    from nestmc_torch.models import make_hier_glm, synth_glm
+
+    t8 = time.perf_counter()
+    tmp8 = tempfile.mkdtemp(prefix="nestmc_smoke8_")
+
+    def glm_cfg(chains, collect, **kernel):
+        return SamplerConfig(
+            kernel=KernelConfig(algorithm="newton", **kernel),
+            run=RunConfig(chains=chains, seed=0, full_rhat=True,
+                          collect=collect, log_every_segment=False))
+
+    def glm_runner(model, data, cfg, label, title):
+        return lambda **kw: bench.measure(model, data, cfg, label, title,
+                                          **kw)
+
+    # (a) binomial at config 2's width: the logistic delegate on the
+    # reweighted data (mask = trials, y = successes / trials), frozen
+    # Newton at config 2's schedule; beta is collected in full for (d)
+    bdata, _ = synth_glm(0, "binomial", G=100, n=50, p=4, trials=10,
+                         device=dev)
+    bmodel = make_hier_glm(bdata, family="binomial", tau_prior="invgamma")
+    xw, yw, mw = bdata.x, bdata.y / 10.0, bdata.mask * 10.0
+    log_binom = torch.sum(
+        torch.lgamma(bdata.extra["trials"] + 1.0)
+        - torch.lgamma(bdata.y + 1.0)
+        - torch.lgamma(bdata.extra["trials"] - bdata.y + 1.0), dim=-1)
+
+    def check_binomial(post):
+        D = post.draws["beta"].shape[1]
+        gll = post.draws["group_loglik"]
+        errs = []
+        for j in (0, 1, D // 2, D - 1):
+            ref = loglik.logistic_loglik_padded(
+                post.draws["beta"][:, j].contiguous(), xw, yw, mw
+            ) + log_binom[None, :]
+            errs.append(max_err(gll[:, j], ref, 1e-4))
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+        say(f"hier_glm binomial: group_loglik of draws 0, 1, {D // 2}, "
+            f"{D - 1} vs the plain pass on (y/m, mask m) plus the log "
+            f"binomial coefficient: max_abs_err {err:.3e} (tol 1e-3 + "
+            f"1e-4|ref|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("hier_glm binomial group_loglik disagrees with the plain "
+                 "pass")
+        record("loglik", err)
+        # (d) posterior-predictive replicates of (a)'s draws
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        y_rep = posterior_predictive(bmodel, post, bdata, SweepRNG(8, dev),
+                                     num=64)
+        pval = float(predictive_pvalue(y_rep, bdata))
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t0
+        ok = (tuple(y_rep.shape) == (64, 100, 50)
+              and bool(((y_rep >= 0) & (y_rep <= 10)).all())
+              and bool((y_rep == torch.round(y_rep)).all())
+              and 0.02 < pval < 0.98 and not any(launch_counts().values()))
+        say(f"posterior_predictive on the binomial draws: {tuple(y_rep.shape)}"
+            f" replicates in [{float(y_rep.min()):.0f}, "
+            f"{float(y_rep.max()):.0f}] (trials 10), masked-mean p-value "
+            f"{pval:.3f} (in (0.02, 0.98)), {1e3 * pp_s:.1f} ms with the "
+            f"p-value, launches {launch_counts()} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("posterior_predictive on the binomial draws")
+
+    newton_gl = {**newton_path, "loglik": lambda W, D: D}
+    run_path("hier_glm binomial", newton_gl, "beta", (0.5, 1.0),
+             lambda D: {"mu": (64, D, 4), "log_tau": (64, D, 4),
+                        "beta": (64, D, 100, 4),
+                        "group_loglik": (64, D, 100)},
+             warmup=1500, draws=4096, full_rhat=True,
+             runner=glm_runner(bmodel, bdata, glm_cfg(64, {
+                 "mu": None, "log_tau": None, "beta": None,
+                 "group_loglik": None}), "hier_glm binomial",
+                 "G=100 binomial hierarchical GLM, trials 10, 64 chains, "
+                 "frozen Newton on the logistic kernels"),
+             check=check_binomial)
+    del bdata, bmodel, xw, yw, mw, log_binom
+
+    # (b) poisson at config 3's unit width: the fused Poisson steps with mu
+    # broadcast as the per-group prior mean. Newton-MH's parameter-free
+    # Laplace proposal traps a chain whose group starts far in its tail
+    # (the reverse proposal's density is too small ever to accept; the
+    # reference's Newton path traps the same groups): its launches are
+    # asserted, its R-hat and trapped units printed; MALA, whose scales
+    # adapt per unit, carries the gate at config 3's 16384 draws (2048
+    # left its slowest groups at R-hat 1.03)
+    pdata, _ = synth_glm(0, "poisson", G=4000, n=10, p=3, device=dev)
+    pmodel = make_hier_glm(pdata, family="poisson", tau_prior="invgamma")
+    pshapes = (lambda D: {"mu": (512, D, 3), "log_tau": (512, D, 3),
+                          "beta": (512, D, 8, 3)})
+    pcollect = {"mu": None, "log_tau": None, "beta": 8}
+
+    def trapped(post):
+        acc = post.accept_rates["beta"]
+        stuck = acc < 0.01
+        groups = sorted(set(stuck.nonzero()[:, 1].tolist()))
+        say(f"hier_glm poisson newton: {int(stuck.sum())} of {acc.numel()} "
+            f"(chain, group) units accept < 0.01 in sampling, in "
+            f"{len(groups)} groups (first {groups[:10]})")
+
+    run_path("hier_glm poisson newton",
+             {"pois_newton_step_refresh": lambda W, D: W,
+              "pois_newton_step_frozen": lambda W, D: D,
+              "pois_logp_grad_hess": lambda W, D: W + 1,
+              "pois_logp_grad": lambda W, D: D},
+             "beta", (0.5, 1.0), pshapes, warmup=1000, draws=2048,
+             full_rhat=True, gate=False, why="Laplace-proposal traps",
+             runner=glm_runner(pmodel, pdata, glm_cfg(512, pcollect),
+                               "hier_glm poisson newton",
+                               "G=4000 poisson hierarchical GLM, 512 chains, "
+                               "frozen Newton on the Poisson kernels"),
+             check=trapped)
+    run_path("hier_glm poisson mala",
+             {"pois_mala_step": lambda W, D: W + D,
+              "pois_logp_grad": lambda W, D: W + D + 1},
+             "beta", (0.3, 0.9), pshapes, warmup=2000, draws=16384,
+             full_rhat=True,
+             runner=glm_runner(pmodel, pdata, dataclasses.replace(
+                 glm_cfg(512, pcollect),
+                 kernel=KernelConfig(algorithm="mala")),
+                 "hier_glm poisson mala", "G=4000 poisson hierarchical "
+                 "GLM, 512 chains, MALA on the Poisson kernels"))
+    del pdata, pmodel
+    torch.cuda.empty_cache()
+
+    # (c) gaussian and negbin at config 2's width: plain PyTorch (their
+    # likelihoods read the aux block), Newton on the zero-self split
+    for family, aux, true_aux in (("gaussian", "log_sigma", math.log(0.7)),
+                                  ("negbin", "log_r", math.log(5.0))):
+        gdata, gtruth = synth_glm(0, family, G=100, n=50, p=4, device=dev)
+
+        def check_aux(post, aux=aux, true_aux=true_aux, gtruth=gtruth,
+                      family=family):
+            d8 = post.diagnostics()
+            gaps = {}
+            for name, truth in (("mu", torch.tensor(gtruth["mu"])),
+                                (aux, torch.tensor(true_aux))):
+                m = d8[name]["mean"].cpu().double()
+                sd = post.draws[name].double().std().cpu() if name == aux \
+                    else post.draws[name].double().flatten(0, 1).std(0).cpu()
+                gaps[name] = float(((m - truth).abs() / sd).max())
+            acc = float(post.accept_rates[aux].mean())
+            ok = all(g < 4.0 for g in gaps.values())
+            say(f"hier_glm {family}: posterior mean vs synth_glm's truth, "
+                f"max |mean - truth| / posterior sd: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in gaps.items())
+                + f" (< 4); {aux} acceptance {acc:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"hier_glm {family} misses the truth")
+
+        run_path(f"hier_glm {family}", {}, "beta", (0.5, 1.01),
+                 lambda D, aux=aux: {"mu": (64, D, 4), "log_tau": (64, D, 4),
+                                     aux: (64, D), "beta": (64, D, 8, 4)},
+                 warmup=500, draws=1024, full_rhat=True,
+                 runner=glm_runner(
+                     make_hier_glm(gdata, family=family, tau_prior="invgamma"),
+                     gdata, glm_cfg(64, {"mu": None, "log_tau": None,
+                                         aux: None, "beta": 8}),
+                     f"hier_glm {family}", f"G=100 {family} hierarchical "
+                     "GLM, 64 chains, Newton on the zero-self split, plain "
+                     "PyTorch"),
+                 check=check_aux)
+        del gdata
+
+    # (e) a CSV of ragged-10k's seed-0 data through load_csv: the native
+    # parser and the numpy path give the arrays of from_numpy_ragged; then
+    # 50 sweeps of config 4's bucket-route Newton on the loaded data
+    rmodel, rdata, rcfg = get_preset("ragged-10k", device=dev)
+    del rmodel
+    seg_np = rdata.segment_ids.cpu().numpy()
+    cols = np.column_stack([seg_np.astype(np.float64),
+                            rdata.y.cpu().numpy().astype(np.float64),
+                            rdata.x.cpu().numpy().astype(np.float64)])
+    csv = os.path.join(tmp8, "ragged10k.csv")
+    t0 = time.perf_counter()
+    # 17 significant digits of the float32 values: exact after parsing
+    np.savetxt(csv, cols, delimiter=",",
+               fmt=["%d"] + ["%.17g"] * (cols.shape[1] - 1))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if native_lib() is None:
+        from nestmc_torch.io.build import build_error
+        fail(f"the native CSV parser did not build: {build_error()}")
+    build_s = time.perf_counter() - t0
+
+    def parse(native):
+        t0 = time.perf_counter()
+        out = load_csv(csv, native=native, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    loaded, native_s = parse(True)
+    native_s = min([native_s] + [parse(True)[1] for _ in range(2)])
+    by_numpy, numpy_s = parse(False)
+    # the host parse alone (no tensors built), each parser
+    t0 = time.perf_counter()
+    _load_csv_native(csv)
+    parse_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _load_csv_python(csv)
+    parse_numpy_s = time.perf_counter() - t0
+    same = all(
+        a.num_groups == rdata.num_groups
+        and all(torch.equal(getattr(a, k), getattr(rdata, k))
+                for k in ("y", "x", "segment_ids", "offsets"))
+        for a in (loaded, by_numpy))
+    mb = os.path.getsize(csv) / 1e6
+    say(f"load_csv of ragged-10k's data ({loaded.num_obs} rows, "
+        f"{loaded.num_groups} groups, p={loaded.num_covariates}; {mb:.1f} MB"
+        f" written in {write_s:.2f} s): load_csv to the card, native parser"
+        f" {1e3 * native_s:.1f} ms (best of 3; g++ build or load "
+        f"{build_s:.2f} s), numpy path {1e3 * numpy_s:.1f} ms; the host "
+        f"parse alone {1e3 * parse_native_s:.1f} ms native, "
+        f"{1e3 * parse_numpy_s:.1f} ms numpy; arrays equal "
+        f"from_numpy_ragged's {'ok' if same else 'FAIL'}")
+    if not same:
+        fail("load_csv's arrays differ from the data written")
+    B8 = len(bucket.BucketLayout.build(loaded.segment_ids,
+                                       loaded.num_groups).buckets)
+    run_path("ragged-10k from CSV",
+             {"newton_step_refresh": lambda W, D: B8 * W,
+              "newton_step_frozen": lambda W, D: B8 * D,
+              "logp_grad_hess": lambda W, D: B8 * (W + 1),
+              "logp_grad": lambda W, D: B8 * D},
+             "beta", (0.5, 1.0), logistic_shapes(1024, 3, 8),
+             warmup=20, draws=30, gate=False,
+             runner=glm_runner(
+                 make_hier_logistic(loaded, tau_prior="invgamma"), loaded,
+                 rcfg, "ragged-10k from CSV", "ragged-10k's data loaded "
+                 "from CSV, bucket-route Newton"))
+    del rdata, loaded, by_numpy, cols, seg_np
+    shutil.rmtree(tmp8, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(f"phase 8 (hier_glm, predictive, CSV) took "
+        f"{time.perf_counter() - t8:.1f} s")
+
+    # ---- 6, continued: the paths cut to the time left ----
+    full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)
+    j_min, p_min, s_min = (300, 512), (1000, 1024), (200, 512)
+    s_rw = (200, 200)           # the segment RW path: short, R-hat printed
+    seg_mala = segment_runner("mala")
+    est = {k: per_sweep(k) for k in ("mala-100k", "judged",
+                                     "nested-poisson-1k-mala",
+                                     "nested-poisson-1k-newton")}
+    est["segment"] = per_sweep(None, seg_mala)
+    variants = ("nested-poisson-1k-mala", "nested-poisson-1k-newton")
+
+    def need_seg(sched):
+        # the RW path: about the MALA one's cost a sweep
+        return need_s(est["segment"], sched) + need_s(est["segment"], s_rw)
+
+    need_m = need_s(est["mala-100k"], full)
+    spare = (left_s() - 60.0 - need_m
+             - need_s(est["judged"], j_min)
+             - sum(need_s(est[v], p_min) for v in variants)
+             - need_seg(s_min))
+    m_sched = full
+    if spare < 0:
+        scale = max(0.25, 1.0 + spare / need_m)
+        m_sched = (full[0], max(1024, int(full[1] * scale) // 4 * 4))
+        say(f"CUT mala-100k: {full[0]}/{full[1]} needs ~{need_m:.0f} s and "
+            f"{left_s():.0f} s are left: running warmup {m_sched[0]}, draws "
+            f"{m_sched[1]} at full width")
+    run_path("mala-100k",
+             {"mala_step": lambda W, D: W + D,
+              "logp_grad": lambda W, D: W + D + 1},
+             "beta", (0.3, 0.9), logistic_shapes(512, 3, 8),
+             warmup=m_sched[0], draws=m_sched[1], gate=m_sched == full)
+
+    # config 4's segment route: ragged-10k-mala's model on the segment
+    # kernels, MALA at full schedule unless the script would then not end
+    # within 60% of its budget with the variants at their least and the
+    # full judged run (its draws shrink then, to s_min at the least)
+    need_v_min = sum(need_s(est[v], p_min) for v in variants)
+    room = (left_s() - 0.4 * BUDGET_S - need_s(est["judged"], full)
+            - need_v_min)
+    sm_sched = s_full
+    if need_seg(s_full) > room:
+        scale = max(room - need_seg(s_min), 0.0) / max(
+            need_seg(s_full) - need_seg(s_min), 1e-9)
+        sm_sched = (s_full[0], s_min[1] + int(
+            (s_full[1] - s_min[1]) * min(scale, 1.0)) // 2 * 2)
+        if scale <= 0.0:
+            sm_sched = s_min
+        say(f"CUT the segment MALA path: {s_full[0]}/{s_full[1]} needs "
+            f"~{need_seg(s_full):.0f} s and {left_s():.0f} s are left: "
+            f"running warmup {sm_sched[0]}, draws {sm_sched[1]} at full "
+            "width")
+    run_path("ragged-10k pallas-segment mala",
+             {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D)},
+             "beta", (0.3, 0.9), logistic_shapes(1024, 3, 8),
+             warmup=sm_sched[0], draws=sm_sched[1], gate=sm_sched == s_full,
+             runner=seg_mala)
+    run_path("ragged-10k pallas-segment rwmh",
+             {"seg_loglik": lambda W, D: 1 + 2 * (W + D)},
+             "beta", (0.1, 0.5), logistic_shapes(1024, 3, 8),
+             warmup=s_rw[0], draws=s_rw[1], gate=False,
+             runner=segment_runner("rwmh"))
+
+    # config 3's variants run their full schedule only if the script would
+    # still end within 60% of its budget after them and the full judged
+    # run; otherwise their draws shrink first (to p_min at the least)
+    need_v = sum(need_s(est[v], p_full) for v in variants)
+    room = left_s() - 0.4 * BUDGET_S - need_s(est["judged"], full)
+    v_sched = p_full
+    if need_v > room:
+        scale = max(room, 0.0) / need_v
+        v_sched = (p_full[0], max(p_min[1], int(p_full[1] * scale) // 2 * 2))
+        say(f"CUT config 3's variants: {p_full[0]}/{p_full[1]} needs "
+            f"~{need_v:.0f} s and {left_s():.0f} s are left: running "
+            f"warmup {v_sched[0]}, draws {v_sched[1]} at full width")
+    run_path("nested-poisson-1k-mala",
+             {"pois_mala_step": lambda W, D: W + D,
+              "pois_logp_grad": lambda W, D: 1 + 2 * (W + D)},
+             "beta_s", (0.3, 0.9), poisson_shapes,
+             warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
+    run_path("nested-poisson-1k-newton",
+             {"pois_newton_step_refresh": lambda W, D: W,
+              "pois_newton_step_frozen": lambda W, D: D,
+              "pois_logp_grad_hess": lambda W, D: 1 + 2 * W,
+              "pois_logp_grad": lambda W, D: 2 * D},
+             "beta_s", (0.5, 1.0), poisson_shapes,
+             warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
+
+    need_j = need_s(est["judged"], full)
+    avail = left_s() - 60.0
+    j_sched = full
+    if need_j > avail:
+        scale = avail / need_j
+        j_sched = (max(j_min[0], int(full[0] * scale)),
+                   max(j_min[1], int(full[1] * scale) // 2 * 2))
+        say(f"CUT judged: {full[0]}/{full[1]} needs ~{need_j:.0f} s, "
+            f"{avail:.0f} s left: running warmup {j_sched[0]}, draws "
+            f"{j_sched[1]} at full width")
+    run_path("judged", newton_path, "beta", (0.5, 1.0),
+             logistic_shapes(1024, 4, 8), warmup=j_sched[0],
+             draws=j_sched[1], gate=j_sched == full)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SRC[k][0],

@@ -50,6 +50,18 @@ def xx_packed(x):
     )
 
 
+def xxt_packed(x, w):
+    """(C, G, T) packed lower triangle of sum_i w_i x_i x_i^T over the obs
+    axis: x (G, n, p), w (C, G, n); one (C, G, n) product a pair, no
+    (C, G, n, p, p) temporary (nestmc.ops.loglik._xxt_packed)."""
+    p = x.shape[-1]
+    return torch.stack(
+        [torch.sum(w * (x[..., i] * x[..., j]), dim=-1)
+         for i in range(p) for j in range(i + 1)],
+        dim=-1,
+    )
+
+
 def logistic_loglik_padded(beta, x, y, mask):
     """sum_i mask * [y*eta - softplus(eta)] -> (C, G)."""
     ll, _, _ = _terms(_eta(beta, x), y, mask)

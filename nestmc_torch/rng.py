@@ -37,14 +37,23 @@ class SweepRNG:
         )
         return torch.log(u.clamp_min(_TINY))
 
-    def gamma(self, a: float, shape) -> torch.Tensor:
-        """Gamma(a, 1) draws."""
-        conc = torch.full(tuple(shape), float(a), device=self.device)
+    def gamma(self, a, shape) -> torch.Tensor:
+        """Gamma(a, 1) draws; ``a`` a float or a tensor broadcast to
+        ``shape`` (a per-element or per-chain concentration)."""
+        if torch.is_tensor(a):
+            conc = a.to(device=self.device, dtype=torch.float32).expand(
+                tuple(shape)).contiguous()
+        else:
+            conc = torch.full(tuple(shape), float(a), device=self.device)
         return torch._standard_gamma(conc, generator=self.generator)
 
     def poisson(self, rate: torch.Tensor) -> torch.Tensor:
         """Poisson(rate) counts as float32, elementwise (sample_data)."""
         return torch.poisson(rate, generator=self.generator)
+
+    def binomial(self, count: torch.Tensor, prob: torch.Tensor):
+        """Binomial(count, prob) successes as float32, elementwise."""
+        return torch.binomial(count, prob, generator=self.generator)
 
     def philox_key(self) -> tuple:
         """Two 32-bit words keying one kernel launch's Philox streams."""
@@ -68,7 +77,8 @@ class SweepRNG:
 class ReplayRNG:
     """Hands out given arrays, in order, in place of fresh draws: feeds the
     port the exact noise another sampler drew (the parity tests). Each
-    request must match the next array's shape; ``gamma`` ignores ``a``."""
+    request must match the next array's shape; ``gamma``, ``poisson`` and
+    ``binomial`` ignore their parameters but for the shape."""
 
     def __init__(self, arrays, device="cpu"):
         self.device = torch.device(device)
@@ -91,8 +101,14 @@ class ReplayRNG:
     def log_uniform(self, shape):
         return self._next(shape)
 
-    def gamma(self, a: float, shape):
+    def gamma(self, a, shape):
         return self._next(shape)
+
+    def poisson(self, rate):
+        return self._next(rate.shape)
+
+    def binomial(self, count, prob):
+        return self._next(torch.broadcast_shapes(count.shape, prob.shape))
 
     def philox_key(self):
         raise RuntimeError("ReplayRNG replays given noise: pass it as noise")

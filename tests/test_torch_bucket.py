@@ -25,6 +25,7 @@ from nestmc_torch.data import bucket_by_size, from_numpy_ragged
 from nestmc_torch.models import make_hier_logistic
 from nestmc_torch.ops import bucket as tb
 from nestmc_torch.ops import loglik as tl
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 LL_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)

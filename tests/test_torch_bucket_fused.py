@@ -27,6 +27,7 @@ from nestmc_torch.data import from_numpy_ragged
 from nestmc_torch.models import make_hier_logistic
 from nestmc_torch.ops import bucket as tb
 from nestmc_torch.rng import ReplayRNG
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 
 def _np(a):

@@ -14,7 +14,10 @@ per-unit log-likelihoods they read, held against the JAX package.
   (the reference's own CPU path), ragged on the bucket route and on the
   segment route (with empty groups); nested_poisson's ``subject_loglik``
   and ``group_loglik``; rtol 1e-5, atol 1e-5 (float32 sums in another
-  order). The twin of tests/test_compare.py:105,136 without hier_glm.
+  order). The twin of tests/test_compare.py:105,136: the hier_glm
+  poisson family's group_loglik collected from a run (finite, WAIC
+  finite), and against the reference model's at the same beta, with the
+  binomial family's on the pmf scale.
 """
 
 import importlib
@@ -27,6 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from nestmc.models import make_hier_logistic as j_make_logistic
+from nestmc.models.hier_glm import make_hier_glm as j_make_glm
 from nestmc.models import make_nested_poisson as j_make_poisson
 from nestmc.models import synth_logistic as j_synth_logistic
 from nestmc.models import synth_poisson3 as j_synth_poisson3
@@ -38,7 +42,11 @@ from nestmc_torch.compare import (
     waic,
 )
 from nestmc_torch.data import from_numpy, from_numpy3, from_numpy_ragged
-from nestmc_torch.models import make_hier_logistic, make_nested_poisson
+from nestmc_torch.models import (
+    make_hier_glm,
+    make_hier_logistic,
+    make_nested_poisson,
+)
 from tests.test_torch_calibration import one_thread  # noqa: F401
 
 jcompare = importlib.import_module("nestmc.compare")
@@ -234,3 +242,30 @@ def test_poisson_unit_logliks_match_reference():
         got = tm.derived[k]({"beta_s": torch.from_numpy(beta_s)}).numpy()
         assert got.shape == want.shape == (C, G * K if k[0] == "s" else G)
         np.testing.assert_allclose(got, want, err_msg=k, **TOL)
+
+
+def test_glm_group_loglik():
+    """hier_glm's per-group loglik draws for compare(): collected from a
+    poisson run, and the poisson and binomial families' against the
+    reference's on the same state."""
+    from nestmc_torch import RunConfig, SamplerConfig, sample
+    from tests.test_torch_hier_glm import glm_data, glm_state
+
+    for family in ("poisson", "binomial"):
+        jd, td = glm_data(family, seed=5, G=12, n=8, p=2)
+        st = glm_state(family, C=4, G=12, p=2)
+        got = make_hier_glm(td, family=family).derived["group_loglik"](
+            {k: torch.from_numpy(v) for k, v in st.items()}).numpy()
+        want = np.asarray(j_make_glm(jd, family=family).derived[
+            "group_loglik"]({k: jnp.asarray(v) for k, v in st.items()}))
+        assert got.shape == want.shape == (4, 12)
+        np.testing.assert_allclose(got, want, err_msg=family, **TOL)
+        if family == "poisson":
+            post = sample(make_hier_glm(td, family=family), td,
+                          SamplerConfig(run=RunConfig(
+                              chains=4, warmup=60, draws=80, seed=0,
+                              collect={"group_loglik": None},
+                              log_every_segment=False)))
+            ll = post.draws["group_loglik"].numpy()
+            assert ll.shape == (4, 80, 12) and np.all(np.isfinite(ll))
+            assert np.isfinite(waic(ll)["elpd_waic"])

@@ -1093,3 +1093,152 @@ def test_cli_run_on_the_card(dev, tmp_path, capsys):
     assert LAUNCHES["loglik"] == draws
     assert LAUNCHES["newton_step_frozen"] == draws
     assert cli.main(["compare", path, path, "--method", "waic"]) == 0
+
+
+# ---- the hierarchical GLM, predictive checks and the CSV loader ----
+
+def _binomial_inputs(dev, C=130, G=9, n=14, p=4, seed=7):
+    """The binomial family's operands of the logistic kernels: the mask a
+    trials weight in 0..10 (zero-weight rows in the middle of a group), y
+    the fraction of successes."""
+    g = torch.Generator().manual_seed(seed)
+    beta, x, _, _, mu, lt, eps, logu = _inputs(dev, C, G, n, p, seed)
+    m = torch.randint(0, 11, (G, n), generator=g).float()
+    m[1, n // 2 - 1:n // 2 + 2] = 0.0
+    k = torch.floor(torch.rand(G, n, generator=g) * (m + 1.0))
+    y = torch.where(m > 0, k / m.clamp_min(1.0), torch.zeros_like(m))
+    return beta, x, y.to(dev), m.to(dev), mu, lt, eps, logu
+
+
+def test_logistic_kernels_on_a_binomial_weighted_mask(dev):
+    """The logistic obs passes and the three fused steps with an integer
+    weight mask and fractional y, as the binomial family feeds them."""
+    beta, x, y, w, mu, lt, eps, logu = _binomial_inputs(dev)
+    C, G, p = beta.shape
+    assert float(w.max()) > 1.0 and bool((w == 0).any())
+    assert bool(((y > 0) & (y < 1)).any())
+    for kern, plain in (
+        (lambda *a: (logistic_loglik(*a),),
+         lambda *a: (loglik.logistic_loglik_padded(*a),)),
+        (logistic_logp_grad, loglik.logistic_logp_grad_padded),
+        (logistic_logp_grad_hess, loglik.logistic_logp_grad_hess_padded),
+    ):
+        out, ref = kern(beta, x, y, w), plain(beta, x, y, w)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            _assert_close(a, b, "obs pass")
+    v, gr, h = loglik.logistic_logp_grad_hess_padded(beta, x, y, w)
+    for frozen in (False, True):
+        args = (beta, v, gr, h, torch.zeros(C, G, device=dev), mu, lt, x,
+                y, w)
+        out = fused_newton_logistic_step(*args, noise=(eps, logu),
+                                         frozen=frozen)
+        ref = fused_newton_logistic_step_plain(*args, (eps, logu),
+                                               frozen=frozen)
+        torch.cuda.synchronize()
+        keep = [0, 1, 2, 4] if frozen else [0, 1, 2, 3, 4]
+        _check_step([out[i] for i in keep], [ref[i] for i in keep], beta,
+                    logu, len(keep) - 1)
+    ls = torch.full((C, G), -1.6, device=dev)
+    args = (beta, v, gr, ls, mu, lt, x, y, w)
+    _check_step(fused_mala_logistic_step(*args, noise=(eps, logu)),
+                fused_mala_logistic_step_plain(*args, (eps, logu)),
+                beta, logu, 3)
+    args = (beta, v, ls, mu, lt, x, y, w)
+    _check_step(fused_rwmh_logistic_step(*args, noise=(eps, logu)),
+                fused_rwmh_logistic_step_plain(*args, (eps, logu)),
+                beta, logu, 2)
+
+
+def test_poisson_steps_with_a_broadcast_prior_mean(dev):
+    """The Poisson steps as hier_glm's poisson family calls them: bg_s the
+    shared mu broadcast to every group (made contiguous), const once."""
+    C, G, n, p = 130, 11, 10, 3
+    g = torch.Generator().manual_seed(9)
+    x = 0.5 * torch.randn(G, n, p, generator=g)
+    x[:, :, 0] = 1.0
+    mask = torch.ones(G, n)
+    mask[2, 3:6] = 0.0
+    y = torch.poisson(torch.full((G, n), 1.5), generator=g) * mask
+    beta = 0.3 * torch.randn(C, G, p, generator=g)
+    mu = 0.2 * torch.randn(C, p, generator=g)
+    lt = -1.0 + 0.2 * torch.randn(C, p, generator=g)
+    eps = torch.randn(C, G, p, generator=g)
+    logu = torch.log(torch.rand(C, G, generator=g))
+    beta, x, y, mask, mu, lt, eps, logu = (
+        t.to(dev) for t in (beta, x, y, mask, mu, lt, eps, logu))
+    bg = mu[:, None, :].expand(C, G, p).contiguous()
+    const = loglik.poisson_const(y, mask)
+    v, gr, h = loglik.poisson_logp_grad_hess_padded(beta, x, y, mask, const)
+    ls = torch.full((C, G), -1.2, device=dev)
+    for step, plain, args, kw, ai in (
+        (pacc.fused_rwmh_poisson_step, pacc.fused_rwmh_poisson_step_plain,
+         (beta, v, ls, bg, lt, x, y, mask), {}, 2),
+        (pacc.fused_mala_poisson_step, pacc.fused_mala_poisson_step_plain,
+         (beta, v, gr, ls, bg, lt, x, y, mask), {}, 3),
+        (pacc.fused_newton_poisson_step, pacc.fused_newton_poisson_step_plain,
+         (beta, v, gr, h, torch.zeros_like(ls), bg, lt, x, y, mask),
+         {"frozen": False}, 4),
+    ):
+        out = step(*args, noise=(eps, logu), const=const, **kw)
+        ref = plain(*args, (eps, logu), const=const, **kw)
+        torch.cuda.synchronize()
+        _check_step(out, ref, beta, logu, ai)
+
+
+@pytest.mark.parametrize("family,expect", [
+    ("poisson", {"pois_newton_step_refresh": 6, "pois_newton_step_frozen": 8,
+                 "pois_logp_grad_hess": 7, "pois_logp_grad": 8,
+                 "pois_loglik": 8}),
+    ("binomial", {"newton_step_refresh": 6, "newton_step_frozen": 8,
+                  "logp_grad_hess": 7, "logp_grad": 8, "loglik": 8}),
+])
+def test_glm_kernel_families_launch_their_kernels(dev, family, expect):
+    """A short Newton run of hier_glm's kernel families on the card: the
+    launches the schedule implies (the binomial transform adds none), and
+    the streamed R-hat folded in the binomial step."""
+    from nestmc_torch import sample
+    from nestmc_torch.models import make_hier_glm, synth_glm
+
+    data, _ = synth_glm(3, family=family, G=20, n=12, p=3, device=dev)
+    model = make_hier_glm(data, family=family, tau_prior="invgamma")
+    reset_launch_counts()
+    post = sample(model, data, SamplerConfig(
+        kernel=KernelConfig(algorithm="newton"),
+        run=RunConfig(chains=64, warmup=6, draws=8, full_rhat=True,
+                      collect={"mu": None, "group_loglik": None},
+                      log_every_segment=False)))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == expect
+    assert post.draws["group_loglik"].shape == (64, 8, 20)
+    assert bool(torch.isfinite(post.draws["group_loglik"]).all())
+
+
+def test_load_csv_on_the_card(dev, tmp_path):
+    from nestmc_torch.io import load_csv
+
+    f = tmp_path / "d.csv"
+    f.write_text("5,1,0.5,1.0\n5,0,0.25,2.0\n9,1,1.0,-1.0\n")
+    a = load_csv(str(f), native=True, device=dev)
+    b = load_csv(str(f), native=False, device="cpu")
+    assert a.y.device.type == "cuda" and a.offsets.device.type == "cuda"
+    for k in ("y", "x", "segment_ids", "offsets"):
+        assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+
+
+def test_posterior_predictive_on_the_card(dev):
+    from nestmc_torch import posterior_predictive, predictive_pvalue, sample
+    from nestmc_torch.models import make_hier_glm, synth_glm
+
+    data, _ = synth_glm(4, family="binomial", G=16, n=10, p=3, trials=6,
+                        device=dev)
+    model = make_hier_glm(data, family="binomial", tau_prior="invgamma")
+    post = sample(model, data, SamplerConfig(
+        kernel=KernelConfig(algorithm="newton"),
+        run=RunConfig(chains=32, warmup=100, draws=100,
+                      log_every_segment=False)))
+    y_rep = posterior_predictive(model, post, data, SweepRNG(1, dev), num=16)
+    assert y_rep.device.type == "cuda" and y_rep.shape == (16, 16, 10)
+    assert bool(((y_rep >= 0) & (y_rep <= 6)).all())
+    assert bool((y_rep == torch.round(y_rep)).all())
+    assert 0.0 <= float(predictive_pvalue(y_rep, data)) <= 1.0

@@ -55,6 +55,7 @@ from nestmc_torch.ops.cuda.mh_accept import (
     fused_rwmh_logistic_step_plain,
 )
 from nestmc_torch.rng import ReplayRNG
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 OBS_TOL = dict(rtol=1e-5, atol=1e-4)
 ALPHA_TOL = dict(rtol=2e-3, atol=2e-4)

@@ -33,6 +33,7 @@ from nestmc_torch.ops.cuda.newton_accept import (
     fused_newton_logistic_step_plain,
 )
 from nestmc_torch.rng import ReplayRNG
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 ALPHA_TOL = dict(rtol=2e-3, atol=2e-4)
 TOL = dict(rtol=0, atol=2e-4)

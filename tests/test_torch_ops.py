@@ -30,6 +30,7 @@ from nestmc_torch.ops.cuda.loglik_logistic import (
     logistic_logp_grad,
     logistic_logp_grad_hess,
 )
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 

@@ -20,6 +20,7 @@ from nestmc.models import make_nested_poisson as j_make, synth_poisson3
 import nestmc_torch
 from nestmc_torch.data import from_numpy3
 from nestmc_torch.models import make_nested_poisson
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 C, G, SPG, N, P = 32, 8, 3, 10, 2
 COLLECT = {"mu": None, "log_tau_g": None, "log_tau_s": None}

@@ -20,6 +20,7 @@ from nestmc.models import make_hier_logistic as j_make, synth_logistic
 import nestmc_torch
 from nestmc_torch.data import from_numpy_ragged
 from nestmc_torch.models import make_hier_logistic
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 C, G, N, P = 32, 64, 24, 3
 ALGORITHM, IMPL, TAU_PRIOR = "mala", "pallas-segment", "halfnormal"

@@ -38,6 +38,7 @@ from nestmc_torch.ops.cuda.loglik_segment import (
     logistic_loglik_segment,
 )
 from nestmc_torch.ops.segment import SegmentLayout
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 LL_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)

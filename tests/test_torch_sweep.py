@@ -32,6 +32,7 @@ from nestmc_torch.kernels.gibbs import make_sweep, rhat_fold_names
 from nestmc_torch.kernels.state import init_kernel_state, state_from_numpy
 from nestmc_torch.models import make_hier_logistic
 from nestmc_torch.rng import ReplayRNG, SweepRNG
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-3)
 C, G, N, P = 6, 12, 10, 3

@@ -41,6 +41,7 @@ from nestmc_torch.models import make_hier_logistic
 from nestmc_torch.models import synth_logistic as t_synth
 from nestmc_torch.presets import get_preset
 from nestmc_torch.rng import ReplayRNG
+from tests.test_torch_calibration import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-3)
 ALPHA_TOL = dict(rtol=2e-3, atol=2e-4)
