@@ -84,7 +84,7 @@ Needs one CUDA card and this checkout (it builds the kernels from
    MALA path (each runs its full schedule only if the script would still
    end within 60% of its budget), then the judged run; mala-100k's draws
    only if even minimal other runs would not fit. The script says so.
-   Phases 7 and 8 run after the fixed paths (the five configs and
+   Phases 7, 8 and 9 run after the fixed paths (the five configs and
    mala-100k-newton) and before the cut ones (mala-100k, the segment
    paths, config 3's variants, judged), so each cut is decided on the
    time actually left, whatever the host's speed;
@@ -128,7 +128,39 @@ Needs one CUDA card and this checkout (it builds the kernels from
    of ragged-10k's seed-0 data through load_csv, native parser and numpy
    path (both timed; the arrays equal from_numpy_ragged's), then 50
    sweeps of config 4's bucket-route Newton on the loaded data (launches
-   asserted, R-hat printed).
+   asserted, R-hat printed);
+9. the user-model toolkit and the data layer's converters (data.py's
+   from_ragged / to_ragged / pad_groups_to, model.py's vmap_chains,
+   distributions.py, transforms.py), on the card: (a) config 4's seed-0
+   data split into per-group lists: RaggedData.from_ragged and
+   NestedData.from_ragged(max_obs=30).to_ragged() give from_numpy_ragged's
+   arrays exactly (host ms printed), and at one position of 1024 chains
+   the loglik kernel on the padded form and the seg_loglik kernel on the
+   ragged form agree within |a-b| <= 2e-5 + 2e-5 |b|; the judged data
+   through pad_groups_to(1024): loglik, logp_grad and logp_grad_hess on
+   the 1000 real groups against the unpadded kernels (bitwise printed,
+   1e-3 + 1e-4 |ref| asserted), exactly 0 on the 24 padded groups, one
+   newton_step refresh without a NaN; config 3's seed-0 data as ys[g][s]
+   lists through NestedData3.from_ragged: from_numpy3's arrays and the
+   same pois_loglik bits; unequal subjects per group build members; (b)
+   a user's hierarchical logistic written for one chain with the port's
+   distributions and log transform (make_hier_logistic's priors), lifted
+   by vmap_chains, at config 2's width (64 chains, MALA through autograd
+   under vmap, 600/1200): no kernel launch, the posterior means of mu
+   and tau within 5 combined MCSEs of phase 6's built-in RW run on the
+   same data, its R-hat and ms a sweep printed; (c) config 2 (frozen
+   Newton, the R-hat fold in the step kernel; 150/200) and config 4's
+   segment route (MALA on the segment kernels; 80/100) each run twice at
+   seed 0 and once at seed 1: their launches asserted, every collected
+   draw and streamed R-hat bitwise equal between the seed-0 runs, mu
+   moved by the other seed; the plain segment sum at config 4's shape
+   repeats its bits over 10 calls (the float index_add_ it replaced is
+   timed and its distinct results counted beside it); (d) simulation-based
+   calibration
+   (tests/test_sbc.py's sizes: 512 replicas as chains, each with its own
+   data, G=4, N=3, 127 draws thinned by 4) on a jax-free copy of the
+   calibration model: rank chi-square p > 1e-3 for mu, log tau and
+   theta[0], and the posterior sd of theta[0] below 0.6x the prior's.
 
 Bound: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -289,6 +321,82 @@ def eight_schools_quadrature() -> dict:
             "theta_mean": np.sum(w[..., None] * theta_cond, axis=(0, 1))}
 
 
+def calibration_model(G: int, n: int):
+    """A jax-free copy of tests/calibration_model.py's chain-batched model
+    (the random-walk interweaving form of its twin in
+    tests/test_torch_calibration.py, which imports jax): y_gi ~
+    N(theta_g, 1), theta_g ~ N(mu, tau), mu ~ N(0, 2), tau ~
+    HalfNormal(1.5) as log tau; RW-MH on theta (G units), mu and log_tau
+    and the interweaving move on (tau, theta) with z = (theta - mu)/tau
+    fixed. Data {"y": (C, G, n)}: one data set a chain (phase 9d's SBC)."""
+    import torch
+
+    from nestmc_torch.distributions import logpdf_halfnormal, logpdf_normal
+    from nestmc_torch.kernels.rwmh import accept_prob
+    from nestmc_torch.model import Block, ModelSpec
+
+    s0, tau0 = 2.0, 1.5
+
+    def lik(state, data):
+        return torch.sum(logpdf_normal(data["y"], state["theta"][:, :, None],
+                                       1.0), dim=-1)            # (C, G)
+
+    def gprior(state):
+        tau = torch.exp(state["log_tau"])[:, None]
+        return logpdf_normal(state["theta"], state["mu"][:, None], tau)
+
+    def tau_prior(lt):
+        return logpdf_halfnormal(torch.exp(lt), tau0) + lt
+
+    def cond(name, value, state, data):
+        state = {**state, name: value}
+        if name == "theta":
+            return lik(state, data) + gprior(state)
+        if name == "mu":
+            return (torch.sum(gprior(state), dim=-1)
+                    + logpdf_normal(state["mu"], 0.0, s0))
+        return torch.sum(gprior(state), dim=-1) + tau_prior(state["log_tau"])
+
+    def joint(state, data):
+        return (torch.sum(lik(state, data) + gprior(state), dim=-1)
+                + logpdf_normal(state["mu"], 0.0, s0)
+                + tau_prior(state["log_tau"]))
+
+    def prior_sample(rng, data, chains):
+        mu = s0 * rng.normal((chains,))
+        tau = tau0 * torch.abs(rng.normal((chains,)))
+        theta = mu[:, None] + tau[:, None] * rng.normal((chains, G))
+        return {"theta": theta, "mu": mu, "log_tau": torch.log(tau)}
+
+    def asis_tau_move(rng, position, cache, scale, data):
+        theta, mu, lt = position["theta"], position["mu"], position["log_tau"]
+        lt_new = lt + scale[:, 0] * rng.normal(lt.shape)
+        theta_new = mu[:, None] + (theta - mu[:, None]) * torch.exp(
+            lt_new - lt)[:, None]
+        log_alpha = (
+            torch.sum(lik({**position, "theta": theta_new}, data)
+                      - lik(position, data), dim=-1)
+            + tau_prior(lt_new) - tau_prior(lt))
+        accept = rng.log_uniform(lt.shape) < log_alpha
+        return ({"theta": torch.where(accept[:, None], theta_new, theta),
+                 "log_tau": torch.where(accept, lt_new, lt)}, {},
+                accept_prob(log_alpha))
+
+    def sample_y(rng, theta):
+        return theta[:, :, None] + rng.normal(tuple(theta.shape) + (n,))
+
+    return ModelSpec(
+        name="calibration_hier_normal",
+        blocks=(Block("theta", (G,), units=G, init_scale=0.5),
+                Block("mu", (), init_scale=0.5),
+                Block("log_tau", (), init_scale=0.3)),
+        init_state=prior_sample, cond_logdensity=cond,
+        joint_logdensity=joint, prior_sample=prior_sample,
+        joint_moves={"asis_tau": asis_tau_move},
+        joint_move_init_scale={"asis_tau": 0.1},
+    ), sample_y
+
+
 def bound(nbytes: float, ops: float):
     t_b, t_o = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -305,7 +413,7 @@ def main() -> int:
     # fails outside a checkout of the repo
     from nestmc_torch import KernelConfig, RunConfig, SamplerConfig, sample
     from nestmc_torch import bench
-    from nestmc_torch.diagnostics import ess, fold_rhat_scalars
+    from nestmc_torch.diagnostics import diagnose, ess, fold_rhat_scalars
     from nestmc_torch.models import (
         analytic_hier_normal_posterior,
         make_hier_logistic,
@@ -1519,10 +1627,19 @@ def main() -> int:
     def need_s(est, sched):
         return 2.0 * est[1] + 1.15 * est[0] * sum(sched)
 
+    def mu_tau_stats(post):
+        """{name: (mean, MCSE)} of mu and tau = exp(log_tau), (p,) each."""
+        dg = diagnose({"mu": post.draws["mu"],
+                       "tau": torch.exp(post.draws["log_tau"])})
+        return {k: (dg[k]["mean"].cpu(), dg[k]["mcse_mean"].cpu())
+                for k in dg}
+
+    rw_ref = {}     # the built-in RW run's posterior, for phase 9b
     run_path("hier-logistic-100-rw",
              {"rwmh_step": lambda W, D: W + D,
               "loglik": lambda W, D: W + D + 1},
-             "beta", (0.1, 0.5), logistic_shapes(64, 4, 16), full_rhat=True)
+             "beta", (0.1, 0.5), logistic_shapes(64, 4, 16), full_rhat=True,
+             check=lambda post: rw_ref.update(mu_tau_stats(post)))
 
     # config 2: frozen-metric Newton, one step and one Laplace interweave
     # (its Hessian pass in warmup and once for the initial cache, its
@@ -2087,6 +2204,351 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"phase 8 (hier_glm, predictive, CSV) took "
         f"{time.perf_counter() - t8:.1f} s")
+
+    # ---- 9. the user-model toolkit and the data layer's converters ----
+    from nestmc_torch import distributions as dist
+    from nestmc_torch import transforms
+    from nestmc_torch.data import NestedData, NestedData3, RaggedData
+    from nestmc_torch.model import Block, ModelSpec, vmap_chains
+
+    t9 = time.perf_counter()
+
+    def same(label, pairs):
+        """Fail unless each (ours, theirs) pair has one shape, dtype and
+        the same bits."""
+        bad = [k for k, (a, b) in pairs.items()
+               if a.shape != b.shape or a.dtype != b.dtype
+               or not torch.equal(a, b)]
+        say(f"{label}: {', '.join(pairs)} "
+            f"{'equal' if not bad else 'DIFFER in ' + ', '.join(bad)}")
+        if bad:
+            fail(f"{label}: {bad} differ")
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # (a) the converters at full width. Config 4's seed-0 data (the
+    # ragged-10k preset's) split into per-group lists and rebuilt
+    G4 = 10_000
+    rdata, _ = synth_logistic(4000, G=G4, n=30, p=3, ragged=True,
+                              device=dev)
+    off = rdata.offsets.cpu().numpy()
+    yn, xn = rdata.y.cpu().numpy(), rdata.x.cpu().numpy()
+    ys = [yn[off[g]:off[g + 1]] for g in range(G4)]
+    xs = [xn[off[g]:off[g + 1]] for g in range(G4)]
+    rr, ms_rr = host_ms(lambda: RaggedData.from_ragged(ys, xs, device=dev))
+    nd, ms_nd = host_ms(lambda: NestedData.from_ragged(ys, xs, max_obs=30,
+                                                       device=dev))
+    back, ms_back = host_ms(nd.to_ragged)
+    fields = ("y", "x", "segment_ids", "offsets")
+    same(f"9a RaggedData.from_ragged ({ms_rr:.1f} ms) vs from_numpy_ragged"
+         f" on config 4's seed-0 data (N={rdata.num_obs})",
+         {k: (getattr(rr, k), getattr(rdata, k)) for k in fields})
+    same(f"9a NestedData.from_ragged(max_obs=30) ({ms_nd:.1f} ms) -> "
+         f"to_ragged() ({ms_back:.1f} ms) vs from_numpy_ragged",
+         {k: (getattr(back, k), getattr(rdata, k)) for k in fields})
+    gen9 = torch.Generator(device=dev).manual_seed(9)
+    beta = 0.5 * torch.randn(1024, G4, 3, generator=gen9, device=dev)
+    a = logistic_loglik(beta, nd.x, nd.y, nd.mask)
+    b = logistic_loglik_segment(beta, back.x, back.y, SegmentLayout.build(
+        back.segment_ids, back.num_groups))
+    dd = (a - b).abs()
+    ok = bool((dd <= 2e-5 + 2e-5 * b.abs()).all())
+    say(f"9a loglik kernel on the padded form (1024, {G4}, 30, 3) vs the "
+        f"seg_loglik kernel on the ragged form: max |a-b| "
+        f"{float(dd.max()):.3e} (|a-b| <= 2e-5 + 2e-5|b|) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the padded and segment logliks disagree through the "
+             "converters")
+    del rdata, rr, nd, back, beta, a, b, dd, ys, xs
+
+    # the judged data padded to 1024 groups: the obs passes on the padded
+    # data against the unpadded ones on the 1000 real groups (cells are
+    # independent: the same bits expected), exactly 0 on the 24 padded
+    # groups, and one Newton refresh there without a NaN
+    C9, P9 = 1024, 4
+    jd9, _ = synth_logistic(2000, G=1000, n=50, p=P9, device=dev)
+    jp9 = jd9.pad_groups_to(1024)
+    if bool(jp9.mask[1000:].any()) or bool(jp9.sizes[1000:].any()):
+        fail("pad_groups_to left a padded group with observations")
+    beta = 0.5 * torch.randn(C9, 1024, P9, generator=gen9, device=dev)
+    for name, fn in (("loglik", logistic_loglik),
+                     ("logp_grad", logistic_logp_grad),
+                     ("logp_grad_hess", logistic_logp_grad_hess)):
+        full = fn(beta, jp9.x, jp9.y, jp9.mask)
+        part = fn(beta[:, :1000].contiguous(), jd9.x, jd9.y, jd9.mask)
+        full = full if isinstance(full, tuple) else (full,)
+        part = part if isinstance(part, tuple) else (part,)
+        errs = [max_err(f[:, :1000], q, 1e-4) for f, q in zip(full, part)]
+        bitwise = all(torch.equal(f[:, :1000], q)
+                      for f, q in zip(full, part))
+        zero = all(float(f[:, 1000:].abs().max()) == 0.0 for f in full)
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+        say(f"9a pad_groups_to(1024) on the judged data, {name}: the 1000 "
+            f"real groups {'bitwise equal to' if bitwise else 'NOT bitwise'}"
+            f" the unpadded kernel's (max |diff| {err:.3e}); the 24 padded "
+            f"groups exactly 0: {zero} {'ok' if ok and zero else 'FAIL'}")
+        if not (ok and zero):
+            fail(f"{name} on the padded judged data")
+    v, g, h = logistic_logp_grad_hess(beta, jp9.x, jp9.y, jp9.mask)
+    mu9 = 0.3 * torch.randn(C9, P9, generator=gen9, device=dev)
+    lt9 = -0.7 + 0.2 * torch.randn(C9, P9, generator=gen9, device=dev)
+    out = fused_newton_logistic_step(
+        beta, v, g, h, torch.zeros(C9, 1, device=dev), mu9, lt9, jp9.x,
+        jp9.y, jp9.mask, rng=SweepRNG(9, dev))
+    finite = all(bool(torch.isfinite(t).all()) for t in out)
+    acc_pad = float(out[4][:, 1000:].mean())
+    say(f"9a newton_step refresh on the padded judged data: finite "
+        f"{finite}; mean alpha of the padded groups {acc_pad:.4f} (their "
+        "proposal is the prior's exact conditional)")
+    if not finite:
+        fail("newton_step on the padded judged data gave a NaN")
+    del jd9, jp9, beta, v, g, h, out
+
+    # config 3's seed-0 data as ys[g][s] lists, and a case with unequal
+    # subjects per group
+    pd3, _ = synth_poisson3(3000, G=1000, subjects_per_group=4, n=10, p=3,
+                            device=dev)
+    yn, xn = pd3.y.cpu().numpy(), pd3.x.cpu().numpy()
+    keep = pd3.mask.cpu().numpy() > 0.5
+    ys3, xs3 = [[] for _ in range(1000)], [[] for _ in range(1000)]
+    for s_, g_ in enumerate(pd3.subject_group.cpu().tolist()):
+        ys3[g_].append(yn[s_][keep[s_]])
+        xs3[g_].append(xn[s_][keep[s_]])
+    d3, ms_d3 = host_ms(lambda: NestedData3.from_ragged(ys3, xs3,
+                                                        device=dev))
+    same(f"9a NestedData3.from_ragged ({ms_d3:.1f} ms) vs from_numpy3 on "
+         "config 3's seed-0 data",
+         {k: (getattr(d3, k), getattr(pd3, k))
+          for k in ("y", "mask", "x", "subject_group", "subject_counts")})
+    if d3.members is not None or pd3.members is not None or not bool(
+            (d3.subjects_per_group() == 4).all()):
+        fail("config 3's groups of 4 subjects: members or subject counts")
+    bs = 0.3 * torch.randn(512, d3.num_subjects, 3, generator=gen9,
+                           device=dev)
+    same("9a pois_loglik on NestedData3.from_ragged's data vs from_numpy3's",
+         {"pois_loglik": (pois.poisson_loglik(bs, d3.x, d3.y, d3.mask),
+                          pois.poisson_loglik(bs, pd3.x, pd3.y, pd3.mask))})
+    r9 = np.random.default_rng(5)
+    counts = [2, 0, 4, 1, 3]
+    ysu = [[r9.poisson(2.0, size=int(r9.integers(1, 11))).astype(np.float32)
+            for _ in range(c)] for c in counts]
+    xsu = [[r9.normal(size=(len(y_), 3)) for y_ in grp] for grp in ysu]
+    du = NestedData3.from_ragged(ysu, xsu, device=dev)
+    sums = du.group_sum(torch.ones(2, du.num_subjects, device=dev))
+    ok = (du.members is not None
+          and du.subjects_per_group().tolist() == counts
+          and sums.tolist() == [[float(c) for c in counts]] * 2)
+    say(f"9a NestedData3.from_ragged with subjects per group {counts}: "
+        f"members built {du.members is not None}, subjects_per_group "
+        f"{du.subjects_per_group().tolist()}, group_sum of ones "
+        f"{sums[0].tolist()} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("NestedData3.from_ragged with unequal subjects per group")
+    del pd3, d3, bs, ys3, xs3
+    torch.cuda.empty_cache()
+    t9a = time.perf_counter() - t9
+
+    # (b) a user's model: the hierarchical logistic written for ONE chain
+    # with nestmc_torch.distributions and transforms (make_hier_logistic's
+    # defaults: mu ~ N(0, 5), tau ~ HalfNormal(2) on the log transform with
+    # its log-Jacobian and the log-scale guard), lifted by vmap_chains, at
+    # config 2's width on the generic MALA path: no kernel of the port,
+    # and its posterior of mu and tau against the built-in model's RW run
+    # of phase 6 on the same data. The centred user model has no
+    # interweaving move; 600/1200 sweeps (about 10-16 ms each, host-paced)
+    # keep the phase near a minute, and its R-hat is printed, not gated
+    def user_hier_logistic(G, p, mu_scale=5.0, tau_scale=2.0):
+        lt_tr = transforms.log_transform
+
+        def gprior(s):
+            tau = lt_tr.forward(s["log_tau"])
+            return torch.sum(dist.logpdf_normal(s["beta"], s["mu"], tau),
+                             dim=-1)                            # (G,)
+
+        def cond(name, value, state, data):
+            s = {**state, name: value}
+            if name == "beta":
+                eta = torch.einsum("gnp,gp->gn", data.x, s["beta"])
+                lik = dist.logpmf_bernoulli_logit(data.y, eta) * data.mask
+                return torch.sum(lik, dim=-1) + gprior(s)
+            if name == "mu":
+                return torch.sum(gprior(s)) + torch.sum(
+                    dist.logpdf_normal(s["mu"], 0.0, mu_scale))
+            lt = s["log_tau"]
+            return torch.sum(gprior(s)) + torch.sum(
+                dist.logpdf_halfnormal(lt_tr.forward(lt), tau_scale)
+                + lt_tr.log_jac(lt) + dist.log_scale_guard(lt))
+
+        def init_state(rng, data, chains):
+            return {"beta": 0.5 * rng.normal((G, p)),
+                    "mu": 0.5 * rng.normal((p,)),
+                    "log_tau": -1.0 + 0.2 * rng.normal((p,))}
+
+        return vmap_chains(ModelSpec(
+            name="user hier logistic",
+            blocks=(Block("beta", (G, p), units=G, init_scale=0.3),
+                    Block("mu", (p,), init_scale=0.1),
+                    Block("log_tau", (p,), init_scale=0.1)),
+            cond_logdensity=cond, init_state=init_state))
+
+    UW, UD = 600, 1200
+    udata, _ = synth_logistic(1000, G=100, n=50, p=4, device=dev)
+    reset_launch_counts()
+    upost = sample(user_hier_logistic(100, 4), udata, SamplerConfig(
+        kernel=KernelConfig(algorithm="mala"),
+        run=RunConfig(chains=64, warmup=UW, draws=UD, seed=0,
+                      full_rhat=True, log_every_segment=False)))
+    torch.cuda.synchronize()
+    ulaunch = launch_counts()
+    u_ms = 1e3 * (upost.timings["warmup_s"] + upost.timings["sample_s"]) / (
+        UW + UD)
+    us = mu_tau_stats(upost)
+    z = {k: float(((us[k][0] - rw_ref[k][0]).abs() / torch.sqrt(
+        us[k][1] ** 2 + rw_ref[k][1] ** 2)).max()) for k in us}
+    ok = not any(ulaunch.values()) and max(z.values()) < 5.0
+    uacc = {k: round(float(v.mean()), 4)
+            for k, v in upost.accept_rates.items()}
+    say(f"9b user model (vmap_chains, MALA, 64 chains, {UW}/{UD}) at "
+        f"config 2's width: {u_ms:.2f} ms a sweep on '{smi}'; launches "
+        f"{sum(ulaunch.values())} (must be 0); worst R-hat "
+        f"{upost.worst_rhat():.5f} (printed, not asserted) at "
+        f"{upost.worst_rhat_at()}; acceptance {uacc}")
+    for k in us:
+        say(f"9b {k}: user {[round(x, 4) for x in us[k][0].tolist()]} vs "
+            f"built-in RW {[round(x, 4) for x in rw_ref[k][0].tolist()]}, "
+            f"max |diff| / combined MCSE {z[k]:.2f} (< 5)")
+    if not ok:
+        fail("the user model launched a kernel or disagrees with the "
+             "built-in model")
+    del upost, udata
+    t9b = time.perf_counter() - t9 - t9a
+
+    # (c) same seed, same bits on the card: config 2 (frozen Newton with
+    # the R-hat fold in the step kernel) and config 4's segment route
+    # (MALA on the segment kernels), each twice at seed 0 and once at 1
+    def det_check(label, build, sched, expect):
+        model, data, cfg = build()
+        runs = []
+        for seed in (0, 0, 1):
+            cfg_s = dataclasses.replace(cfg, run=dataclasses.replace(
+                cfg.run, warmup=sched[0], draws=sched[1], seed=seed,
+                log_every_segment=False))
+            reset_launch_counts()
+            post = sample(model, data, cfg_s)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = {k: 0 for k in launches}
+            want.update({k: f(*sched) for k, f in expect.items()})
+            if launches != want:
+                fail(f"9c {label}: launches {launches} != {want}")
+            for k, nl in launches.items():
+                launches_total[k] = launches_total.get(k, 0) + nl
+            runs.append(post)
+        a, b, c = runs
+        differ = [k for k in a.draws if not torch.equal(a.draws[k],
+                                                        b.draws[k])]
+        differ += [f"full_rhat {k}" for k in (a.full_rhat or {})
+                   if not torch.equal(a.full_rhat[k], b.full_rhat[k])]
+        moved = not torch.equal(a.draws["mu"], c.draws["mu"])
+        say(f"9c {label} {sched[0]}/{sched[1]}: two runs at seed 0 "
+            f"{'bitwise equal' if not differ else 'DIFFER in ' + str(differ)}"
+            f" over {', '.join(a.draws)}; seed 1 moves mu: {moved}; "
+            f"launches a run {({k: n for k, n in want.items() if n})}")
+        if differ or not moved:
+            fail(f"9c {label}: same seed, other bits, or seed ignored")
+
+    det_check("hier-logistic-100 (config 2)",
+              lambda: get_preset("hier-logistic-100", device=dev),
+              (150, 200), newton_path)
+
+    def seg_build():
+        _, data, cfg = get_preset("ragged-10k-mala", device=dev)
+        return (make_hier_logistic(data, loglik_impl="pallas-segment"),
+                data, cfg)
+
+    det_check("ragged-10k pallas-segment mala", seg_build, (80, 100),
+              {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D)})
+
+    # the plain segment sum (the segment route's Hessian pass and every
+    # segment kernel's plain version) at config 4's shape: the segmented
+    # reduction repeats its bits; the float scatter-add it replaced is
+    # shown for comparison (its atomics add in another order each run)
+    sd, _ = synth_logistic(4000, G=G4, n=30, p=3, ragged=True, device=dev)
+    vals = torch.randn(1024, sd.num_obs, generator=gen9, device=dev)
+
+    def scatter_sum():
+        return torch.zeros(1024, G4, device=dev).index_add_(
+            1, sd.segment_ids, vals)
+
+    def seg_sum():
+        return loglik._segsum(vals, sd.segment_ids, G4)
+
+    distinct = {}
+    for name, fn in (("segment_reduce", seg_sum),
+                     ("index_add_", scatter_sum)):
+        distinct[name] = len({fn().cpu().numpy().tobytes()
+                              for _ in range(10)})
+    err = float((seg_sum() - scatter_sum()).abs().max())
+    say(f"9c plain segment sum (1024, {sd.num_obs}) -> (1024, {G4}): "
+        f"segment_reduce {distinct['segment_reduce']} distinct result(s) "
+        f"of 10, {timed(seg_sum):.4f} ms; index_add_ (replaced) "
+        f"{distinct['index_add_']} of 10, {timed(scatter_sum):.4f} ms; max "
+        f"|diff| {err:.3e}")
+    if distinct["segment_reduce"] != 1 or err > 1e-3:
+        fail("the plain segment sum is not deterministic on the card")
+    del sd, vals
+    torch.cuda.empty_cache()
+    t9c = time.perf_counter() - t9 - t9a - t9b
+
+    # (d) simulation-based calibration on the card, tests/test_sbc.py's
+    # sizes: C = 512 replicas as chains, each with its own data set, G=4,
+    # N=3, L=127 draws thinned by 4; the true value's rank among each
+    # replica's draws is uniform for a correct sampler (chi-square on 8
+    # bins, p > 1e-3), and the posterior must contract below the prior
+    from scipy import stats as st
+
+    cmodel, sample_y = calibration_model(4, 3)
+    for seed, warmup in ((42, 500), (43, 300)):
+        truth = cmodel.prior_sample(SweepRNG(seed, dev), None, 512)
+        cdata = {"y": sample_y(SweepRNG(seed + 1000, dev), truth["theta"])}
+        reset_launch_counts()
+        cpost = sample(cmodel, cdata, SamplerConfig(run=RunConfig(
+            chains=512, warmup=warmup, draws=127, thin=4, seed=seed - 35,
+            log_every_segment=False)))
+        if any(launch_counts().values()):
+            fail(f"9d the calibration model launched {launch_counts()}")
+        pvals = {}
+        for name, dr, tr in (
+                ("mu", cpost.draws["mu"], truth["mu"]),
+                ("log_tau", cpost.draws["log_tau"], truth["log_tau"]),
+                ("theta[0]", cpost.draws["theta"][:, :, 0],
+                 truth["theta"][:, 0])):
+            ranks = torch.sum(dr < tr[:, None], dim=1).cpu().numpy()
+            counts = np.bincount((ranks / 16).astype(int), minlength=8)[:8]
+            chi2 = float(((counts - 64.0) ** 2 / 64.0).sum())
+            pvals[name] = float(st.chi2.sf(chi2, 7))
+        post_sd = float(cpost.draws["theta"][:, :, 0].std(dim=1).mean())
+        prior_sd = float(truth["theta"][:, 0].std())
+        ok = (min(pvals.values()) > 1e-3 if seed == 42
+              else post_sd < 0.6 * prior_sd)
+        pv = {k: round(v, 4) for k, v in pvals.items()}
+        say(f"9d SBC seed {seed} ({warmup}/127 thinned by 4, 512 replicas; "
+            f"{cpost.timings['warmup_s'] + cpost.timings['sample_s']:.1f} "
+            f"s): rank chi-square p {pv} (> 1e-3 asserted at seed 42); "
+            f"posterior sd of theta[0] "
+            f"{post_sd:.3f} vs prior {prior_sd:.3f} (< 0.6x asserted at "
+            f"seed 43) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"9d SBC at seed {seed}")
+    t9d = time.perf_counter() - t9 - t9a - t9b - t9c
+    say(f"phase 9 (converters, user model, determinism, SBC) took "
+        f"{time.perf_counter() - t9:.1f} s: 9a {t9a:.1f}, 9b {t9b:.1f}, "
+        f"9c {t9c:.1f}, 9d {t9d:.1f}")
 
     # ---- 6, continued: the paths cut to the time left ----
     full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)

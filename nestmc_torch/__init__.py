@@ -17,9 +17,13 @@ versions. It imports torch and numpy, never jax. Its command line,
 preset on the card, checkpoints and resumes it (checkpoint.py), and ranks
 saved runs by WAIC or PSIS-LOO (compare.py). Posterior-predictive checks
 (predictive.py) and a CSV loader with a native parser (io/) complete the
-user path: load, fit, check, compare.
+user path: load, fit, check, compare. A user's own model, written for one
+chain with distributions.py and transforms.py, is lifted to the chains
+by model.vmap_chains; data.py builds data from per-group lists
+(``from_ragged``).
 """
 
+from nestmc_torch.compare import compare, psis_loo, waic
 from nestmc_torch.config import (
     KernelConfig,
     RunConfig,
@@ -45,6 +49,9 @@ __version__ = "0.1.0"
 __all__ = [
     "Block",
     "KernelConfig",
+    "compare",
+    "psis_loo",
+    "waic",
     "ModelSpec",
     "NestedData",
     "NestedData3",

@@ -4,12 +4,16 @@ The padded form of :class:`nestmc.data.NestedData`, the flat segment form
 of :class:`nestmc.data.RaggedData` and the three-level
 :class:`nestmc.data.NestedData3`, as tensors on one device, plus
 :func:`bucket_by_size` (groups padded per power-of-2 size bucket).
+Each is built from numpy arrays (``from_numpy``, ``from_numpy_ragged``,
+``from_numpy3``) or from per-group lists (the ``from_ragged`` static
+methods, which go through those functions).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -36,12 +40,63 @@ class NestedData:
         return self.y.shape[0]
 
     @property
+    def max_obs(self) -> int:
+        return self.y.shape[1]
+
+    @property
     def num_covariates(self) -> int:
         return self.x.shape[-1]
 
     @property
     def device(self) -> torch.device:
         return self.y.device
+
+    @staticmethod
+    def from_ragged(ys: Sequence, xs: Sequence | None = None,
+                    max_obs: int | None = None, extra: dict | None = None,
+                    device="cuda") -> "NestedData":
+        """Padded data from per-group lists: ``ys[g]`` (n_g,) and ``xs[g]``
+        (n_g, p) are group g's observations, padded to ``max_obs`` (the
+        largest group unless given; longer groups are cut to it while
+        ``sizes`` keeps their true lengths, as the reference's). No ``xs``
+        gives an empty (G, n, 0) x."""
+        y, x, mask, sizes = _pad_lists(ys, xs, max_obs)
+        data = from_numpy(x, y, mask, device=device, extra=extra)
+        return dataclasses.replace(
+            data, sizes=_tensor(sizes, data.device, torch.int32))
+
+    def to_ragged(self) -> "RaggedData":
+        """The flat segment form (the padded slots dropped): sorted int64
+        segment_ids and their CSR offsets, on this data's device."""
+        mask = self.mask.cpu().numpy() > 0.5
+        seg = np.broadcast_to(
+            np.arange(self.num_groups, dtype=np.int64)[:, None], mask.shape
+        )[mask]
+        data = from_numpy_ragged(self.x.cpu().numpy()[mask],
+                                 self.y.cpu().numpy()[mask], seg,
+                                 self.num_groups, device=self.device)
+        return dataclasses.replace(data, extra=dict(self.extra))
+
+    def pad_groups_to(self, G_pad: int) -> "NestedData":
+        """The group axis padded to ``G_pad`` with empty groups (mask and
+        sizes 0), every ``extra`` leaf padded the same way. An empty group
+        adds exactly 0 to every obs pass; its group-level parameters
+        sample from the prior."""
+        G = self.num_groups
+        if G_pad == G:
+            return self
+        if G_pad < G:
+            raise ValueError(f"G_pad={G_pad} < num_groups={G}")
+
+        def padg(a):
+            z = a.new_zeros((G_pad - G,) + tuple(a.shape[1:]))
+            return torch.cat([a, z], dim=0)
+
+        return NestedData(
+            y=padg(self.y), mask=padg(self.mask), sizes=padg(self.sizes),
+            x=padg(self.x),
+            extra={k: padg(v) for k, v in self.extra.items()},
+        )
 
 
 def data_device(data) -> torch.device:
@@ -83,6 +138,37 @@ def _tensor(a, device, dtype=torch.float32):
     )
 
 
+def _extra_tensors(extra, device) -> dict:
+    """{name: array} -> {name: float32 tensor on ``device``}."""
+    return {k: _tensor(np.asarray(v, np.float32), device)
+            for k, v in (extra or {}).items()}
+
+
+def _pad_lists(ys, xs, max_obs):
+    """Per-group lists -> padded float32 (y (G, n), x (G, n, p) or None,
+    mask (G, n), sizes (G,) int32 of the lists' lengths), n = max_obs or
+    the longest list. y and x are staged in float64 and cast to float32
+    once, as the reference's from_ragged does, so the bits match."""
+    G = len(ys)
+    sizes = np.array([len(y) for y in ys], dtype=np.int32)
+    n = int(max_obs if max_obs is not None else (sizes.max() if G else 0))
+    y = np.zeros((G, n), np.float64)
+    mask = np.zeros((G, n), np.float32)
+    for g, yg in enumerate(ys):
+        k = min(len(yg), n)
+        y[g, :k] = np.asarray(yg)[:k]
+        mask[g, :k] = 1.0
+    x = None
+    if xs is not None:
+        p = int(np.asarray(xs[0]).shape[-1]) if G else 0
+        x = np.zeros((G, n, p), np.float64)
+        for g, xg in enumerate(xs):
+            k = min(len(xg), n)
+            x[g, :k] = np.asarray(xg)[:k]
+        x = x.astype(np.float32)
+    return y.astype(np.float32), x, mask, sizes
+
+
 def from_numpy(x, y, mask, device="cuda", extra=None) -> NestedData:
     """Build padded data from numpy arrays (e.g. the JAX package's), as
     float32 tensors on ``device`` (the card unless the caller asks for
@@ -98,8 +184,7 @@ def from_numpy(x, y, mask, device="cuda", extra=None) -> NestedData:
         mask=_tensor(mask_np, device),
         sizes=_tensor(sizes, device, torch.int32),
         x=_tensor(np.asarray(x, np.float32), device),
-        extra={k: _tensor(np.asarray(v, np.float32), device)
-               for k, v in (extra or {}).items()},
+        extra=_extra_tensors(extra, device),
     )
 
 
@@ -120,6 +205,7 @@ class NestedData3:
 
     Segment sums over subjects (:meth:`group_sum`) are a gather and a sum
     over the M axis, so they are deterministic, unlike atomic scatters.
+    ``extra`` {name: tensor} carries further arrays, as NestedData's.
     """
 
     y: torch.Tensor
@@ -131,10 +217,15 @@ class NestedData3:
     members: torch.Tensor | None
     member_mask: torch.Tensor | None
     group_size: int
+    extra: dict = dataclasses.field(default_factory=dict)
 
     @property
     def num_subjects(self) -> int:
         return self.y.shape[0]
+
+    @property
+    def max_obs(self) -> int:
+        return self.y.shape[1]
 
     @property
     def num_covariates(self) -> int:
@@ -143,6 +234,35 @@ class NestedData3:
     @property
     def device(self) -> torch.device:
         return self.y.device
+
+    @staticmethod
+    def from_ragged(ys: Sequence, xs: Sequence | None = None,
+                    extra: dict | None = None,
+                    device="cuda") -> "NestedData3":
+        """Three-level data from nested lists: ``ys[g][s]`` (and ``xs[g][s]``)
+        are the observations of subject s of group g, padded per subject
+        to the longest (:meth:`NestedData.from_ragged`), then built by
+        :func:`from_numpy3`."""
+        flat_y, flat_x, subj_grp = [], [], []
+        for g, group in enumerate(ys):
+            for s, yarr in enumerate(group):
+                flat_y.append(yarr)
+                subj_grp.append(g)
+                if xs is not None:
+                    flat_x.append(xs[g][s])
+        y, x, mask, _ = _pad_lists(flat_y, flat_x if xs is not None
+                                   else None, None)
+        if x is None:
+            x = np.zeros(mask.shape + (0,), np.float32)
+        data = from_numpy3(x, y, mask, np.array(subj_grp, np.int64),
+                           len(ys), device=device)
+        return dataclasses.replace(data,
+                                   extra=_extra_tensors(extra, data.device))
+
+    def subjects_per_group(self) -> torch.Tensor:
+        """(G,) int32 subjects of each group (from subject_counts: no
+        scatter)."""
+        return self.subject_counts.to(torch.int32)
 
     def to_subjects(self, arr_g: torch.Tensor) -> torch.Tensor:
         """(C, G, ...) -> (C, S, ...): each subject's group's row."""
@@ -209,7 +329,8 @@ class RaggedData:
 
     Built by :func:`from_numpy_ragged`, which also derives the CSR row
     pointer ``offsets`` (G+1,) int32: group g's observations are rows
-    offsets[g] .. offsets[g+1] - 1.
+    offsets[g] .. offsets[g+1] - 1. ``extra`` {name: tensor} carries
+    further arrays, as NestedData's.
     """
 
     y: torch.Tensor
@@ -217,6 +338,7 @@ class RaggedData:
     num_groups: int
     x: torch.Tensor
     offsets: torch.Tensor
+    extra: dict = dataclasses.field(default_factory=dict)
 
     @property
     def num_obs(self) -> int:
@@ -233,6 +355,26 @@ class RaggedData:
     def sizes(self) -> torch.Tensor:
         """(G,) int32 observations per group."""
         return torch.diff(self.offsets)
+
+    @staticmethod
+    def from_ragged(ys: Sequence, xs: Sequence | None = None,
+                    extra: dict | None = None,
+                    device="cuda") -> "RaggedData":
+        """Flat data from per-group lists (``ys[g]`` (n_g,), ``xs[g]``
+        (n_g, p)), built by :func:`from_numpy_ragged`; no ``xs`` gives an
+        empty (N, 0) x. ``extra`` {name: array} is carried as float32
+        tensors."""
+        seg = (np.concatenate([np.full(len(y), g, np.int64)
+                               for g, y in enumerate(ys)])
+               if len(ys) else np.zeros((0,), np.int64))
+        y = (np.concatenate([np.asarray(y) for y in ys]) if len(ys)
+             else np.zeros((0,)))
+        x = (np.concatenate([np.asarray(xg) for xg in xs], axis=0)
+             if xs is not None and len(xs)
+             else np.zeros((len(y), 0), np.float32))
+        data = from_numpy_ragged(x, y, seg, len(ys), device=device)
+        return dataclasses.replace(data,
+                                   extra=_extra_tensors(extra, data.device))
 
 
 def segment_offsets(segment_ids, num_groups: int) -> np.ndarray:

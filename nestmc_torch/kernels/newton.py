@@ -23,6 +23,16 @@ from nestmc_torch.ops.smallchol import (
 )
 
 
+def cond_value_grad_hess(model: ModelSpec, name, value, position, data):
+    """((C, U) value, grad, packed -Hessian) of the block conditional: the
+    sum of the model's cond_cached_newton (self, rest) parts. Newton
+    blocks must declare that split; there is no autodiff fallback."""
+    self_vgh, rest_vgh = model.cond_cached_newton[name]
+    sv, sg, sh = self_vgh(value, data)
+    rv, rg, rh = rest_vgh(value, position, data)
+    return sv + rv, sg + rg, sh + rh
+
+
 def newton_update(rng, block: Block, model: ModelSpec, position, log_scale,
                   data, cache=None, frozen=False):
     """One Newton-MH update of ``block`` for all chains and units.

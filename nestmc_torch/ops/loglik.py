@@ -1,11 +1,12 @@
 """Plain PyTorch references of the Bernoulli-logit and Poisson-log obs
 passes.
 
-Port of the padded logistic and Poisson functions and the ragged
-(segment) logistic functions of :mod:`nestmc.ops.loglik`. These are the
-plain versions the CUDA obs-pass kernels (ops/cuda/loglik_logistic,
-ops/cuda/loglik_poisson, ops/cuda/loglik_segment) are held against, and
-what those wrappers run on CPU tensors.
+Port of the padded logistic, Poisson and normal functions and the ragged
+(segment) logistic and Poisson functions of :mod:`nestmc.ops.loglik`.
+These are the plain versions the CUDA obs-pass kernels
+(ops/cuda/loglik_logistic, ops/cuda/loglik_poisson,
+ops/cuda/loglik_segment) are held against, and what those wrappers run
+on CPU tensors.
 
 Shapes:
   beta: (C, G, p)   x: (G, n, p)   y, mask: (G, n)
@@ -88,12 +89,26 @@ def logistic_logp_grad_hess_padded(beta, x, y, mask):
     )
 
 
-# ---- Ragged (segment) Bernoulli-logit ----
+def normal_loglik_padded(beta, x, y, mask, sigma):
+    """Gaussian response: sum_i mask * log N(y | eta, sigma) -> (C, G).
+    ``sigma`` (a float or a tensor) gets trailing axes until it is 3-D, as
+    the reference broadcasts it: a scalar, (C, 1) or (C, G)."""
+    eta = _eta(beta, x)
+    sig = torch.as_tensor(sigma, dtype=eta.dtype, device=eta.device)
+    while sig.ndim < 3:
+        sig = sig[..., None]
+    z = (y - eta) / sig
+    ll = -0.5 * (z * z) - torch.log(sig) - 0.9189385332046727
+    return torch.sum(ll * mask, dim=-1)
+
+
+# ---- Ragged (segment) Bernoulli-logit and Poisson-log ----
 #
 # The lean per-coordinate form of the reference: eta (C, N) from p gathers
-# of (C, N), each (C, N) term reduced to (C, G) by index_add_ over the
-# segment ids. No (C, N, p) tensor is formed (2.1 GB at C=1024, N=175k,
-# p=3); the temporaries are (C, N), 0.7 GB each at that width.
+# of (C, N), each (C, N) term reduced to (C, G) over the sorted segment
+# ids by a segmented sum (no atomics: the same bits on every run). No
+# (C, N, p) tensor is formed (2.1 GB at C=1024, N=175k, p=3); the
+# temporaries are (C, N), 0.7 GB each at that width.
 
 
 def _eta_segment(beta, x, segment_ids):
@@ -104,15 +119,32 @@ def _eta_segment(beta, x, segment_ids):
 
 
 def _segsum(vals, segment_ids, num_groups):
-    """(C, N) -> (C, G): the sum over each group's observations."""
-    out = vals.new_zeros((vals.shape[0], num_groups))
-    return out.index_add_(1, segment_ids, vals)
+    """(C, N) -> (C, G): the sum over each group's observations, in order.
+    The ids are sorted, so each group is one run of columns; a segmented
+    reduction sums it without the float atomics of a scatter-add, whose
+    order (and so bits) on the card changes from run to run."""
+    bounds = torch.arange(num_groups + 1, device=segment_ids.device)
+    lengths = torch.diff(torch.searchsorted(segment_ids, bounds))
+    return torch.segment_reduce(
+        vals, "sum", lengths=lengths.expand(vals.shape[0], num_groups),
+        axis=1, unsafe=True)
 
 
 def logistic_loglik_segment(beta, x, y, segment_ids, num_groups):
     """sum over each group's obs of y*eta - softplus(eta) -> (C, G)."""
     ll, _, _ = _terms(_eta_segment(beta, x, segment_ids), y, 1.0)
     return _segsum(ll, segment_ids, num_groups)
+
+
+def poisson_loglik_segment(beta, x, y, segment_ids, num_groups,
+                           lgamma_y=None):
+    """sum over each group's obs of y*eta - exp(eta) - lgamma(y+1) ->
+    (C, G); ``lgamma_y`` an optional precomputed (N,) lgamma(y+1)."""
+    eta = _eta_segment(beta, x, segment_ids)
+    if lgamma_y is None:
+        lgamma_y = torch.lgamma(y + 1.0)
+    return _segsum(y * eta - torch.exp(eta) - lgamma_y, segment_ids,
+                   num_groups)
 
 
 def logistic_logp_grad_segment(beta, x, y, segment_ids, num_groups):

@@ -1242,3 +1242,111 @@ def test_posterior_predictive_on_the_card(dev):
     assert bool(((y_rep >= 0) & (y_rep <= 6)).all())
     assert bool((y_rep == torch.round(y_rep)).all())
     assert 0.0 <= float(predictive_pvalue(y_rep, data)) <= 1.0
+
+
+def _ragged_lists(G=37, p=3, seed=0):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    sizes = r.integers(1, 41, size=G)
+    sizes[5] = 0
+    xs = [r.normal(size=(s, p)).astype(np.float32) for s in sizes]
+    ys = [(r.random(s) < 0.4).astype(np.float32) for s in sizes]
+    return ys, xs
+
+
+def test_ragged_convert_padded_vs_segment(dev):
+    """Data built from per-group lists on the card: the padded form's
+    loglik kernel and the ragged form's seg_loglik kernel agree within the
+    segment contract |a-b| <= 2e-5 + 2e-5 |b|; to_ragged gives
+    RaggedData.from_ragged's arrays exactly."""
+    from nestmc_torch.data import NestedData, RaggedData
+
+    ys, xs = _ragged_lists()
+    nd = NestedData.from_ragged(ys, xs, device=dev)
+    rd = nd.to_ragged()
+    rd2 = RaggedData.from_ragged(ys, xs, device=dev)
+    for k in ("y", "x", "segment_ids", "offsets"):
+        assert torch.equal(getattr(rd, k), getattr(rd2, k)), k
+    beta = torch.randn(70, nd.num_groups, 3, device=dev,
+                       generator=torch.Generator(dev).manual_seed(1))
+    reset_launch_counts()
+    a = logistic_loglik(beta, nd.x, nd.y, nd.mask)
+    b = logistic_loglik_segment(beta, rd.x, rd.y, SegmentLayout.build(
+        rd.segment_ids, rd.num_groups))
+    torch.cuda.synchronize()
+    assert LAUNCHES["loglik"] == 1 and LAUNCHES["seg_loglik"] == 1
+    assert bool(((a - b).abs() <= 2e-5 + 2e-5 * b.abs()).all())
+    assert float(a[:, 5].abs().max()) == 0.0
+
+
+def test_ragged_convert_pad_groups_kernels(dev):
+    """pad_groups_to on the card: the obs-pass kernels on the padded data
+    equal the unpadded ones on the real groups bit for bit (cells are
+    independent) and give exactly 0 on the padded groups."""
+    from nestmc_torch.data import NestedData
+
+    ys, xs = _ragged_lists(G=29, p=4, seed=2)
+    nd = NestedData.from_ragged(ys, xs, device=dev)
+    pd = nd.pad_groups_to(64)
+    beta = torch.randn(33, 64, 4, device=dev,
+                       generator=torch.Generator(dev).manual_seed(3))
+    for fn in (logistic_loglik, logistic_logp_grad, logistic_logp_grad_hess):
+        full = fn(beta, pd.x, pd.y, pd.mask)
+        part = fn(beta[:, :29].contiguous(), nd.x, nd.y, nd.mask)
+        full = full if isinstance(full, tuple) else (full,)
+        part = part if isinstance(part, tuple) else (part,)
+        for f, q in zip(full, part):
+            assert torch.equal(f[:, :29], q), fn.__name__
+            assert float(f[:, 29:].abs().max()) == 0.0, fn.__name__
+
+
+def test_user_model_on_the_card(dev):
+    """A model written for one chain, lifted by vmap_chains, on CUDA
+    tensors: MALA through torch.autograd under vmap runs, launches no
+    kernel of the port, and its draws are finite."""
+    from nestmc_torch import sample
+    from nestmc_torch.distributions import logpdf_normal
+    from nestmc_torch.model import Block, ModelSpec, vmap_chains
+
+    y = torch.tensor([0.4, 1.2, -0.3, 0.8, 1.5], device=dev)
+
+    def cond(name, value, state, data):
+        return (torch.sum(logpdf_normal(data["y"], value, 1.0))
+                + logpdf_normal(value, 0.0, 2.0))
+
+    model = vmap_chains(ModelSpec(
+        name="tiny", blocks=(Block("theta", ()),), cond_logdensity=cond,
+        init_state=lambda rng, data, chains: {"theta": rng.normal(())}))
+    reset_launch_counts()
+    post = sample(model, {"y": y}, SamplerConfig(
+        kernel=KernelConfig(algorithm="mala"),
+        run=RunConfig(chains=32, warmup=200, draws=400,
+                      log_every_segment=False)))
+    assert not any(LAUNCHES.values())
+    assert post.draws["theta"].device.type == "cuda"
+    assert abs(float(post.mean("theta")) - 3.6 / 5.25) < 0.1
+
+
+@pytest.mark.parametrize("algorithm,impl", [
+    ("newton", "auto"), ("mala", "auto"), ("newton", "pallas-segment")])
+def test_same_seed_bitwise_on_the_card(dev, algorithm, impl):
+    """Two runs at one seed give the same bits on the card (no atomics on
+    the path: the segment route's plain Hessian pass reduces by a
+    segmented sum, not a scatter-add); another seed moves mu."""
+    from nestmc_torch import sample
+
+    def run(seed):
+        data, _ = synth_logistic(21, G=40, n=12, p=3, device=dev,
+                                 ragged=impl != "auto", min_obs=1)
+        return sample(make_hier_logistic(data, tau_prior="invgamma",
+                                         loglik_impl=impl), data,
+                      SamplerConfig(
+                          kernel=KernelConfig(algorithm=algorithm),
+                          run=RunConfig(chains=64, warmup=40, draws=40,
+                                        seed=seed, log_every_segment=False)))
+
+    a, b, c = run(9), run(9), run(10)
+    for k in a.draws:
+        assert torch.equal(a.draws[k], b.draws[k]), k
+    assert not torch.equal(a.draws["mu"], c.draws["mu"])
