@@ -82,22 +82,25 @@ Needs one CUDA card and this checkout (it builds the kernels from
    requires, depth is cut (never width), and the R-hat line is then
    printed, not asserted: first config 3's variants, then the segment
    MALA path (each runs its full schedule only if the script would still
-   end within 60% of its budget), then the judged run; mala-100k's draws
-   only if even minimal other runs would not fit. The script says so.
-   Phases 7, 8 and 9 run after the fixed paths (the five configs and
+   end within 60% of its budget), then the judged run; mala-100k's
+   warmup and draws only if even minimal other runs would not fit (each
+   cut path has a least schedule: mala-100k 300/256, config 3's variants
+   300/256, the segment MALA path 100/256, judged 150/256). The script
+   says so. Phases 7 to 10 run after the fixed paths (the five configs and
    mala-100k-newton) and before the cut ones (mala-100k, the segment
    paths, config 3's variants, judged), so each cut is decided on the
    time actually left, whatever the host's speed;
 7. the command line (nestmc_torch/cli.py, in-process ``cli.main``, on the
    card by default), launch counters reset just before each call and read
-   just after: (a) ``run --preset hier-logistic-100`` at full width and
-   schedule collecting mu, log_tau, beta:8 and group_loglik, a checkpoint
-   every 1024 sweeps or draws, --save-draws and --metric-json: the Newton
-   path's launches plus exactly one loglik a retained draw, the gate over
-   all 408 parameters, group_loglik (64, 4096, 100) against the plain pass
-   on the collected groups' betas at four draws, the time of one
-   collection; (b) the checkpoints cut after the second sample segment and
-   ``run --resume``: only the remaining 2048 draws run (plus the
+   just after: (a) ``run --preset hier-logistic-100`` at full width, half
+   its schedule (750/2048; phase 6 runs the full one), collecting mu,
+   log_tau, beta:8 and group_loglik, a checkpoint every 512 sweeps or
+   draws, --save-draws and --metric-json: the Newton path's launches plus
+   exactly one loglik a retained draw, the gate over all 408 parameters,
+   group_loglik (64, 2048, 100) against the plain pass on the collected
+   groups' betas at four draws, the time of one collection; (b) the
+   checkpoints cut after the second sample segment and ``run --resume``:
+   only the remaining 1024 draws run (plus the
    template's one Hessian pass), the finalized all-parameter R-hat of
    every block equals the uninterrupted run's within 1e-5 (bitwise
    printed); a judged-size checkpoint written and loaded (MB, ms); (c)
@@ -111,7 +114,7 @@ Needs one CUDA card and this checkout (it builds the kernels from
    loader (models/hier_glm.py, predictive.py, io/), on the card, launch
    counters reset just before each run and read just after: (a) the
    binomial family at config 2's width (synth_glm G=100, n=50, p=4, 10
-   trials, 64 chains, invgamma tau, frozen Newton 1500/4096, beta and
+   trials, 64 chains, invgamma tau, frozen Newton 750/2048, beta and
    group_loglik collected in full): config 2's launches plus one loglik a
    retained draw (the reweighting adds none), the gate over 408
    parameters, group_loglik at four draws against the plain pass plus the
@@ -161,6 +164,27 @@ Needs one CUDA card and this checkout (it builds the kernels from
    data, G=4, N=3, 127 draws thinned by 4) on a jax-free copy of the
    calibration model: rank chi-square p > 1e-3 for mu, log tau and
    theta[0], and the posterior sd of theta[0] below 0.6x the prior's.
+10. sharding, before phase 6's cut paths: (a) the six step kernels in
+   Philox mode (Newton refresh and frozen+fold at the judged shape, MALA
+   and RW at config 2's, the three Poisson steps at config 3's), each
+   launched on a chain slice and on a unit slice with its offsets:
+   bitwise that slice of the full-width launch; the plain passes' batched
+   matmuls (ops/loglik.py's eta_padded, xt_sum, xxt_packed) on a chain
+   slice at the judged and config 2 shapes: bitwise that slice of the
+   full call; (b) two ranks spawned on
+   the one card (``--phase10-rank``, NESTMC_* env, a file:// rendezvous;
+   multihost.initialize picks gloo) run the judged preset at full width,
+   40/40 (``python3 chip_smoke.py --phase10 4`` runs this phase alone on
+   four ranks, one a card, NCCL, (ii) then 2 x 2): (i) chain_shards=2,
+   every collected draw and the final carry
+   bitwise the unsharded in-process run's; (ii) one sampling sweep from
+   that carry with group_shards=2, every leaf within 1e-4 + 1e-4 |ref| of
+   the unsharded sweep's and mu, log tau and their log scales bitwise
+   equal on both ranks, then a group_shards=2 run whose acceptance is
+   within 0.05 of the unsharded run's (worst R-hat printed). The path's
+   Newton launches are asserted in both ranks' runs; each rank's ms a
+   sweep and groups_sum's calls and ms a sweep are printed (both ranks
+   time-share one card: not a scaling result).
 
 Bound: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -396,6 +420,392 @@ def calibration_model(G: int, n: int):
         joint_move_init_scale={"asis_tau": 0.1},
     ), sample_y
 
+
+P10_SCHED = (40, 40)        # phase 10b's warmup / draws at the judged width
+P10_SWEEP_SEED = 77         # the noise of 10b(ii)'s one sweep
+
+
+def phase10_rank() -> int:
+    """One rank of phase 10b: ``python3 chip_smoke.py --phase10-rank``
+    under the NESTMC_* env the phase sets (multihost.initialize picks gloo
+    when ranks share a card, NCCL when each has its own). The judged
+    preset at full width on P10_SCHED: (i) the chains split over every
+    rank, (ii) one sweep from (i)'s final carry with the groups split in
+    two (and the chains over the rest), then a run so split. Writes
+    rank<r>.json (scalars) and rank<r>.npz (what the phase compares) to
+    NESTMC_PHASE10_DIR."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from nestmc_torch import ShardingConfig, sample
+    from nestmc_torch.kernels.gibbs import make_sweep
+    from nestmc_torch.ops.cuda import launch_counts, reset_launch_counts
+    from nestmc_torch.parallel import collectives, multihost
+    from nestmc_torch.parallel.sharding import (
+        make_mesh,
+        make_shard,
+        map_specs,
+        state_shardings,
+        take,
+    )
+    from nestmc_torch.presets import get_preset, override_run
+    from nestmc_torch.rng import SweepRNG
+
+    multihost.initialize()
+    ready_s = time.time() - float(os.environ["NESTMC_PHASE10_T0"])
+    out = os.environ["NESTMC_PHASE10_DIR"]
+    rank, dev = multihost.rank(), multihost.device()
+    model, data, cfg = get_preset("judged", device=dev)
+    base = override_run(cfg, warmup=P10_SCHED[0], draws=P10_SCHED[1])
+    world = multihost.world_size()
+    res = {"rank": rank, "backend": multihost.backend(), "device": str(dev),
+           "world_size": world, "ready_s": ready_s}
+    arrays = {}
+
+    def leaves(prefix, st):
+        for part in ("position", "log_scale", "accept_sum", "cache"):
+            for k, v in getattr(st, part).items():
+                if torch.is_tensor(v):
+                    arrays[f"{prefix}.{part}.{k}"] = v.cpu().numpy()
+                elif isinstance(v, dict):
+                    for kk, vv in v.items():
+                        arrays[f"{prefix}.{part}.{k}.{kk}"] = vv.cpu().numpy()
+
+    def run(tag, sharding):
+        reset_launch_counts()
+        post = sample(model, data, dataclasses.replace(base,
+                                                       sharding=sharding))
+        res[f"{tag}_launches"] = launch_counts()
+        t = post.timings
+        res[f"{tag}_ms_sweep"] = 1e3 * (t["warmup_s"] + t["sample_s"]) / sum(
+            P10_SCHED)
+        res[f"{tag}_setup_s"] = t["setup_s"]
+        res[f"{tag}_accept"] = {k: float(v.mean())
+                                for k, v in post.accept_rates.items()}
+        return post
+
+    post = run("i", ShardingConfig(chain_shards=world))
+    for k, v in post.draws.items():
+        arrays[f"i.draws.{k}"] = v.cpu().numpy()
+    leaves("i.final", post.final_state)
+    carry = post.final_state
+
+    # (ii) one sampling sweep from (i)'s final carry, groups split
+    split = ShardingConfig(chain_shards=world // 2, group_shards=2)
+    cfg_g = dataclasses.replace(base, sharding=split)
+    mesh = make_mesh(cfg_g)
+    shard = make_shard(model, data, cfg_g, mesh)
+    specs = state_shardings(model, cfg_g, mesh)
+    local = map_specs(lambda t, sp: take(t, sp, shard.spans), specs, carry)
+    rng = SweepRNG(P10_SWEEP_SEED, dev)
+    c0, cl, C = shard.spans["chains"]
+    if cl != C:
+        rng.chains = (c0, C)
+    with collectives.activate(shard):
+        st = make_sweep(model, cfg_g)(local, shard.local, False, rng)
+        for k in ("mu", "log_tau"):
+            arrays[f"ii.local.position.{k}"] = st.position[k].cpu().numpy()
+            arrays[f"ii.local.log_scale.{k}"] = st.log_scale[k].cpu().numpy()
+        st = map_specs(lambda t, sp: collectives.gather(t, sp, shard),
+                       specs, st)
+    leaves("ii.sweep", st)
+
+    collectives.TIMING = True
+    collectives.STATS.update(groups_sum_calls=0, groups_sum_s=0.0)
+    post = run("ii", split)
+    sweeps = sum(P10_SCHED)
+    res["ii_groups_sum_calls_sweep"] = (
+        collectives.STATS["groups_sum_calls"] / sweeps)
+    res["ii_groups_sum_ms_sweep"] = (
+        1e3 * collectives.STATS["groups_sum_s"] / sweeps)
+    res["ii_worst_rhat"] = post.worst_rhat()
+    res["ii_finite"] = all(bool(torch.isfinite(v).all())
+                           for v in post.draws.values())
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+
+def phase10(dev, smi: str, ranks: int = 2) -> None:
+    """Phase 10: (a) the step kernels at shard offsets; (b) ``ranks``
+    processes (two on the one card by default: gloo; one a card when the
+    host has that many: NCCL) run the judged preset at full width,
+    chain-sharded over all ranks, then with the groups split in two.
+    Every failed check exits through fail()."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nestmc_torch import sample
+    from nestmc_torch.diagnostics import fold_rhat_scalars
+    from nestmc_torch.kernels.gibbs import make_sweep
+    from nestmc_torch.ops.cuda import poisson_accept as pacc
+    from nestmc_torch.ops.cuda.mala_accept import fused_mala_logistic_step
+    from nestmc_torch.ops.cuda.mh_accept import fused_rwmh_logistic_step
+    from nestmc_torch.ops.cuda.newton_accept import (
+        fused_newton_logistic_step,
+    )
+    from nestmc_torch.ops.loglik import eta_padded, xt_sum, xxt_packed
+    from nestmc_torch.presets import get_preset, override_run
+    from nestmc_torch.rng import SweepRNG
+
+    t10 = time.perf_counter()
+
+    def step_case(name, C, U, n, p, seed=5):
+        """(launch(rng, cs, us) -> outputs, out layouts) of one step in
+        Philox mode on slices cs (chains) and us (units) of its inputs."""
+        g = torch.Generator().manual_seed(seed)
+        T = p * (p + 1) // 2
+        pois_ = name.startswith("pois")
+        x = 0.5 * torch.randn(U, n, p, generator=g)
+        x[:, :, 0] = 1.0
+        y = (torch.poisson(torch.full((U, n), 1.5), generator=g) if pois_
+             else (torch.rand(U, n, generator=g) < 0.5).float())
+        h = torch.zeros(C, U, T)
+        for i in range(p):
+            h[..., i * (i + 1) // 2 + i] = 2.0 + torch.rand(C, U, generator=g)
+        a = {k: v.to(dev) for k, v in dict(
+            beta=0.3 * torch.randn(C, U, p, generator=g),
+            v=0.3 * torch.randn(C, U, generator=g),
+            g=0.3 * torch.randn(C, U, p, generator=g), h=h,
+            ls=0.3 * torch.randn(C, U, generator=g) - 1.0,
+            mu=0.3 * torch.randn(C, p, generator=g),
+            lt=0.3 * torch.randn(C, p, generator=g) - 0.5,
+            bgs=0.3 * torch.randn(C, U, p, generator=g), x=x, y=y,
+            mask=torch.ones(U, n),
+            fm=torch.randn(2, U, p, C, generator=g),
+            fm2=torch.rand(2, U, p, C, generator=g)).items()}
+        fsc = fold_rhat_scalars(torch.tensor([3.0, 0.0]), 3, 8)
+
+        def launch(cs, us):
+            rng = SweepRNG(9, dev)
+            if cs.start:
+                rng.chains = (cs.start, C)
+            units = (us.start, U) if us.start else None
+
+            def cut(k):
+                v = a[k]
+                if k in ("x", "y", "mask"):
+                    return v[us].contiguous()
+                if k in ("mu", "lt"):
+                    return v[cs].contiguous()
+                if k in ("fm", "fm2"):
+                    return v[:, us, :, cs].contiguous()
+                return v[cs, us].contiguous()
+
+            d = (cut("x"), cut("y"), cut("mask"))
+            if name == "rwmh_step":
+                return fused_rwmh_logistic_step(
+                    cut("beta"), cut("v"), cut("ls"), cut("mu"), cut("lt"),
+                    *d, rng=rng, units=units)
+            if name == "mala_step":
+                return fused_mala_logistic_step(
+                    cut("beta"), cut("v"), cut("g"), cut("ls"), cut("mu"),
+                    cut("lt"), *d, rng=rng, units=units)
+            if name.startswith("newton_step"):
+                frozen = name == "newton_step_frozen_fold"
+                return fused_newton_logistic_step(
+                    cut("beta"), cut("v"), cut("g"), cut("h"), cut("ls"),
+                    cut("mu"), cut("lt"), *d, rng=rng, frozen=frozen,
+                    units=units, rhat_fold=((cut("fm"), cut("fm2"), fsc)
+                                            if frozen else None))
+            step = {"pois_rwmh_step": pacc.fused_rwmh_poisson_step,
+                    "pois_mala_step": pacc.fused_mala_poisson_step,
+                    "pois_newton_step": pacc.fused_newton_poisson_step}[name]
+            args = [cut("beta"), cut("v")]
+            if name != "pois_rwmh_step":
+                args.append(cut("g"))
+            if name == "pois_newton_step":
+                args.append(cut("h"))
+            return step(*args, cut("ls"), cut("bgs"), cut("lt"), *d, rng=rng,
+                        units=units)
+        return launch
+
+    def sliced(t, cs, us):
+        if t.ndim == 4 and t.shape[0] == 2:        # fold (2, U, p, C)
+            return t[:, us, :, cs]
+        return t[cs, us]
+
+    cases10a = [("newton_step_refresh",) + JUDGED,
+                ("newton_step_frozen_fold",) + JUDGED,
+                ("mala_step",) + RW, ("rwmh_step",) + RW,
+                ("pois_rwmh_step",) + POIS, ("pois_mala_step",) + POIS,
+                ("pois_newton_step",) + POIS]
+    for name, C, U, n, p in cases10a:
+        launch = step_case(name, C, U, n, p)
+        full_out = launch(slice(None), slice(None))
+        for cs, us in ((slice(C // 2 + 1, C), slice(None)),
+                       (slice(None), slice(U // 2 + 3, U))):
+            part = launch(cs, us)
+            bad = [i for i, (f, q) in enumerate(zip(full_out, part))
+                   if not torch.equal(sliced(f, cs, us), q)]
+            where = (f"chains {cs.start}..{C}" if cs.start
+                     else f"units {us.start}..{U}")
+            say(f"10a {name} at C={C} U={U} n={n} p={p}, {where}: "
+                f"{'bitwise the full launch' if not bad else 'DIFFERS'}")
+            if bad:
+                fail(f"10a: {name} at offsets differs from the full launch "
+                     f"(outputs {bad})")
+    # the plain passes' batched matmuls (ops/loglik.py, the hier_glm
+    # gaussian and negbin likelihoods) on a chain slice: the full call's
+    # slice, bitwise, so chain shards repeat the unsharded run there too
+    for C, U, n, p in (JUDGED, RW):
+        g = torch.Generator().manual_seed(5)
+        x = (0.5 * torch.randn(U, n, p, generator=g)).to(dev)
+        beta = (0.3 * torch.randn(C, U, p, generator=g)).to(dev)
+        r = torch.randn(C, U, n, generator=g).to(dev)
+        for cs in (slice(C // 2 + 1, C), slice(0, 3)):
+            bad = [name for name, fn in (
+                ("eta_padded", lambda c: eta_padded(beta[c], x)),
+                ("xt_sum", lambda c: xt_sum(r[c], x)),
+                ("xxt_packed", lambda c: xxt_packed(x, r[c].abs())))
+                if not torch.equal(fn(slice(None))[cs], fn(cs))]
+            say(f"10a plain eta_padded, xt_sum, xxt_packed at C={C} U={U} "
+                f"n={n} p={p}, chains {cs.start}..{cs.stop}: "
+                f"{'bitwise the full call' if not bad else 'DIFFERS'}")
+            if bad:
+                fail(f"10a: the plain {bad} on a chain slice differ from the "
+                     "full call")
+    t10a = time.perf_counter() - t10
+
+    # 10b: the ranks (two share the one card: gloo), judged at full width
+    torch.cuda.empty_cache()
+    shared = ranks > torch.cuda.device_count()
+    backend = "gloo" if shared else "nccl"
+    d10 = tempfile.mkdtemp(prefix="phase10_")
+    t_spawn = time.time()
+    # each rank's stderr goes to a file: a full pipe would stall a rank
+    # and, through its collectives, every other
+    logs = [open(os.path.join(d10, f"rank{r}.log"), "w")
+            for r in range(ranks)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase10-rank"],
+        env={**os.environ,
+             "NESTMC_COORDINATOR_ADDRESS": f"file://{d10}/rendezvous",
+             "NESTMC_NUM_PROCESSES": str(ranks),
+             "NESTMC_PROCESS_ID": str(r),
+             "NESTMC_PHASE10_DIR": d10, "NESTMC_PHASE10_T0": str(t_spawn)},
+        stdout=subprocess.DEVNULL, stderr=logs[r])
+        for r in range(ranks)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=150)
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        fail("10b: a rank ran past 150 s")
+    finally:
+        for f in logs:
+            f.close()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(d10, f"rank{r}.log")) as f:
+                err = f.read()
+            fail(f"10b: rank {r} exited {proc.returncode}:\n{err[-3000:]}")
+    rk = []
+    for r in range(ranks):
+        with open(os.path.join(d10, f"rank{r}.json")) as f:
+            res = json.load(f)
+        with np.load(os.path.join(d10, f"rank{r}.npz")) as z:
+            rk.append((res, {k: z[k] for k in z.files}))
+    shutil.rmtree(d10, ignore_errors=True)
+    t10b_ranks = time.time() - t_spawn
+    for res, _ in rk:
+        say(f"10b rank {res['rank']} of {res['world_size']}: backend "
+            f"{res['backend']} on {res['device']}; ready "
+            f"{res['ready_s']:.1f} s after the spawn, first sweep after "
+            f"{res['ready_s'] + res['i_setup_s']:.1f} s; (i) "
+            f"{res['i_ms_sweep']:.2f} ms a sweep, (ii) "
+            f"{res['ii_ms_sweep']:.2f} ms a sweep (groups_sum timed: "
+            f"{res['ii_groups_sum_calls_sweep']:.1f} calls, "
+            f"{res['ii_groups_sum_ms_sweep']:.3f} ms a sweep) on '{smi}'"
+            + ("; the ranks time-share one card: not a scaling result"
+               if shared else ""))
+        for tag in ("i", "ii"):
+            la = res[f"{tag}_launches"]
+            for k in ("newton_step_refresh", "newton_step_frozen",
+                      "logp_grad_hess", "logp_grad"):
+                if not la.get(k):
+                    fail(f"10b ({tag}) rank {res['rank']}: {k} launched "
+                         f"no time on the path ({la})")
+        if res["backend"] != backend or res["world_size"] != ranks:
+            fail(f"10b: rank {res['rank']} ran {res['backend']} of "
+                 f"{res['world_size']}, expected {backend} of {ranks}")
+
+    # the unsharded run of the same schedule and seed, in this process
+    jm, jd, jcfg = get_preset("judged", device=dev)
+    jbase = override_run(jcfg, warmup=P10_SCHED[0], draws=P10_SCHED[1])
+    jpost = sample(jm, jd, jbase)
+    ref_arrays = {f"i.draws.{k}": v.cpu().numpy()
+                  for k, v in jpost.draws.items()}
+
+    def leaves10(prefix, st):
+        out = {}
+        for part in ("position", "log_scale", "accept_sum", "cache"):
+            for k, v in getattr(st, part).items():
+                if torch.is_tensor(v):
+                    out[f"{prefix}.{part}.{k}"] = v.cpu().numpy()
+                elif isinstance(v, dict):
+                    for kk, vv in v.items():
+                        out[f"{prefix}.{part}.{k}.{kk}"] = vv.cpu().numpy()
+        return out
+
+    ref_arrays.update(leaves10("i.final", jpost.final_state))
+    got = rk[0][1]
+    i_keys = sorted(k for k in got if k.startswith("i."))
+    if i_keys != sorted(ref_arrays):
+        fail(f"10b(i): leaves {i_keys} != {sorted(ref_arrays)}")
+    diff_i = [k for k in i_keys if not np.array_equal(got[k], ref_arrays[k])]
+    say(f"10b(i) chain_shards={ranks} vs the unsharded run ({P10_SCHED[0]}/"
+        f"{P10_SCHED[1]}, every collected draw and the final carry, "
+        f"{len(i_keys)} arrays): "
+        f"{'bitwise equal' if not diff_i else 'DIFFER: ' + str(diff_i)}")
+    if diff_i:
+        fail("10b(i): chain-sharded draws differ from the unsharded run")
+    sweep_ref = leaves10("ii.sweep", make_sweep(jm, jbase)(
+        jpost.final_state, jd, False, SweepRNG(P10_SWEEP_SEED, dev)))
+    worst_ii = 0.0
+    for k, ref in sweep_ref.items():
+        q = got[k]
+        err = float(np.max(np.abs(q - ref) / (1.0 + np.abs(ref))))
+        worst_ii = max(worst_ii, err)
+        if not err <= 1e-4:
+            fail(f"10b(ii): {k} of the group-sharded sweep off by {err}")
+    # the replicated blocks of each chain shard's two group shards
+    same = all(np.array_equal(rk[r][1][k], rk[r + 1][1][k])
+               for r in range(0, ranks, 2)
+               for k in rk[r][1] if k.startswith("ii.local."))
+    acc_u = {k: float(v.mean()) for k, v in jpost.accept_rates.items()}
+    acc_d = max(abs(res["ii_accept"][k] - v) for res, _ in rk
+                for k, v in acc_u.items())
+    say(f"10b(ii) chain_shards={ranks // 2} x group_shards=2: one sweep "
+        f"from the same carry, every leaf within {worst_ii:.2e} "
+        f"(|a-b|/(1+|b|) <= 1e-4) of the unsharded sweep's; mu, log_tau "
+        f"and their log scales bitwise equal on each chain shard's group "
+        f"shards: {same}; acceptance within {acc_d:.4f} (< 0.05) of the "
+        f"unsharded run's {acc_u}; worst R-hat "
+        f"{rk[0][0]['ii_worst_rhat']:.4f} (printed, not gated: "
+        f"{sum(P10_SCHED)} sweeps)")
+    if not same:
+        fail("10b(ii): replicated blocks differ between the ranks")
+    if not acc_d < 0.05:
+        fail(f"10b(ii): acceptance off by {acc_d}")
+    if not all(res["ii_finite"] for res, _ in rk):
+        fail("10b(ii): NaN or inf in the group-sharded draws")
+    del jpost, jm, jd
+    torch.cuda.empty_cache()
+    say(f"phase 10 (sharding) took {time.perf_counter() - t10:.1f} s: 10a "
+        f"{t10a:.1f}, the ranks {t10b_ranks:.1f} from spawn to exit")
 
 def bound(nbytes: float, ops: float):
     t_b, t_o = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
@@ -1756,7 +2166,11 @@ def main() -> int:
     import numpy as np
 
     from nestmc_torch import cli
-    from nestmc_torch.checkpoint import load_checkpoint, save_checkpoint
+    from nestmc_torch.checkpoint import (
+        checkpoint_tag,
+        load_checkpoint,
+        save_checkpoint,
+    )
     from nestmc_torch.kernels.state import checkpoint_template
 
     t7 = time.perf_counter()
@@ -1786,15 +2200,18 @@ def main() -> int:
             launches_total[k] = launches_total.get(k, 0) + nl
         return out.strip().splitlines()[-1], sec
 
-    # (a) config 2 at full width and schedule through the command line,
-    # collecting group_loglik (one value-only loglik launch a retained
-    # draw), checkpointing every segment of 1024
-    W2, D2 = 1500, 4096
+    # (a) config 2 at full width through the command line, half its
+    # schedule (phase 6 gates the full one), collecting group_loglik (one
+    # value-only loglik launch a retained draw), checkpointing every
+    # segment of 512
+    W2, D2 = 750, 2048
+    HALF = D2 // 2
     path_a, path_r, path_b = (os.path.join(tmp, f) for f in
                               ("a.npz", "a_resumed.npz", "b.npz"))
     ck_a, ck_r = os.path.join(tmp, "ck"), os.path.join(tmp, "ck_resume")
     base = ["run", "--preset", "hier-logistic-100", "--collect",
-            "mu,log_tau,beta:8,group_loglik", "--segment-size", "1024",
+            "mu,log_tau,beta:8,group_loglik", "--warmup", str(W2),
+            "--draws", str(D2), "--segment-size", "512",
             "--checkpoint-every", "1", "--metric-json", "--quiet"]
     line, sec_a = cli_run("run hier-logistic-100", base + [
         "--checkpoint-dir", ck_a, "--save-draws", path_a],
@@ -1852,25 +2269,26 @@ def main() -> int:
     os.makedirs(ck_r)
     for f in os.listdir(ck_a):
         ck_phase, _, ck_n = f.split(".")[0].split("_", 1)[1].rpartition("_")
-        if ck_phase == "warmup" or int(ck_n) <= 2048:
+        if ck_phase == "warmup" or int(ck_n) <= HALF:
             shutil.copy(os.path.join(ck_a, f), ck_r)
     line, sec_b = cli_run("run --resume", base + [
         "--checkpoint-dir", ck_r, "--resume", "--save-draws", path_r],
-        {"newton_step_frozen": D2 - 2048, "logp_grad": D2 - 2048,
-         "loglik": D2 - 2048, "logp_grad_hess": 1})
+        {"newton_step_frozen": D2 - HALF, "logp_grad": D2 - HALF,
+         "loglik": D2 - HALF, "logp_grad_hess": 1})
     res_r = json.loads(line)
     zr = dict(np.load(path_r))
-    if res_r["timings"]["draws_run"] != D2 - 2048 or zr["mu"].shape[1] != (
-            D2 - 2048):
+    if res_r["timings"]["draws_run"] != D2 - HALF or zr["mu"].shape[1] != (
+            D2 - HALF):
         fail(f"resume ran {res_r['timings']['draws_run']} draws, not "
-             f"{D2 - 2048}")
+             f"{D2 - HALF}")
     gaps = {k: float(np.abs(zr["__full_rhat__." + k] - v).max())
             for k, v in rh_a.items()}
     bitwise = all(np.array_equal(zr["__full_rhat__." + k], v)
                   for k, v in rh_a.items()) and all(
-        np.array_equal(zr[k], za[k][:, 2048:]) for k in
+        np.array_equal(zr[k], za[k][:, HALF:]) for k in
         ("mu", "log_tau", "beta", "group_loglik"))
-    say(f"cli resume from sample_000002048: {D2 - 2048} draws in "
+    say(f"cli resume from {checkpoint_tag('sample', HALF)}: {D2 - HALF} "
+        f"draws in "
         f"{sec_b:.1f} s (load {1e3 * res_r['timings']['resume_s']:.1f} ms, "
         f"setup {1e3 * res_r['timings']['setup_s']:.1f} ms); finalized "
         f"all-parameter R-hat vs the uninterrupted run: max |diff| {gaps} "
@@ -2037,7 +2455,7 @@ def main() -> int:
              lambda D: {"mu": (64, D, 4), "log_tau": (64, D, 4),
                         "beta": (64, D, 100, 4),
                         "group_loglik": (64, D, 100)},
-             warmup=1500, draws=4096, full_rhat=True,
+             warmup=750, draws=2048, full_rhat=True,
              runner=glm_runner(bmodel, bdata, glm_cfg(64, {
                  "mu": None, "log_tau": None, "beta": None,
                  "group_loglik": None}), "hier_glm binomial",
@@ -2550,9 +2968,13 @@ def main() -> int:
         f"{time.perf_counter() - t9:.1f} s: 9a {t9a:.1f}, 9b {t9b:.1f}, "
         f"9c {t9c:.1f}, 9d {t9d:.1f}")
 
+    # ---- 10. sharding on the card ----
+    phase10(dev, smi)
+
     # ---- 6, continued: the paths cut to the time left ----
     full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)
-    j_min, p_min, s_min = (300, 512), (1000, 1024), (200, 512)
+    j_min, p_min, s_min = (150, 256), (300, 256), (100, 256)
+    m_min = (300, 256)
     s_rw = (200, 200)           # the segment RW path: short, R-hat printed
     seg_mala = segment_runner("mala")
     est = {k: per_sweep(k) for k in ("mala-100k", "judged",
@@ -2565,6 +2987,16 @@ def main() -> int:
         # the RW path: about the MALA one's cost a sweep
         return need_s(est["segment"], sched) + need_s(est["segment"], s_rw)
 
+    need_least = (need_s(est["mala-100k"], m_min)
+                  + need_s(est["judged"], j_min)
+                  + sum(need_s(est[v], p_min) for v in variants)
+                  + need_seg(s_min))
+    say(f"the cut paths start {BUDGET_S - left_s():.1f} s in, "
+        f"{left_s():.0f} s left; their least schedules need ~"
+        f"{need_least:.0f} s; estimated ms a sweep (s of set-up): "
+        + ", ".join(f"{k} {1e3 * v[0]:.1f} ({v[1]:.1f})"
+                    for k, v in est.items()))
+
     need_m = need_s(est["mala-100k"], full)
     spare = (left_s() - 60.0 - need_m
              - need_s(est["judged"], j_min)
@@ -2572,8 +3004,9 @@ def main() -> int:
              - need_seg(s_min))
     m_sched = full
     if spare < 0:
-        scale = max(0.25, 1.0 + spare / need_m)
-        m_sched = (full[0], max(1024, int(full[1] * scale) // 4 * 4))
+        scale = max(0.0, 1.0 + spare / need_m)
+        m_sched = (max(m_min[0], int(full[0] * scale)),
+                   max(m_min[1], int(full[1] * scale) // 4 * 4))
         say(f"CUT mala-100k: {full[0]}/{full[1]} needs ~{need_m:.0f} s and "
             f"{left_s():.0f} s are left: running warmup {m_sched[0]}, draws "
             f"{m_sched[1]} at full width")
@@ -2594,8 +3027,9 @@ def main() -> int:
     if need_seg(s_full) > room:
         scale = max(room - need_seg(s_min), 0.0) / max(
             need_seg(s_full) - need_seg(s_min), 1e-9)
-        sm_sched = (s_full[0], s_min[1] + int(
-            (s_full[1] - s_min[1]) * min(scale, 1.0)) // 2 * 2)
+        sm_sched = (s_min[0] + int((s_full[0] - s_min[0]) * min(scale, 1.0)),
+                    s_min[1] + int(
+                        (s_full[1] - s_min[1]) * min(scale, 1.0)) // 2 * 2)
         if scale <= 0.0:
             sm_sched = s_min
         say(f"CUT the segment MALA path: {s_full[0]}/{s_full[1]} needs "
@@ -2621,7 +3055,8 @@ def main() -> int:
     v_sched = p_full
     if need_v > room:
         scale = max(room, 0.0) / need_v
-        v_sched = (p_full[0], max(p_min[1], int(p_full[1] * scale) // 2 * 2))
+        v_sched = (max(p_min[0], int(p_full[0] * scale)),
+                   max(p_min[1], int(p_full[1] * scale) // 2 * 2))
         say(f"CUT config 3's variants: {p_full[0]}/{p_full[1]} needs "
             f"~{need_v:.0f} s and {left_s():.0f} s are left: running "
             f"warmup {v_sched[0]}, draws {v_sched[1]} at full width")
@@ -2671,5 +3106,28 @@ def main() -> int:
     return 0
 
 
+def phase10_alone(ranks: int) -> int:
+    """``python3 chip_smoke.py --phase10 N``: build p=3 and p=4, then phase
+    10 alone with N ranks, one a card (NCCL) on a host of N cards."""
+    import torch
+
+    from nestmc_torch import bench
+    from nestmc_torch.ops.cuda import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    _build.build([3, 4])
+    smi = bench.gpu_query()
+    say(f"phase 10 alone: {ranks} ranks on {torch.cuda.device_count()} "
+        f"card(s), '{smi}'")
+    phase10(torch.device("cuda"), smi, ranks)
+    say(f"total {time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--phase10-rank"]:
+        raise SystemExit(phase10_rank())
+    if sys.argv[1:2] == ["--phase10"]:
+        raise SystemExit(phase10_alone(int(sys.argv[2])))
     raise SystemExit(main())

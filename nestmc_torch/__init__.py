@@ -20,7 +20,9 @@ saved runs by WAIC or PSIS-LOO (compare.py). Posterior-predictive checks
 user path: load, fit, check, compare. A user's own model, written for one
 chain with distributions.py and transforms.py, is lifted to the chains
 by model.vmap_chains; data.py builds data from per-group lists
-(``from_ragged``).
+(``from_ragged``). parallel/ shards a run over processes on
+torch.distributed, one device each: chains (the unsharded draws, bitwise)
+and groups (the sums over groups all-reduced).
 """
 
 from nestmc_torch.compare import compare, psis_loo, waic

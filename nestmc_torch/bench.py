@@ -119,7 +119,10 @@ def measure(model, data, cfg, label: str, title: str,
     """:func:`run` for a given (model, data, cfg): ``label`` names it in
     the info dict, ``title`` in the metric. On a CPU device (the tests'
     small runs) the result names the CPU and the device memory, power
-    limit and card are not measured (None)."""
+    limit and card are not measured (None). In a sharded run (one rank of
+    a multi-process run) the per-GPU rates divide by the world size."""
+    from nestmc_torch.parallel.multihost import world_size
+
     device = data_device(data)
     cuda = device.type == "cuda"
     over = {k: v for k, v in (("chains", chains), ("warmup", warmup),
@@ -150,8 +153,9 @@ def measure(model, data, cfg, label: str, title: str,
     sample_s = post.timings["sample_s"]
     floor = post.min_ess_argmin()
     floor_all = post.min_ess_all_params()
-    value = post.total_ess() / sample_s
-    min_rate = post.min_ess() / sample_s
+    gpus = world_size()
+    value = post.total_ess() / sample_s / gpus
+    min_rate = post.min_ess() / sample_s / gpus
     n_scalars = sum(math.prod(v.shape[2:]) for v in post.draws.values())
     info = {
         "preset": label, "seed": seed, "chains": rc.chains,
@@ -162,7 +166,7 @@ def measure(model, data, cfg, label: str, title: str,
         "peak_mem_gb_sampling": peak_sampling,
         "peak_mem_gb_diagnostics": peak_gb(),
         "sweeps_per_s": (rc.warmup + rc.draws)
-        / (post.timings["warmup_s"] + sample_s),
+        / (post.timings["warmup_s"] + sample_s), "gpus": gpus,
         **post.timings,
     }
     result = {
@@ -183,7 +187,8 @@ def measure(model, data, cfg, label: str, title: str,
             round(floor_all["ess"], 1) if floor_all else None
         ),
         "min_ess_all_params_lb95_per_sec_per_chip": (
-            round(floor_all["ess_lb"] / sample_s, 1) if floor_all else None
+            round(floor_all["ess_lb"] / sample_s / gpus, 1)
+            if floor_all else None
         ),
         "min_ess_all_floor": (
             f"{floor_all['block']}{list(floor_all['index'])}"

@@ -16,6 +16,12 @@ all-parameter R-hat as ``__full_rhat__.<block>``), --metric-json (the
 benchmark metric line), --profile DIR (a torch.profiler trace),
 --debug-nans (fail at the first segment whose position holds a NaN).
 ``--cost-analysis`` and ``--enable-checks`` are XLA's and exit 2.
+--chain-shards/--group-shards run one rank of a multi-process launch
+(NESTMC_COORDINATOR_ADDRESS / NESTMC_NUM_PROCESSES / NESTMC_PROCESS_ID or
+torchrun's env; parallel/multihost.py): their product must be the number
+of processes (else exit 2), each rank runs on its own card (or its share
+of one, or the CPU with ``--device cpu``), and only the primary rank
+prints, saves draws and writes checkpoints.
 
 A resume differs from the reference's in one way: a sample-phase
 checkpoint without the streamed accumulators, resumed into a full_rhat
@@ -226,18 +232,25 @@ def cmd_run(args) -> int:
     from nestmc_torch.config import validate
     from nestmc_torch.data import check_device
     from nestmc_torch.engine import sample
+    from nestmc_torch.parallel import make_mesh, multihost
     from nestmc_torch.presets import get_preset
 
     try:
         device = check_device(args.device)
+        # a multi-process launch (NESTMC_* or torchrun env): one rank each
+        multihost.initialize(device=device.type)
+        if multihost.world_size() > 1:
+            device = multihost.device()
         model, data, cfg = get_preset(
             args.preset, seed=args.seed or 0, device=device,
             scale=args.scale)
         cfg = _apply_overrides(cfg, args)
         validate(cfg)
+        make_mesh(cfg)
     except (RuntimeError, KeyError, ValueError, NotImplementedError) as e:
         print(f"run: {e}", file=sys.stderr)
         return 2
+    primary = multihost.is_primary()
 
     if not args.quiet:
         _log_to_stderr()
@@ -269,6 +282,8 @@ def cmd_run(args) -> int:
     wall = time.perf_counter() - t0
     if args.resume:
         post.timings["resume_s"] = resume_s
+    if not primary:
+        return 0
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         path = os.path.join(args.profile, f"{args.preset}.trace.json")
@@ -300,10 +315,11 @@ def cmd_run(args) -> int:
     else:
         sample_s = max(post.timings.get("sample_s", wall), 1e-9)
         total_ess = post.total_ess()
+        gpus = multihost.world_size()
         print(json.dumps({
             "preset": args.preset,
             "metric": "effective_samples_per_sec_per_gpu",
-            "value": total_ess / sample_s,
+            "value": total_ess / sample_s / gpus,
             "unit": "ESS/s/GPU",
             "total_ess": total_ess,
             "min_ess": post.min_ess(),
@@ -318,7 +334,7 @@ def cmd_run(args) -> int:
             "timings": post.timings,
             "backend": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
-            "n_devices": 1,
+            "n_devices": gpus,
             "config": post.config,
         }, default=str))
     return 0

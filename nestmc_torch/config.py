@@ -2,8 +2,8 @@
 
 Same field names and defaults as :mod:`nestmc.config`, copied rather than
 imported because importing ``nestmc`` imports JAX. The deprecated
-``KernelConfig.fused_sweep`` is gone. The port runs on one device:
-:func:`validate` raises on sharding and on values out of range.
+``KernelConfig.fused_sweep`` is gone. :func:`validate` raises on values
+out of range.
 """
 
 from __future__ import annotations
@@ -89,7 +89,9 @@ class RunConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """Device layout. The port runs on one device: only (1, 1)."""
+    """Device layout: chain_shards x group_shards ranks, one process (and
+    device) a rank (nestmc_torch/parallel). donate_carry is carried
+    unused (PyTorch reuses the carry's memory by itself)."""
 
     chain_shards: int = 1
     group_shards: int = 1
@@ -137,9 +139,11 @@ def validate(cfg: SamplerConfig) -> None:
         raise ValueError(f"thin={r.thin}: must be >= 1")
     if r.full_rhat_thin < 1:
         raise ValueError(f"full_rhat_thin={r.full_rhat_thin}: must be >= 1")
-    if (s.chain_shards, s.group_shards) != (1, 1):
-        raise NotImplementedError(
-            "sharding: the port runs on one device (ROADMAP Queue 1)"
-        )
+    if s.chain_shards < 1 or s.group_shards < 1:
+        raise ValueError(f"chain_shards={s.chain_shards}, group_shards="
+                         f"{s.group_shards}: each must be >= 1")
+    if r.chains < s.chain_shards:
+        raise ValueError(f"chains={r.chains} < chain_shards="
+                         f"{s.chain_shards}")
     if r.checkpoint_every < 0:
         raise ValueError(f"checkpoint_every={r.checkpoint_every}: >= 0")

@@ -43,6 +43,10 @@
 // fmean != null turns on the fold; eps != null takes external noise
 // (eps, logu) instead of Philox(k0, k1). Returns the cudaError_t of the
 // launch (0 = success).
+// c0, g0, G_total: the first chain and unit this launch holds in the
+// unsharded launch and that launch's unit count (0, 0, G unsharded), so
+// the Philox counters are the unsharded run's. They come last: a build
+// of an earlier tree, which has no such arguments, ignores them.
 extern "C" int nestmc_mala_step(
     const float* x, const float* y, const float* mask, const float* beta,
     const float* v, const float* g, const float* ls, const float* mu,
@@ -50,7 +54,7 @@ extern "C" int nestmc_mala_step(
     const float* fm2, float* out_beta, float* out_v, float* out_g,
     float* out_alpha, float* out_fmean, float* out_fm2, float cnt0,
     float act0, float cnt1, float act1, int C, int G, int n, unsigned int k0,
-    unsigned int k1, void* stream) {
+    unsigned int k1, void* stream, int c0, int g0, int G_total) {
   using namespace nestmc;
   constexpr int P = NESTMC_P;
   MalaArgs a{x,         y,         mask,      nullptr,      beta,
@@ -59,6 +63,9 @@ extern "C" int nestmc_mala_step(
              out_v,     out_g,     out_alpha, out_fmean,    out_fm2,
              {cnt0, cnt1}, {act0, act1}, C,   G,            n,
              k0,        k1};
+  a.cell_c0 = c0;
+  a.cell_g0 = g0;
+  a.cell_G = G_total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fold = fmean != nullptr;
   const bool ext = eps != nullptr;

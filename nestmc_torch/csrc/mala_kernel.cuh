@@ -26,8 +26,8 @@
 // through one unit at a time; beta, g, v and alpha go back through the same
 // row buffers and are stored one run a chain row. The per-chain mu and
 // log tau (C, P) are read once a thread. Each cell's arithmetic, and its
-// Philox counter (c*G + g, block), are those of the one-unit kernel it
-// replaced, so the outputs are bitwise the same.
+// Philox counter (the cell's index in the unsharded launch, block), are those
+// of the one-unit kernel it replaced, so the outputs are bitwise the same.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,6 +64,10 @@ struct MalaArgs {
   float act[2];        // fold: 1 if the draw belongs to the half, else 0
   int C, G, n;
   uint32_t k0, k1;     // Philox key
+  // cell (c, g)'s Philox counter is (cell_c0 + c) * cell_G + cell_g0 + g:
+  // its index in the unsharded launch when this one holds chains
+  // cell_c0.. and units cell_g0.. of cell_G (0, 0, G when unsharded)
+  int cell_c0, cell_g0, cell_G;
 };
 
 // Staged operand widths, in carve order: beta, g (P), v, log_scale (1),
@@ -129,7 +133,8 @@ __global__ void __launch_bounds__(kTileWarps * 32, kMalaBlocks)
     }
     for (int u = warp; u < t.ng; u += nwarps) {
       const int gi = t.g0 + u;
-      const size_t cell = (size_t)c * a.G + gi;
+      const size_t cell =
+          (size_t)(a.cell_c0 + c) * a.cell_G + (a.cell_g0 + gi);
       const int oP = lane * sP + u * P, o1 = lane * s1 + u;
 
       float beta[P], mu[P], gcar[P];

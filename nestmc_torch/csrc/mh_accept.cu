@@ -46,6 +46,10 @@
 
 // eps != null takes external noise (eps, logu) instead of Philox(k0, k1).
 // Returns the cudaError_t of the launch (0 = success).
+// c0, g0, G_total: the first chain and unit this launch holds in the
+// unsharded launch and that launch's unit count (0, 0, G unsharded), so
+// the Philox counters are the unsharded run's. They come last: a build
+// of an earlier tree, which has no such arguments, ignores them.
 extern "C" int nestmc_rwmh_step(const float* x, const float* y,
                                 const float* mask, const float* beta,
                                 const float* lik, const float* ls,
@@ -54,11 +58,15 @@ extern "C" int nestmc_rwmh_step(const float* x, const float* y,
                                 float* out_beta, float* out_lik,
                                 float* out_alpha, int C, int G, int n,
                                 unsigned int k0, unsigned int k1,
-                                void* stream) {
+                                void* stream,
+    int c0, int g0, int G_total) {
   using namespace nestmc;
   RwArgs a{x,   y,    mask,     nullptr, beta,    lik,       ls, mu, lt,
            eps, logu, out_beta, out_lik, out_alpha, C,       G,  n,  k0,
            k1};
+  a.cell_c0 = c0;
+  a.cell_g0 = g0;
+  a.cell_G = G_total;
   return (int)launch_rwmh<Logit, NESTMC_P>(a,
                                            static_cast<cudaStream_t>(stream));
 }

@@ -64,6 +64,10 @@ __global__ void philox_probe_kernel(float* normal, float* uniform, int count,
 // frozen: no Hessian in the obs pass and out_h unused; fmean != null turns
 // on the fold; eps != null takes external noise (eps, logu) instead of
 // Philox(k0, k1). Returns the cudaError_t of the launch (0 = success).
+// c0, g0, G_total: the first chain and unit this launch holds in the
+// unsharded launch and that launch's unit count (0, 0, G unsharded), so
+// the Philox counters are the unsharded run's. They come last: a build
+// of an earlier tree, which has no such arguments, ignores them.
 extern "C" int nestmc_newton_step(
     const float* x, const float* y, const float* mask, const float* beta,
     const float* v, const float* g, const float* h, const float* ls,
@@ -72,7 +76,7 @@ extern "C" int nestmc_newton_step(
     float* out_g, float* out_h, float* out_alpha, float* out_fmean,
     float* out_fm2, float cnt0, float act0, float cnt1, float act1, int C,
     int G, int n, unsigned int k0, unsigned int k1, int frozen,
-    void* stream) {
+    void* stream, int c0, int g0, int G_total) {
   using namespace nestmc;
   constexpr int P = NESTMC_P;
   NewtonArgs a{x,         y,        mask,         nullptr,      beta,
@@ -81,6 +85,9 @@ extern "C" int nestmc_newton_step(
                out_beta,  out_v,    out_g,        out_h,        out_alpha,
                out_fmean, out_fm2,  {cnt0, cnt1}, {act0, act1}, C,
                G,         n,        k0,           k1};
+  a.cell_c0 = c0;
+  a.cell_g0 = g0;
+  a.cell_G = G_total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fold = fmean != nullptr;
   cudaError_t err;

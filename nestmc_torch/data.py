@@ -99,6 +99,24 @@ class NestedData:
         )
 
 
+def memo_by_data(fn, data):
+    """d -> fn(d), computed once for the build-time ``data`` and once for
+    the last other data object a hook saw (a group shard's local data,
+    which stays the same object for a whole run; each new data set of
+    the Geweke tier): a model's parameter-free per-data terms."""
+    built = fn(data)
+    last = {}
+
+    def get(d):
+        if d is data:
+            return built
+        if last.get("d") is not d:
+            last.update(d=d, v=fn(d))
+        return last["v"]
+
+    return get
+
+
 def data_device(data) -> torch.device:
     """The device ``data`` lives on: its ``device`` attribute where it has
     one, else that of the first tensor among a dict's values (data are
@@ -258,6 +276,26 @@ class NestedData3:
                            len(ys), device=device)
         return dataclasses.replace(data,
                                    extra=_extra_tensors(extra, data.device))
+
+    def subset_groups(self, g0: int, g1: int) -> "NestedData3":
+        """Groups g0 .. g1 - 1 and their subjects (a group shard's data):
+        group ids shifted to start at 0, members rebuilt for the subset,
+        each ``extra`` leaf cut on its subject or group axis."""
+        sg = self.subject_group.cpu().numpy()
+        s0, s1 = (int(i) for i in np.searchsorted(sg, [g0, g1]))
+        out = from_numpy3(self.x[s0:s1].cpu().numpy(),
+                          self.y[s0:s1].cpu().numpy(),
+                          self.mask[s0:s1].cpu().numpy(), sg[s0:s1] - g0,
+                          g1 - g0, device=self.device)
+        S, G = self.num_subjects, self.num_groups
+
+        def cut(v):
+            if v.shape[:1] == (S,):
+                return v[s0:s1]
+            return v[g0:g1] if v.shape[:1] == (G,) else v
+
+        return dataclasses.replace(
+            out, extra={k: cut(v) for k, v in self.extra.items()})
 
     def subjects_per_group(self) -> torch.Tensor:
         """(G,) int32 subjects of each group (from subject_counts: no

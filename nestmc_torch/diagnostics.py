@@ -281,11 +281,14 @@ def fold_rhat_update(mean, m2, x_t, scalars):
     return new_mean, new_m2
 
 
-def _std_sequences(count, mean, m2):
-    """(n, seq_mean (2C, ...), seq_var (2C, ...)) from standard layout."""
+def _std_sequences(count, mean, m2, chain_axis: int = 0):
+    """(n, seq_mean (2C, ...), seq_var (2C, ...)) from standard layout:
+    mean/m2 with the half axis at 1, after the leaf's leading axis;
+    ``chain_axis`` is the chains' axis in the position leaf."""
     n = max(float(count[0]), 2.0)
-    mean_hc = mean.movedim(1, 0)
-    m2_hc = m2.movedim(1, 0)
+    cdim = 0 if chain_axis == 0 else chain_axis + 1
+    mean_hc = mean.movedim((1, cdim), (0, 1))
+    m2_hc = m2.movedim((1, cdim), (0, 1))
     return n, *_sequences(count, mean_hc, m2_hc)
 
 
@@ -312,10 +315,16 @@ def _rhat_from_sequences(n, seq_mean, seq_var):
     return torch.sqrt(var_plus / torch.where(w > 0, w, torch.ones_like(w)))
 
 
-def streaming_rhat_finalize(acc: dict) -> dict:
-    """{name: classic split R-hat over the block's non-chain dims}."""
+def streaming_rhat_finalize(acc: dict, chain_axes: dict | None = None) -> dict:
+    """{name: classic split R-hat over the block's non-chain dims}.
+
+    chain_axes: {name: axis of the chains in the position leaf} (default
+    0): the Welford update is elementwise, so accumulators of a
+    chains-minor leaf (e.g. beta (G, p, C), axis 2) pool the same way
+    once this step knows where the chains are."""
     return {
-        name: _rhat_from_sequences(*_std_sequences(*a))
+        name: _rhat_from_sequences(*_std_sequences(
+            *a, 0 if chain_axes is None else chain_axes.get(name, 0)))
         for name, a in acc.items()
     }
 

@@ -1,7 +1,7 @@
 """Chain orchestration: warmup, then sampling, as Python loops over sweeps.
 
-Port of :mod:`nestmc.engine` for one device. PyTorch runs eagerly, so each
-phase is a loop over sweeps on the data's device; the two phases stay
+Port of :mod:`nestmc.engine`, one device a process. PyTorch runs eagerly,
+so each phase is a loop over sweeps on the data's device; the two phases stay
 separate and the metric freezes at warmup end (KernelConfig.newton_freeze).
 Each retained draw takes RunConfig.thin sweeps. Retained draws
 (RunConfig.collect: blocks, and the model's derived quantities computed
@@ -29,8 +29,18 @@ draw. The draw pending in the one-draw-late fold is the carry's position:
 the first resumed sweep folds it, once. Timings synchronise the device
 before every clock read.
 
-Not ported: sharding, and the reference's remote-backend warm-up and
-compile retries.
+A sharded run (ShardingConfig; one process a rank, parallel/multihost)
+runs the same loop on this rank's part (parallel/sharding.py): the carry
+is built in full from the seed on every rank and cut, the rng draws at
+the global shapes (rng.py), and the sums over a group-sharded unit axis
+are all_reduces (parallel/collectives.groups_sum). The draws, the
+accumulators, the acceptance rates and the final carry are gathered to
+the global layout at the end, so every rank's Posterior is the unsharded
+layout; checkpoints hold the gathered carry and are written by the
+primary rank, so a resume may use any topology. Per-rank logs come from
+the primary, over its own chains and units.
+
+Not ported: the reference's remote-backend warm-up and compile retries.
 """
 
 from __future__ import annotations
@@ -59,22 +69,34 @@ from nestmc_torch.diagnostics import (
 from nestmc_torch.kernels.gibbs import make_sweep, rhat_fold_names
 from nestmc_torch.kernels.state import KernelState, init_kernel_state
 from nestmc_torch.model import ModelSpec
+from nestmc_torch.parallel.collectives import activate, any_rank, gather
+from nestmc_torch.parallel.multihost import is_primary
+from nestmc_torch.parallel.sharding import (
+    make_mesh,
+    make_shard,
+    map_specs,
+    state_shardings,
+    take,
+)
 from nestmc_torch.posterior import Posterior
 from nestmc_torch.rng import SweepRNG
 
 log = logging.getLogger("nestmc_torch")
 
 
-def _collect(position, spec, derived):
+def _collect(position, spec, derived, picks):
     """{name: (C, *shape)} of what RunConfig.collect retains: block names
     and the model's derived quantities (computed from the position), all
-    of both when ``spec`` is None."""
+    of both when ``spec`` is None. picks: {name: (local index, ...)} of a
+    selection on a group-sharded unit axis (:func:`_unit_picks`)."""
     if spec is None:
         return {**position, **{k: fn(position) for k, fn in derived.items()}}
     out = {}
     for name, k in spec.items():
         v = derived[name](position) if name in derived else position[name]
-        if k is None:
+        if name in picks:
+            out[name] = v.index_select(1, picks[name][0].to(v.device))
+        elif k is None:
             out[name] = v
         elif isinstance(k, int):
             out[name] = v[:, :k]
@@ -82,6 +104,62 @@ def _collect(position, spec, derived):
             idx = torch.as_tensor(k, dtype=torch.long, device=v.device)
             out[name] = v.index_select(1, idx)
     return out
+
+
+def _unit_picks(model, spec, shard) -> dict:
+    """{name: (local index, positions, total)} for each collected
+    selection (an int k or indices) of a quantity whose unit axis the
+    shard splits: the selected units this rank holds, their places in the
+    selection, and its length."""
+    picks = {}
+    if shard is None or spec is None:
+        return picks
+    for name, k in spec.items():
+        axis = model.unit_axes.get(name)
+        if k is None or axis is None or not shard.split(axis):
+            continue
+        start, length, total = shard.spans[axis]
+        sel = (list(range(min(k, total))) if isinstance(k, int)
+               else [int(i) for i in k])
+        pos = [i for i, u in enumerate(sel) if start <= u < start + length]
+        picks[name] = (torch.tensor([sel[i] - start for i in pos],
+                                    dtype=torch.long),
+                       torch.tensor(pos, dtype=torch.long), len(sel))
+    return picks
+
+
+def _draw_spec(model, name, shard, picks) -> tuple:
+    """The gather spec of a (C, D, ...) draws buffer."""
+    if name in picks:
+        return ("chains", None, picks[name][1:])
+    axis = model.unit_axes.get(name)
+    return ("chains", None, axis) if axis and shard.split(axis) else (
+        "chains",)
+
+
+def _map_acc(fn, acc, pos_specs):
+    """fn(tensor, spec) over the streamed accumulators (std_acc,
+    fold_acc), each spec derived from its block's position spec: the
+    standard layout (C, 2, ...) and the kernel layout (2, ..., C)."""
+    std_acc, fold_acc = acc
+
+    def std(spec):
+        return (spec[0], None) + tuple(spec[1:])
+
+    def fold(spec, ndim):
+        out = [None] * ndim
+        out[-1] = "chains"
+        for i, axis in enumerate(spec[1:]):
+            out[1 + i] = axis
+        return tuple(out)
+
+    return (
+        {k: (c, fn(m, std(pos_specs[k])), fn(m2, std(pos_specs[k])))
+         for k, (c, m, m2) in std_acc.items()},
+        {k: (c, fn(m, fold(pos_specs[k], m.ndim)),
+             fn(m2, fold(pos_specs[k], m2.ndim)))
+         for k, (c, m, m2) in fold_acc.items()},
+    )
 
 
 def _sync(device) -> None:
@@ -134,13 +212,14 @@ def sample(
     schedule and only the remaining draws run. A full_rhat run resumed
     past draw 0 without them raises: its gate would cover the remaining
     draws only. debug_nans: raise FloatingPointError at the first segment
-    whose position holds a NaN.
+    whose position holds a NaN. A sharded config (cfg.sharding) runs as
+    one rank of a multi-process run: every rank passes the same full
+    data, init_state and init_acc, in the global layout.
     """
     cfg = cfg or SamplerConfig()
     validate(cfg)
     rc = cfg.run
-    D = rc.draws
-    streamed = rc.full_rhat and D > 0
+    streamed = rc.full_rhat and rc.draws > 0
     if streamed and draws_offset > 0 and init_acc is None:
         raise ValueError(
             f"draws_offset={draws_offset} with full_rhat needs init_acc, "
@@ -149,27 +228,91 @@ def sample(
     device = data_device(data)
     if rng is None:
         rng = SweepRNG(rc.seed, device)
+    mesh = make_mesh(cfg)
 
     _sync(device)
     t_setup = time.perf_counter()
-    state = (init_state if init_state is not None
+    resumed = init_state is not None
+    state = (init_state if resumed
              else init_kernel_state(model, cfg, rng, data))
+    shard = None
+    if mesh is not None:
+        # every rank built the same global carry: keep this rank's part
+        shard = make_shard(model, data, cfg, mesh)
+        specs = state_shardings(model, cfg, mesh)
+
+        def cut(t, spec):
+            return take(t, spec, shard.spans)
+
+        state = map_specs(cut, specs, state)
+        if init_acc is not None:
+            init_acc = _map_acc(cut, init_acc, specs.position)
+        data = shard.local
+        c0, cl, C = shard.spans["chains"]
+        rng.chains = (c0, C) if cl != C else None
     sweep = make_sweep(model, cfg)
     _sync(device)
     timings = {"setup_s": time.perf_counter() - t_setup,
                "checkpoint_s": 0.0, "checkpoints": 0}
+    try:
+        with activate(shard):
+            return _run(model, data, cfg, rng, state, sweep, timings, shard,
+                        skip_warmup, resumed, init_acc,
+                        draws_offset, debug_nans)
+    finally:
+        if shard is not None:
+            rng.chains = None
+
+
+def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
+         resumed, init_acc, draws_offset, debug_nans) -> Posterior:
+    """sample()'s two phases on this rank's carry (the whole carry
+    unsharded), then the gather of what the Posterior holds."""
+    rc = cfg.run
+    D = rc.draws
+    streamed = rc.full_rhat and D > 0
+    device = data_device(data)
+    primary = shard is None or is_primary()
+    specs = (state_shardings(model, cfg, shard.mesh) if shard is not None
+             else None)
+
+    def gather_state(st):
+        if shard is None:
+            return st
+        return map_specs(lambda t, spec: gather(t, spec, shard), specs, st)
+
+    def gather_acc(acc):
+        if shard is None:
+            return acc
+        return _map_acc(lambda t, spec: gather(t, spec, shard), acc,
+                        specs.position)
+
+    def nan_check(st, phase, done):
+        if shard is None:
+            _check_nans(st, phase, done)
+            return
+        bad = any(bool(torch.isnan(v).any()) for v in st.position.values())
+        if any_rank(bad, device):
+            _check_nans(gather_state(st), phase, done)
 
     def checkpoint(seg_idx, phase, count, carry, extra):
         if (not rc.checkpoint_dir or rc.checkpoint_every <= 0
                 or (seg_idx + 1) % rc.checkpoint_every):
             return
         t_c = time.perf_counter()
+        if shard is not None:
+            # every rank's generators are the same: the primary's suffice
+            carry = {**carry, "state": gather_state(carry["state"])}
+            if "acc" in carry:
+                carry["acc"] = gather_acc(carry["acc"])
         tag = checkpoint_tag(phase, count)
-        save_checkpoint(rc.checkpoint_dir, tag, carry,
-                        {"phase": phase, "config": cfg.to_dict(), **extra})
+        if primary:
+            save_checkpoint(rc.checkpoint_dir, tag, carry,
+                            {"phase": phase, "config": cfg.to_dict(),
+                             **extra})
+            log.info("checkpoint saved: %s/%s", rc.checkpoint_dir, tag)
         timings["checkpoint_s"] += time.perf_counter() - t_c
         timings["checkpoints"] += 1
-        log.info("checkpoint saved: %s/%s", rc.checkpoint_dir, tag)
 
     # ---- warmup: refreshed metric ----
     warm_rates = {k: torch.zeros_like(v) for k, v in state.accept_sum.items()}
@@ -179,19 +322,19 @@ def sample(
                                                  rc.segment_size)):
             for _ in range(n):
                 state = sweep(state, data, True, rng)
-            if rc.log_every_segment:
+            if rc.log_every_segment and primary:
                 _sync(device)
                 log.info("warmup: %d/%d sweeps (%.0f sweeps/s)",
                          start + n, rc.warmup,
                          (start + n) / max(time.perf_counter() - t_w, 1e-9))
             if debug_nans:
-                _check_nans(state, "warmup", start + n)
+                nan_check(state, "warmup", start + n)
             checkpoint(i, "warmup", state.t,
                        {"state": state, "rng": rng.get_state()},
                        {"sweeps_done": state.t, "has_acc": False})
         warm_rates = {k: v / rc.warmup for k, v in state.accept_sum.items()}
         state = _zero_accept(state)
-    elif init_state is not None and skip_warmup:
+    elif resumed and skip_warmup:
         # the carry's accept sums belong to sweeps this call did not run
         state = _zero_accept(state)
     _sync(device)
@@ -212,6 +355,7 @@ def sample(
             })
             fold_acc = fold_rhat_init(state.position, folds)
     fold_names = tuple(fold_acc)
+    picks = _unit_picks(model, rc.collect, shard)
     draws = {}
 
     _sync(device)
@@ -242,7 +386,8 @@ def sample(
                 std_acc = streaming_rhat_update(
                     std_acc, state.position, j // rthin, half_len
                 )
-            views = _collect(state.position, rc.collect, model.derived)
+            views = _collect(state.position, rc.collect, model.derived,
+                             picks)
             if not draws:
                 draws = {
                     k: torch.empty((v.shape[0], remaining)
@@ -253,7 +398,7 @@ def sample(
             for k, v in views.items():
                 draws[k][:, j - draws_offset] = v
         done = draws_offset + start + n
-        if rc.log_every_segment:
+        if rc.log_every_segment and primary:
             _sync(device)
             extra = ""
             if rc.log_rhat and start + n >= 8 and draws:
@@ -264,7 +409,7 @@ def sample(
                      (start + n) * rc.thin
                      / max(time.perf_counter() - t_s, 1e-9), extra)
         if debug_nans:
-            _check_nans(state, "sample", done)
+            nan_check(state, "sample", done)
         carry = {"state": state, "rng": rng.get_state()}
         if streamed:
             carry["acc"] = (std_acc, fold_acc)
@@ -289,6 +434,7 @@ def sample(
                     mean, m2, state.position[k].movedim(0, -1), sc
                 )
                 fold_acc[k] = (count + sc[:, 1], nm, nm2)
+        std_acc, fold_acc = gather_acc((std_acc, fold_acc))
         full_rhat = {
             **streaming_rhat_finalize(std_acc),
             **fold_rhat_finalize(fold_acc),
@@ -298,6 +444,15 @@ def sample(
             **fold_ess_finalize(fold_acc),
         }
 
+    if shard is not None:
+        t_g = time.perf_counter()
+        draws = {k: gather(v, _draw_spec(model, k, shard, picks), shard)
+                 for k, v in draws.items()}
+        warm_rates = {k: gather(v, specs.accept_sum[k], shard)
+                      for k, v in warm_rates.items()}
+        state = gather_state(state)
+        _sync(device)
+        timings["gather_s"] = time.perf_counter() - t_g
     post = Posterior(
         draws=draws,
         accept_rates={k: v / max(remaining * rc.thin, 1)
@@ -310,3 +465,11 @@ def sample(
     )
     post.final_state = state
     return post
+
+
+def warmup_then_state(model, data, cfg: SamplerConfig,
+                      rng: SweepRNG | None = None) -> KernelState:
+    """Run only the warmup phase and return the adapted carry."""
+    cfg2 = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run,
+                                                            draws=0))
+    return sample(model, data, cfg2, rng).final_state

@@ -34,6 +34,7 @@ from nestmc_torch.kernels.newton import newton_update
 from nestmc_torch.kernels.rwmh import rwmh_update
 from nestmc_torch.kernels.state import KernelState
 from nestmc_torch.model import ModelSpec
+from nestmc_torch.parallel.collectives import groups_sum, unit_span
 
 _UPDATES = {"rwmh": rwmh_update, "mala": mala_update, "newton": newton_update}
 
@@ -205,9 +206,15 @@ def make_sweep(model: ModelSpec, cfg: SamplerConfig):
             alpha = sum(alphas) / len(alphas)
             accept_sum[name] = accept_sum[name] + alpha
             if adapt and algorithm != "newton":
-                # scales shared across units see the mean over units
+                # scales shared across units see the mean over units (of
+                # every group shard when the block's units are split)
                 if alpha.shape[1] != log_scale[name].shape[1]:
-                    alpha = alpha.mean(dim=1, keepdim=True)
+                    axis = model.unit_axes.get(name)
+                    if axis is not None and unit_span(axis) is not None:
+                        alpha = groups_sum(alpha, 1, keepdim=True) / (
+                            block.units)
+                    else:
+                        alpha = alpha.mean(dim=1, keepdim=True)
                 log_scale[name] = adapt_log_scale(
                     log_scale[name], alpha, t, target, cfg.kernel
                 )

@@ -24,6 +24,7 @@ from nestmc_torch.kernels.rwmh import (
     select_accepted,
 )
 from nestmc_torch.model import Block, ModelSpec
+from nestmc_torch.parallel.collectives import groups_mean, unit_draw
 
 
 def cond_value_and_grad(model: ModelSpec, name, value, position, data):
@@ -39,6 +40,10 @@ def cond_value_and_grad(model: ModelSpec, name, value, position, data):
         v = value.detach().requires_grad_(True)
         d = model.cond_logdensity(name, v, position, data)
         (g,) = torch.autograd.grad(d.sum(), v)
+    if model.unit_axes.get(name) is None:
+        # a replicated block of a group-sharded run: its gradient from
+        # every group shard's terms (collectives.groups_sum)
+        g = groups_mean(g)
     return d.detach(), g
 
 
@@ -97,7 +102,8 @@ def mala_update(rng, block: Block, model: ModelSpec, position, log_scale,
             model, block.name, value, position, data
         )
         d_old = as_cu(d_old, block)
-    eps = rng.normal(value.shape)
+    units = unit_draw(model.unit_axes.get(block.name))
+    eps = rng.normal(value.shape, units=units)
     prop = value + 0.5 * s2 * m_apply(g_old) + s * shape_noise(eps)
     if cache is not None:
         sv_new, sg_new = self_vag(prop, data)
@@ -124,7 +130,7 @@ def mala_update(rng, block: Block, model: ModelSpec, position, log_scale,
     log_alpha = d_new - d_old + (log_q_rev - log_q_fwd) / (
         2.0 * torch.exp(2.0 * log_scale)
     )
-    logu = rng.log_uniform(log_alpha.shape)
+    logu = rng.log_uniform(log_alpha.shape, units=units)
     accept = logu < log_alpha                       # NaN compares False
     new_value = select_accepted(accept, prop, value, block)
     new_cache = None

@@ -14,6 +14,7 @@ import torch
 
 from nestmc_torch.kernels.rwmh import accept_prob, as_cu, select_accepted
 from nestmc_torch.model import Block, ModelSpec
+from nestmc_torch.parallel.collectives import unit_draw
 from nestmc_torch.ops.smallchol import (
     chol_packed,
     half_logdet,
@@ -68,7 +69,8 @@ def newton_update(rng, block: Block, model: ModelSpec, position, log_scale,
     L_old = chol_packed(ex(sh + rh_old), p)
     mean_old = ex(value) + spd_solve(L_old, ex(sg + rg_old), p)
     sc = torch.exp(log_scale)[..., None]
-    eps = rng.normal(mean_old.shape)
+    units = unit_draw(model.unit_axes.get(block.name))
+    eps = rng.normal(mean_old.shape, units=units)
     prop = sq(mean_old + sc * solve_upper_t(L_old, eps, p))
 
     if frozen:
@@ -96,7 +98,7 @@ def newton_update(rng, block: Block, model: ModelSpec, position, log_scale,
     )
     log_alpha = d_new - d_old + log_q_rev - log_q_fwd
 
-    logu = rng.log_uniform(log_alpha.shape)
+    logu = rng.log_uniform(log_alpha.shape, units=units)
     accept = logu < log_alpha                      # NaN compares False
     new_value = select_accepted(accept, prop, value, block)
     new_cache = None

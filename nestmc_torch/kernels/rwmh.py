@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from nestmc_torch.model import Block, ModelSpec
+from nestmc_torch.parallel.collectives import unit_draw
 
 
 def bcast_over_unit_shape(s, block: Block):
@@ -71,11 +72,13 @@ def rwmh_update(rng, block: Block, model: ModelSpec, position, log_scale,
     self part of the conditional at the current value
     (ModelSpec.cond_cached), so only the proposal's self part is
     evaluated. Noise: eps = rng.normal,
-    then log u = rng.log_uniform, in that order.
+    then log u = rng.log_uniform, in that order (at the global shape in a
+    sharded run: the block's unit axis is dim 1).
     Returns (new_value, alpha (C, U), new_cache).
     """
     value = position[block.name]
-    eps = apply_precond(rng.normal(value.shape), pstd)
+    units = unit_draw(model.unit_axes.get(block.name))
+    eps = apply_precond(rng.normal(value.shape, units=units), pstd)
     prop = value + bcast_over_unit_shape(torch.exp(log_scale), block) * eps
     if cache is not None:
         self_fn, rest_fn = model.cond_cached[block.name]
@@ -90,7 +93,7 @@ def rwmh_update(rng, block: Block, model: ModelSpec, position, log_scale,
             model.cond_logdensity(block.name, value, position, data), block
         )
     log_alpha = d_new - d_old
-    logu = rng.log_uniform(log_alpha.shape)
+    logu = rng.log_uniform(log_alpha.shape, units=units)
     accept = logu < log_alpha                      # NaN compares False
     new_value = select_accepted(accept, prop, value, block)
     new_cache = None

@@ -87,6 +87,12 @@ class ModelSpec:
       frozen=False, rhat_fold=None) -> (value, cache, alpha[, fold])}.
     loglik_impls: {'selected': name} of the obs-pass route the model chose,
       or any named implementations a user adds (:meth:`with_loglik_impl`).
+    unit_axes: {block or derived name: 'groups' | 'subjects'}: the data
+      axis that the value's dim 1 indexes. A group-sharded run splits
+      these (parallel/sharding.py); a model declares them only when every
+      sum over those units in its hooks goes through
+      parallel.collectives.groups_sum, and a model without them is not
+      group-sharded.
     """
 
     name: str
@@ -113,6 +119,7 @@ class ModelSpec:
     fused_updates_newton: dict = dataclasses.field(default_factory=dict)
     cond_cached_newton: dict = dataclasses.field(default_factory=dict)
     loglik_impls: dict = dataclasses.field(default_factory=dict)
+    unit_axes: dict = dataclasses.field(default_factory=dict)
 
     def block(self, name: str) -> Block:
         for b in self.blocks:
@@ -195,6 +202,8 @@ def vmap_chains(spec: ModelSpec) -> ModelSpec:
         joint_logdensity=None if spec.joint_logdensity is None else joint,
         init_state=init_state,
         prior_sample=prior,
+        # its sums over units are the user's own: never group-sharded
+        unit_axes={},
     )
 
 

@@ -46,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from nestmc_torch.data import NestedData, from_numpy
+from nestmc_torch.data import NestedData, from_numpy, memo_by_data
 from nestmc_torch.distributions import (
     log_scale_guard,
     logpdf_halfnormal,
@@ -64,8 +64,19 @@ from nestmc_torch.ops.cuda.poisson_accept import (
     fused_newton_poisson_step,
     fused_rwmh_poisson_step,
 )
-from nestmc_torch.ops.loglik import poisson_const, xxt_packed
+from nestmc_torch.ops.loglik import (
+    eta_padded,
+    poisson_const,
+    xt_sum,
+    xxt_packed,
+)
 from nestmc_torch.ops.smallchol import pack_diag
+from nestmc_torch.parallel.collectives import (
+    groups_sum,
+    local_data,
+    local_units,
+    unit_span,
+)
 
 _LOG_2PI = 1.8378770664093453
 FAMILIES = ("gaussian", "binomial", "bernoulli", "poisson", "negbin")
@@ -129,10 +140,7 @@ def make_hier_glm(
             out["log_binom"] = torch.zeros_like(d.y)
         return out
 
-    build_terms = _data_terms(data)
-
-    def _terms_of(d):
-        return build_terms if d is data else _data_terms(d)
+    _terms_of = memo_by_data(_data_terms, data)
 
     def _tau_logprior(lt):
         """log p(log tau) elementwise, with the Jacobian to log space."""
@@ -144,7 +152,7 @@ def make_hier_glm(
         return logpdf_halfnormal(torch.exp(lt), prior_tau_scale) + lt
 
     def _eta(beta, d):
-        return torch.einsum("cgp,gnp->cgn", beta, d.x)
+        return eta_padded(beta, d.x)
 
     # ---- analytic likelihood derivatives: per-observation score resid =
     # dll/deta and curvature w = -d2ll/deta2 give grad = X^T resid and the
@@ -193,14 +201,14 @@ def make_hier_glm(
         ll, resid = _family_terms(_eta(value, d), d, aux_val, need_w=False)
         return (
             torch.sum(ll * d.mask, dim=-1),
-            torch.einsum("cgn,gnp->cgp", resid * d.mask, d.x),
+            xt_sum(resid * d.mask, d.x),
         )
 
     def _lik_vgh(value, d, aux_val):
         ll, resid, w = _family_terms(_eta(value, d), d, aux_val, need_w=True)
         return (
             torch.sum(ll * d.mask, dim=-1),
-            torch.einsum("cgn,gnp->cgp", resid * d.mask, d.x),
+            xt_sum(resid * d.mask, d.x),
             xxt_packed(d.x, w * d.mask),
         )
 
@@ -232,10 +240,8 @@ def make_hier_glm(
     # passes with the per-group constant sum_i mask lgamma(y + 1) computed
     # once for the build-time data
     pois_fused = fused and family == "poisson"
-    const = poisson_const(data.y, data.mask) if pois_fused else None
-
-    def _const(d):
-        return const if d is data else poisson_const(d.y, d.mask)
+    _const = (memo_by_data(lambda d: poisson_const(d.y, d.mask), data)
+              if pois_fused else None)
 
     if pois_fused:
         def lik_self_v(value, d):
@@ -311,6 +317,7 @@ def make_hier_glm(
         return fused_rwmh_poisson_step(
             position["beta"], lik_cache, log_scale, _mu_bg(position),
             position["log_tau"], d.x, d.y, d.mask, rng=rng, const=_const(d),
+            units=unit_span("groups"),
         )
 
     def fused_mala_beta_update(rng, position, cache, log_scale, d):
@@ -323,6 +330,7 @@ def make_hier_glm(
         nb, nv, ng, alpha = fused_mala_poisson_step(
             position["beta"], v, g, log_scale, _mu_bg(position),
             position["log_tau"], d.x, d.y, d.mask, rng=rng, const=_const(d),
+            units=unit_span("groups"),
         )
         return nb, {"v": nv, "g": ng}, alpha
 
@@ -338,12 +346,12 @@ def make_hier_glm(
         nb, nv, ng, nh, alpha = fused_newton_poisson_step(
             position["beta"], v, g, h, log_scale, _mu_bg(position),
             position["log_tau"], d.x, d.y, d.mask, rng=rng, frozen=frozen,
-            const=_const(d),
+            const=_const(d), units=unit_span("groups"),
         )
         return nb, {"v": nv, "g": ng, "h": nh}, alpha
 
     def _suff(beta):
-        return beta.sum(dim=1), (beta * beta).sum(dim=1)
+        return groups_sum(beta, 1), groups_sum(beta * beta, 1)
 
     def _gprior_perk(s1, s2, mu, log_tau):
         quad = s2 - 2.0 * mu * s1 + G * mu * mu
@@ -363,7 +371,7 @@ def make_hier_glm(
                 logpdf_halfnormal(torch.exp(value), prior_sigma_scale)
                 + value + log_scale_guard(value)
             )
-            return torch.sum(_lik(state, d), dim=-1) + prior
+            return groups_sum(_lik(state, d), -1) + prior
         s1, s2 = _suff(state["beta"])
         if name == "mu":
             return _gprior_perk(
@@ -379,8 +387,8 @@ def make_hier_glm(
 
     def joint(state, d):
         out = (
-            torch.sum(_lik(state, d), dim=-1)
-            + torch.sum(_gprior(state), dim=-1)
+            groups_sum(_lik(state, d), -1)
+            + groups_sum(_gprior(state), -1)
             + torch.sum(logpdf_normal(state["mu"], 0.0, prior_mu_scale),
                         dim=-1)
             + torch.sum(_tau_logprior(state["log_tau"]), dim=-1)
@@ -496,8 +504,8 @@ def make_hier_glm(
             _tau_logprior(lt_new) + log_scale_guard(lt_new)
             - _tau_logprior(lt), dim=-1,
         )
-        log_alpha = (torch.sum(lik_new_pg, dim=-1)
-                     - torch.sum(lik_old_pg, dim=-1) + prior_delta)
+        log_alpha = (groups_sum(lik_new_pg, -1)
+                     - groups_sum(lik_old_pg, -1) + prior_delta)
         accept = rng.log_uniform((C,)) < log_alpha
         acc2 = accept[:, None]
         acc3 = accept[:, None, None]
@@ -563,7 +571,9 @@ def make_hier_glm(
         },
         # per-group loglik (C, G) for WAIC / PSIS-LOO on the build-time
         # data, one obs pass a retained draw when collected
-        derived={"group_loglik": lambda pos: _lik(pos, data)},
+        derived={"group_loglik": lambda pos: _lik(pos, local_data(data))},
+        # group sharding splits beta and group_loglik on the group axis
+        unit_axes={"beta": "groups", "group_loglik": "groups"},
     )
 
 
@@ -600,7 +610,8 @@ def _make_logistic_delegate(data, family, prior_mu_scale, prior_tau_scale,
     binom = family == "binomial"
     if binom and "trials" not in data.extra:
         raise ValueError("binomial family needs data.extra['trials']")
-    t_data = _reweighted(data) if binom else data
+    _t = memo_by_data(lambda d: _reweighted(d), data) if binom else None
+    t_data = _t(data) if binom else data
     base = make_hier_logistic(
         t_data,
         prior_mu_scale=prior_mu_scale,
@@ -611,9 +622,6 @@ def _make_logistic_delegate(data, family, prior_mu_scale, prior_tau_scale,
     )
     if not binom:
         return dataclasses.replace(base, name="hier_glm_bernoulli")
-
-    def _t(d):
-        return t_data if d is data else _reweighted(d)
 
     # the theta-free log binomial coefficient a group, (G,)
     log_binom = torch.sum(
@@ -652,7 +660,7 @@ def _make_logistic_delegate(data, family, prior_mu_scale, prior_tau_scale,
         y = rng.binomial(d.extra["trials"], torch.sigmoid(eta))
         return dataclasses.replace(d, y=y * d.mask.clamp_max(1.0))
 
-    base_gl = base.derived["group_loglik"]
+    lik_fn = base.cond_cached["beta"][0]
     return dataclasses.replace(
         base,
         name="hier_glm_binomial",
@@ -673,7 +681,9 @@ def _make_logistic_delegate(data, family, prior_mu_scale, prior_tau_scale,
         derived={
             **base.derived,
             # the binomial pmf scale for WAIC / PSIS-LOO
-            "group_loglik": lambda pos: base_gl(pos) + log_binom[None, :],
+            "group_loglik": lambda pos: (
+                lik_fn(pos["beta"], _t(local_data(data)))
+                + local_units(log_binom, 0)[None, :]),
         },
     )
 

@@ -71,6 +71,12 @@ from nestmc_torch.ops.smallchol import (
     solve_upper_t,
     spd_solve,
 )
+from nestmc_torch.parallel.collectives import (
+    groups_sum,
+    local_data,
+    local_units,
+    unit_span,
+)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -216,7 +222,7 @@ def make_hier_logistic(
         ref = _suff_of.get("beta")
         if ref is None or ref() is not beta:
             _suff_of["beta"] = weakref.ref(beta)
-            _suff_of["s"] = (beta.sum(dim=1), (beta * beta).sum(dim=1))
+            _suff_of["s"] = (groups_sum(beta, 1), groups_sum(beta * beta, 1))
         return _suff_of["s"]
 
     def _quad(s1, s2, mu):
@@ -299,7 +305,7 @@ def make_hier_logistic(
         return fused_rwmh_logistic_step(
             position["beta"], lik_cache, log_scale,
             position["mu"], position["log_tau"], data.x, data.y, data.mask,
-            rng=rng,
+            rng=rng, units=unit_span("groups"),
         )
 
     def _plain_fold(rhat_fold, beta):
@@ -330,7 +336,7 @@ def make_hier_logistic(
         out = fused_mala_logistic_step(
             position["beta"], v, g, log_scale,
             position["mu"], position["log_tau"], data.x, data.y, data.mask,
-            rng=rng, rhat_fold=rhat_fold,
+            rng=rng, rhat_fold=rhat_fold, units=unit_span("groups"),
         )
         nb, nv, ng, alpha = out[:4]
         if rhat_fold is not None:
@@ -360,6 +366,7 @@ def make_hier_logistic(
             position["beta"], v, g, h, log_scale,
             position["mu"], position["log_tau"], data.x, data.y, data.mask,
             rng=rng, frozen=frozen, rhat_fold=rhat_fold,
+            units=unit_span("groups"),
         )
         nb, nv, ng, nh, alpha = out[:5]
         new_cache = {"v": nv, "g": ng, "h": nh}
@@ -370,8 +377,8 @@ def make_hier_logistic(
     def _asis_joint_grad(g_lik, d, mu_at, lt_at):
         """(C, 2p) gradient of the z-fixed target F(mu, lt)."""
         return torch.cat([
-            g_lik.sum(dim=1) - mu_at * inv_s0_2,
-            (g_lik * d).sum(dim=1) + _tau_logprior_grad(lt_at),
+            groups_sum(g_lik, 1) - mu_at * inv_s0_2,
+            groups_sum(g_lik * d, 1) + _tau_logprior_grad(lt_at),
         ], dim=-1)
 
     def _asis_joint_metric(h_packed, d, lt_at):
@@ -382,9 +389,9 @@ def make_hier_logistic(
         C = d.shape[0]
         H = h_packed[..., hidx]                          # (C|1, G, p, p)
         dk = d[..., :, None]
-        m_mm = (H.sum(dim=1) + inv_s0_2 * eye_p).expand(C, p, p)
-        m_lm = (H * dk).sum(dim=1)                       # [lt_k, mu_l]
-        m_ll = (H * dk * d[..., None, :]).sum(dim=1) + torch.diag_embed(
+        m_mm = (groups_sum(H, 1) + inv_s0_2 * eye_p).expand(C, p, p)
+        m_lm = groups_sum(H * dk, 1)                     # [lt_k, mu_l]
+        m_ll = groups_sum(H * dk * d[..., None, :], 1) + torch.diag_embed(
             _tau_logprior_metric(lt_at)
         )
         M = torch.cat([
@@ -419,7 +426,8 @@ def make_hier_logistic(
         newton_mode = grad_mode and "h" in lik_cache
         if grad_mode:
             eps_q = rng.normal((C, q))
-            h_src = lik_cache["h"] if newton_mode else xxt_bound
+            h_src = (lik_cache["h"] if newton_mode
+                     else local_units(xxt_bound, 1))
             if newton_mode:
                 s, drift = 1.0, 1.0
             else:
@@ -445,7 +453,8 @@ def make_hier_logistic(
                 )
             else:
                 lik_new, grad_new = lik_value_and_grad(beta_new, data)
-                hess_new = lik_cache["h"] if newton_mode else xxt_bound
+                hess_new = (lik_cache["h"] if newton_mode
+                            else local_units(xxt_bound, 1))
             f_new = _asis_joint_grad(grad_new, diff_new, mu_new, lt_new)
             L_new = chol_packed(
                 _asis_joint_metric(hess_new, diff_new, lt_new), q
@@ -477,7 +486,7 @@ def make_hier_logistic(
                 -0.5 * (mu_new * mu_new - mu * mu) * inv_s0_2, dim=-1
             )
         log_alpha = (
-            torch.sum(lik_new - lik_old, dim=-1) + prior_delta + q_corr
+            groups_sum(lik_new - lik_old, -1) + prior_delta + q_corr
         )
         logu = rng.log_uniform((C,))
         accept = logu < log_alpha
@@ -529,8 +538,8 @@ def make_hier_logistic(
 
     def joint(state, data):
         return (
-            torch.sum(lik_fn(state["beta"], data), dim=-1)
-            + torch.sum(_gprior(state), dim=-1)
+            groups_sum(lik_fn(state["beta"], data), -1)
+            + groups_sum(_gprior(state), -1)
             + torch.sum(logpdf_normal(state["mu"], 0.0, prior_mu_scale),
                         dim=-1)
             + torch.sum(_tau_logprior(state["log_tau"]), dim=-1)
@@ -621,14 +630,18 @@ def make_hier_logistic(
         derived={
             # log of tau's conjugate statistic s2_k = sum_g (beta_gk -
             # mu_k)^2 (C, p): ESS(log_s2) caps ESS(log_tau) under invgamma
-            "log_s2": lambda pos: torch.log(torch.sum(
-                (pos["beta"] - pos["mu"][:, None, :]) ** 2, dim=1)),
+            "log_s2": lambda pos: torch.log(groups_sum(
+                (pos["beta"] - pos["mu"][:, None, :]) ** 2, 1)),
             # per-group loglik (C, G) for WAIC / PSIS-LOO: the route's
             # value-only pass (loglik, once per bucket, or seg_loglik) on
             # the build-time data, one launch a retained draw (a bucket's
             # each) when collected
-            "group_loglik": lambda pos: lik_fn(pos["beta"], data),
+            "group_loglik": lambda pos: lik_fn(pos["beta"],
+                                               local_data(data)),
         },
+        # group sharding splits beta and group_loglik on the group axis;
+        # ragged data are not group-sharded (parallel/sharding.py)
+        unit_axes={"beta": "groups", "group_loglik": "groups"},
     )
 
 

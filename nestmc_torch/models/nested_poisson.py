@@ -33,7 +33,7 @@ import math
 import numpy as np
 import torch
 
-from nestmc_torch.data import NestedData3, from_numpy3
+from nestmc_torch.data import NestedData3, from_numpy3, memo_by_data
 from nestmc_torch.distributions import (
     log_scale_guard,
     logpdf_halfnormal,
@@ -58,6 +58,12 @@ from nestmc_torch.ops.smallchol import (
     pack_diag,
     solve_upper_t,
     spd_solve,
+)
+from nestmc_torch.parallel.collectives import (
+    groups_sum,
+    local_data,
+    unit_draw,
+    unit_span,
 )
 
 _LOG_2PI = 1.8378770664093453
@@ -90,16 +96,15 @@ def make_nested_poisson(
     lp_const = a_ig * math.log(b_ig) - math.lgamma(a_ig)
     inv_s0_2 = 1.0 / prior_mu_scale**2
     inv_S2 = 1.0 / prior_tau_scale**2
-    # the parameter-free -sum_i mask lgamma(y + 1) per subject, once
-    const = poisson_const(data.y, data.mask)
+    # the parameter-free -sum_i mask lgamma(y + 1) per subject, once a
+    # data object
     n_obs = int(round(float(data.mask.sum())))
     ii = torch.tensor([i for i in range(p) for j in range(i + 1)],
                       device=data.device)
     jj = torch.tensor([j for i in range(p) for j in range(i + 1)],
                       device=data.device)
 
-    def _const(d):
-        return const if d is data else poisson_const(d.y, d.mask)
+    _const = memo_by_data(lambda d: poisson_const(d.y, d.mask), data)
 
     def _lik(beta_s, d):
         return poisson_loglik(beta_s, d.x, d.y, d.mask, _const(d))
@@ -160,12 +165,12 @@ def make_nested_poisson(
     def _suff_g(state):
         """(sum_g beta_g, sum_g beta_g^2), each (C, p)."""
         bg = state["beta_g"]
-        return bg.sum(dim=1), (bg * bg).sum(dim=1)
+        return groups_sum(bg, 1), groups_sum(bg * bg, 1)
 
     def _dev2_s(state, d):
         """sum_s (beta_s - beta_g(s))^2, (C, p)."""
         dev = state["beta_s"] - _bgs(state, d)
-        return (dev * dev).sum(dim=1)
+        return groups_sum(dev * dev, 1)
 
     def cond(name, value, state, d):
         state = {**state, name: value}
@@ -218,7 +223,7 @@ def make_nested_poisson(
         return fused_rwmh_poisson_step(
             position["beta_s"], lik_cache, log_scale, _bgs(position, d),
             position["log_tau_s"], d.x, d.y, d.mask, rng=rng,
-            const=_const(d),
+            const=_const(d), units=unit_span("subjects"),
         )
 
     def fused_mala_beta_s_update(rng, position, cache, log_scale, d):
@@ -231,7 +236,7 @@ def make_nested_poisson(
         nb, nv, ng, alpha = fused_mala_poisson_step(
             position["beta_s"], v, g, log_scale, _bgs(position, d),
             position["log_tau_s"], d.x, d.y, d.mask, rng=rng,
-            const=_const(d),
+            const=_const(d), units=unit_span("subjects"),
         )
         return nb, {"v": nv, "g": ng}, alpha
 
@@ -247,7 +252,7 @@ def make_nested_poisson(
         nb, nv, ng, nh, alpha = fused_newton_poisson_step(
             position["beta_s"], v, g, h, log_scale, _bgs(position, d),
             position["log_tau_s"], d.x, d.y, d.mask, rng=rng, frozen=frozen,
-            const=_const(d),
+            const=_const(d), units=unit_span("subjects"),
         )
         return nb, {"v": nv, "g": ng, "h": nh}, alpha
 
@@ -286,7 +291,8 @@ def make_nested_poisson(
         inv_tg2 = torch.exp(-2.0 * state["log_tau_g"])[:, None, :]
         prec = d.subject_counts[None, :, None] * inv_ts2 + inv_tg2
         mean = (s_g * inv_ts2 + state["mu"][:, None, :] * inv_tg2) / prec
-        return mean + rng.normal(mean.shape) / torch.sqrt(prec)
+        noise = rng.normal(mean.shape, units=unit_draw("groups"))
+        return mean + noise / torch.sqrt(prec)
 
     def _alpha(log_alpha):
         return torch.where(
@@ -316,10 +322,10 @@ def make_nested_poisson(
             bg_s = d.to_subjects(bg_eff)
             dev = bs - bg_s
             d_s = bg_s - mu[:, None, :]
-            val = torch.sum(-0.5 * dev * dev * inv_ts2, dim=(1, 2))
-            grad = (torch.sum(dev * inv_ts2 * d_s, dim=1)
+            val = groups_sum(-0.5 * dev * dev * inv_ts2, (1, 2))
+            grad = (groups_sum(dev * inv_ts2 * d_s, 1)
                     + _tau_logprior_grad(lt_at))
-            metric = (torch.sum(d_s * d_s * inv_ts2, dim=1)
+            metric = (groups_sum(d_s * d_s * inv_ts2, 1)
                       + _tau_logprior_metric(lt_at))
             return val, grad, metric
 
@@ -350,7 +356,7 @@ def make_nested_poisson(
         """Packed (C, T) Gauss-Newton metric of tau_s's z-fixed target:
         M_kl = sum_s h_s,kl d_sk d_sl + delta_kl (-pr''); dd (C, S, T)
         holds the products d_sk d_sl."""
-        return ((h_packed * dd).sum(dim=1)
+        return (groups_sum(h_packed * dd, 1)
                 + pack_diag(_tau_logprior_metric(lt_at), p))
 
     def asis_tau_s_move(rng, position, cache, scale, d, frozen=False):
@@ -376,7 +382,7 @@ def make_nested_poisson(
         grad_mode = isinstance(lik_cache, dict)
         newton_mode = grad_mode and "h" in lik_cache
         if newton_mode:
-            f_old = ((lik_cache["g"] * diff).sum(dim=1)
+            f_old = (groups_sum(lik_cache["g"] * diff, 1)
                      + _tau_logprior_grad(lt))
             m_old = _asis_s_metric(lik_cache["h"],
                                    diff[..., ii] * diff[..., jj], lt)
@@ -385,7 +391,7 @@ def make_nested_poisson(
                       + solve_upper_t(L_old, eps, p))
         elif grad_mode:
             s2 = scale * scale                               # (C, 1)
-            g_old = ((lik_cache["g"] * diff).sum(dim=1)
+            g_old = (groups_sum(lik_cache["g"] * diff, 1)
                      + _tau_logprior_grad(lt))
             lt_new = lt + 0.5 * s2 * g_old + scale * eps
         else:
@@ -402,7 +408,7 @@ def make_nested_poisson(
                 if newton_mode:
                     hess_new = lik_cache["h"]                # constant metric
             if newton_mode:
-                f_new = ((grad_new * diff_new).sum(dim=1)
+                f_new = (groups_sum(grad_new * diff_new, 1)
                          + _tau_logprior_grad(lt_new))
                 m_new = _asis_s_metric(
                     hess_new, diff_new[..., ii] * diff_new[..., jj], lt_new)
@@ -417,7 +423,7 @@ def make_nested_poisson(
                     - half_logdet(L_old, p)
                 )
             else:
-                g_new = ((grad_new * diff_new).sum(dim=1)
+                g_new = (groups_sum(grad_new * diff_new, 1)
                          + _tau_logprior_grad(lt_new))
                 fwd = lt_new - lt - 0.5 * s2 * g_old         # = scale eps
                 rev = lt - lt_new - 0.5 * s2 * g_new
@@ -434,7 +440,7 @@ def make_nested_poisson(
             _tau_logprior(lt_new) + log_scale_guard(lt_new)
             - _tau_logprior(lt), dim=-1,
         )
-        log_alpha = (torch.sum(lik_new - lik_old, dim=-1) + prior_delta
+        log_alpha = (groups_sum(lik_new - lik_old, -1) + prior_delta
                      + q_corr)
         accept = rng.log_uniform((C,)) < log_alpha
         acc2 = accept[:, None]
@@ -460,9 +466,9 @@ def make_nested_poisson(
 
     def joint(state, d):
         return (
-            torch.sum(_lik(state["beta_s"], d), dim=-1)
-            + torch.sum(_sprior(state, d), dim=-1)
-            + torch.sum(_gprior(state), dim=-1)
+            groups_sum(_lik(state["beta_s"], d), -1)
+            + groups_sum(_sprior(state, d), -1)
+            + groups_sum(_gprior(state), -1)
             + _pprior(state)
         )
 
@@ -555,10 +561,15 @@ def make_nested_poisson(
         joint_move_target_accept={"asis_tau_g": None, "asis_tau_s": "auto"},
         # one obs pass a retained draw when collected
         derived={
-            "subject_loglik": lambda pos: _lik(pos["beta_s"], data),
-            "group_loglik": lambda pos: data.group_sum(
-                _lik(pos["beta_s"], data)),
+            "subject_loglik": lambda pos: _lik(pos["beta_s"],
+                                               local_data(data)),
+            "group_loglik": lambda pos: local_data(data).group_sum(
+                _lik(pos["beta_s"], local_data(data))),
         },
+        # group sharding splits groups and, with whole groups on each
+        # shard, their subjects: subject -> group sums stay local
+        unit_axes={"beta_s": "subjects", "beta_g": "groups",
+                   "subject_loglik": "subjects", "group_loglik": "groups"},
     )
 
 

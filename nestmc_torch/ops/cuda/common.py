@@ -29,6 +29,25 @@ def check_tensor(t, name: str, shape: tuple, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def step_noise(rng, shape, units=None):
+    """(eps, log u) of a step's plain version from ``rng``: eps of ``shape``
+    (C, U, p), then log u (C, U); ``units`` as in :func:`cell_offsets`."""
+    u = None if units is None else (1, *units)
+    return (rng.normal(shape, units=u),
+            rng.log_uniform(tuple(shape[:2]), units=u))
+
+
+def cell_offsets(rng, units, U: int) -> tuple:
+    """(c0, u0, U_total) of a step launch's Philox counters, (c0 + c) *
+    U_total + u0 + u: the index cell (c, u) has in the unsharded launch.
+    c0 is the rng's first chain (``rng.chains``, None when it holds every
+    chain); ``units`` (u0, U_total) places the launch's U units, None for
+    all of them."""
+    chains = getattr(rng, "chains", None)
+    u0, total = (0, U) if units is None else units
+    return (0 if chains is None else int(chains[0])), int(u0), int(total)
+
+
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 

@@ -20,11 +20,13 @@ from nestmc_torch.diagnostics import fold_rhat_update
 from nestmc_torch.ops import loglik as _loglik
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
+    cell_offsets,
     check_tensor,
     fold_scalars,
     on_cpu,
     ptr,
     stream_of,
+    step_noise,
     tile_plan,
 )
 
@@ -72,7 +74,7 @@ def fused_mala_logistic_step_plain(
 
 
 def _launch(lib, beta, v_cache, g_cache, log_scale, mu, log_tau, x, y, mask,
-            noise, key, rhat_fold, stream):
+            noise, key, rhat_fold, stream, offsets):
     C, G, p = beta.shape
     n = x.shape[1]
     dev = beta.device
@@ -109,7 +111,7 @@ def _launch(lib, beta, v_cache, g_cache, log_scale, mu, log_tau, x, y, mask,
         ptr(log_scale), ptr(mu), ptr(log_tau), ptr(eps), ptr(logu),
         ptr(fmean), ptr(fm2), ptr(out[0]), ptr(out[1]), ptr(out[2]),
         ptr(out[3]), ptr(fold_out[0]), ptr(fold_out[1]), fsc[0][0], fsc[0][1],
-        fsc[1][0], fsc[1][1], C, G, n, k0, k1, stream,
+        fsc[1][0], fsc[1][1], C, G, n, k0, k1, stream, *offsets,
     )
     _build.check(rc, "mala_step")
     return out if rhat_fold is None else out + fold_out
@@ -117,20 +119,21 @@ def _launch(lib, beta, v_cache, g_cache, log_scale, mu, log_tau, x, y, mask,
 
 def fused_mala_logistic_step(
     beta, v_cache, g_cache, log_scale, mu, log_tau, x, y, mask,
-    rng=None, noise=None, rhat_fold=None,
+    rng=None, noise=None, rhat_fold=None, units=None,
 ):
     """One MALA update of the whole group block.
 
     (v_cache, g_cache): the carried likelihood value (C, G) and gradient
     (C, G, p) at beta. log_scale: (C, G) or (C, 1). rhat_fold: optional
-    (mean, m2, scalars) folded with the input beta.
+    (mean, m2, scalars) folded with the input beta. units: (g0, G_total)
+    of a group shard, as in mh_accept.fused_rwmh_logistic_step.
     Returns (new_beta, new_v, new_g, alpha (C, G)[, mean', m2']).
     """
     C, G, _ = beta.shape
     log_scale = log_scale.expand(C, G)
     if on_cpu(beta, "mala_step"):
         if noise is None:
-            noise = (rng.normal(beta.shape), rng.log_uniform((C, G)))
+            noise = step_noise(rng, beta.shape, units)
         return fused_mala_logistic_step_plain(
             beta, v_cache, g_cache, log_scale, mu, log_tau, x, y, mask,
             noise, rhat_fold=rhat_fold,
@@ -141,6 +144,7 @@ def fused_mala_logistic_step(
         out = _launch(
             lib, beta, v_cache, g_cache, log_scale.contiguous(), mu, log_tau,
             x, y, mask, noise, key, rhat_fold, stream_of(beta),
+            cell_offsets(rng, units, G),
         )
     LAUNCHES["mala_step"] += 1
     return out

@@ -17,10 +17,12 @@ import torch
 from nestmc_torch.ops import loglik as _loglik
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
+    cell_offsets,
     check_tensor,
     on_cpu,
     ptr,
     stream_of,
+    step_noise,
     tile_plan,
 )
 
@@ -51,7 +53,7 @@ def fused_rwmh_logistic_step_plain(beta, lik, log_scale, mu, log_tau, x, y,
 
 
 def _launch(lib, beta, lik, log_scale, mu, log_tau, x, y, mask, noise, key,
-            stream):
+            stream, offsets):
     C, G, p = beta.shape
     n = x.shape[1]
     dev = beta.device
@@ -75,22 +77,24 @@ def _launch(lib, beta, lik, log_scale, mu, log_tau, x, y, mask, noise, key,
     rc = lib.nestmc_rwmh_step(
         ptr(x), ptr(y), ptr(mask), ptr(beta), ptr(lik), ptr(log_scale),
         ptr(mu), ptr(log_tau), ptr(eps), ptr(logu), ptr(out_beta),
-        ptr(out_lik), ptr(out_alpha), C, G, n, k0, k1, stream,
+        ptr(out_lik), ptr(out_alpha), C, G, n, k0, k1, stream, *offsets,
     )
     _build.check(rc, "rwmh_step")
     return out_beta, out_lik, out_alpha
 
 
 def fused_rwmh_logistic_step(beta, lik, log_scale, mu, log_tau, x, y, mask,
-                             rng=None, noise=None):
+                             rng=None, noise=None, units=None):
     """One RW-MH update of the whole group block. lik: the carried (C, G)
-    loglik at beta; log_scale (C, G) or (C, 1).
-    Returns (new_beta, new_lik, alpha (C, G))."""
+    loglik at beta; log_scale (C, G) or (C, 1). units: (g0, G_total) when
+    these G groups are groups g0.. of G_total (a group shard), so the
+    noise is the unsharded run's (common.cell_offsets; the chains' offset
+    is the rng's). Returns (new_beta, new_lik, alpha (C, G))."""
     C, G, _ = beta.shape
     log_scale = log_scale.expand(C, G)
     if on_cpu(beta, "rwmh_step"):
         if noise is None:
-            noise = (rng.normal(beta.shape), rng.log_uniform((C, G)))
+            noise = step_noise(rng, beta.shape, units)
         return fused_rwmh_logistic_step_plain(
             beta, lik, log_scale, mu, log_tau, x, y, mask, noise
         )
@@ -98,6 +102,7 @@ def fused_rwmh_logistic_step(beta, lik, log_scale, mu, log_tau, x, y, mask,
     key = None if noise is not None else rng.philox_key()
     with torch.cuda.device(beta.device):
         out = _launch(lib, beta, lik, log_scale.contiguous(), mu, log_tau,
-                      x, y, mask, noise, key, stream_of(beta))
+                      x, y, mask, noise, key, stream_of(beta),
+                      cell_offsets(rng, units, G))
     LAUNCHES["rwmh_step"] += 1
     return out

@@ -20,10 +20,12 @@ from nestmc_torch.diagnostics import fold_rhat_update
 from nestmc_torch.ops import loglik as _loglik
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
+    cell_offsets,
     check_tensor,
     fold_scalars,
     on_cpu,
     ptr,
+    step_noise,
     stream_of,
     tile_plan,
 )
@@ -92,7 +94,7 @@ def fused_newton_logistic_step_plain(
 
 
 def _launch(lib, beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau,
-            x, y, mask, noise, key, frozen, rhat_fold, stream):
+            x, y, mask, noise, key, frozen, rhat_fold, stream, offsets):
     C, G, p = beta.shape
     n = x.shape[1]
     T = p * (p + 1) // 2
@@ -135,7 +137,7 @@ def _launch(lib, beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau,
         ptr(logu), ptr(fmean), ptr(fm2), ptr(out_beta), ptr(out_v),
         ptr(out_g), ptr(out_h), ptr(out_alpha), ptr(out_fmean),
         ptr(out_fm2), fsc[0][0], fsc[0][1], fsc[1][0], fsc[1][1],
-        C, G, n, k0, k1, int(frozen), stream,
+        C, G, n, k0, k1, int(frozen), stream, *offsets,
     )
     _build.check(rc, "newton_step")
     out = (out_beta, out_v, out_g, h_cache if frozen else out_h, out_alpha)
@@ -146,20 +148,22 @@ def _launch(lib, beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau,
 
 def fused_newton_logistic_step(
     beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau, x, y, mask,
-    rng=None, noise=None, frozen: bool = False, rhat_fold=None,
+    rng=None, noise=None, frozen: bool = False, rhat_fold=None, units=None,
 ):
     """One Newton-MH update of the whole group block.
 
     log_scale: (C, G) or (C, 1) log sqrt(c). frozen: h_cache is a constant
     metric; the obs pass skips the Hessian and new_h is h_cache itself.
     rhat_fold: optional (mean, m2, scalars) folded with the input beta.
+    units: (g0, G_total) of a group shard, as in
+    mh_accept.fused_rwmh_logistic_step.
     Returns (new_beta, new_v, new_g, new_h, alpha[, mean', m2']).
     """
     C, G, _ = beta.shape
     log_scale = log_scale.expand(C, G)
     if on_cpu(beta, "newton_step"):
         if noise is None:
-            noise = (rng.normal(beta.shape), rng.log_uniform((C, G)))
+            noise = step_noise(rng, beta.shape, units)
         return fused_newton_logistic_step_plain(
             beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau, x, y,
             mask, noise, frozen=frozen, rhat_fold=rhat_fold,
@@ -170,7 +174,7 @@ def fused_newton_logistic_step(
         out = _launch(
             lib, beta, v_cache, g_cache, h_cache, log_scale.contiguous(),
             mu, log_tau, x, y, mask, noise, key, frozen, rhat_fold,
-            stream_of(beta),
+            stream_of(beta), cell_offsets(rng, units, G),
         )
     LAUNCHES["newton_step_frozen" if frozen else "newton_step_refresh"] += 1
     return out

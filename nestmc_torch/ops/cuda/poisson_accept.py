@@ -24,9 +24,11 @@ import torch
 from nestmc_torch.ops import loglik as _loglik
 from nestmc_torch.ops.cuda import LAUNCHES, _build
 from nestmc_torch.ops.cuda.common import (
+    cell_offsets,
     check_tensor,
     on_cpu,
     ptr,
+    step_noise,
     stream_of,
     tile_plan,
 )
@@ -182,15 +184,18 @@ def _empty(dev, *shape):
 
 
 def fused_rwmh_poisson_step(beta, lik, log_scale, bg_s, log_tau_s, x, y,
-                            mask, rng=None, noise=None, const=None):
+                            mask, rng=None, noise=None, const=None,
+                            units=None):
     """One RW-MH update of the whole subject block. lik: the carried (C, S)
-    loglik at beta; log_scale (C, S) or (C, 1).
+    loglik at beta; log_scale (C, S) or (C, 1). units: (s0, S_total) when
+    these S subjects are subjects s0.. of S_total (a group shard), so the
+    noise is the unsharded run's (common.cell_offsets).
     Returns (new_beta, new_lik, alpha (C, S))."""
     C, S, p = beta.shape
     log_scale = log_scale.expand(C, S)
     if on_cpu(beta, "pois_rwmh_step"):
         if noise is None:
-            noise = (rng.normal(beta.shape), rng.log_uniform((C, S)))
+            noise = step_noise(rng, beta.shape, units)
         return fused_rwmh_poisson_step_plain(
             beta, lik, log_scale, bg_s, log_tau_s, x, y, mask, noise, const
         )
@@ -207,6 +212,7 @@ def fused_rwmh_poisson_step(beta, lik, log_scale, bg_s, log_tau_s, x, y,
             ptr(x), ptr(y), ptr(mask), ptr(const), ptr(beta), ptr(lik),
             ptr(log_scale), ptr(bg_s), ptr(log_tau_s), ptr(eps), ptr(logu),
             *map(ptr, out), C, S, x.shape[1], k0, k1, stream_of(beta),
+            *cell_offsets(rng, units, S),
         )
     _build.check(rc, "pois_rwmh_step")
     LAUNCHES["pois_rwmh_step"] += 1
@@ -215,16 +221,16 @@ def fused_rwmh_poisson_step(beta, lik, log_scale, bg_s, log_tau_s, x, y,
 
 def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
                             log_tau_s, x, y, mask, rng=None, noise=None,
-                            const=None):
+                            const=None, units=None):
     """One MALA update of the whole subject block. (v_cache, g_cache): the
     carried likelihood value (C, S) and gradient (C, S, p) at beta;
-    log_scale (C, S) or (C, 1).
+    log_scale (C, S) or (C, 1). units: as in fused_rwmh_poisson_step.
     Returns (new_beta, new_v, new_g, alpha (C, S))."""
     C, S, p = beta.shape
     log_scale = log_scale.expand(C, S)
     if on_cpu(beta, "pois_mala_step"):
         if noise is None:
-            noise = (rng.normal(beta.shape), rng.log_uniform((C, S)))
+            noise = step_noise(rng, beta.shape, units)
         return fused_mala_poisson_step_plain(
             beta, v_cache, g_cache, log_scale, bg_s, log_tau_s, x, y, mask,
             noise, const,
@@ -244,7 +250,7 @@ def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
             ptr(x), ptr(y), ptr(mask), ptr(const), ptr(beta), ptr(v_cache),
             ptr(g_cache), ptr(log_scale), ptr(bg_s), ptr(log_tau_s),
             ptr(eps), ptr(logu), *map(ptr, out), C, S, x.shape[1], k0, k1,
-            stream_of(beta),
+            stream_of(beta), *cell_offsets(rng, units, S),
         )
     _build.check(rc, "pois_mala_step")
     LAUNCHES["pois_mala_step"] += 1
@@ -253,17 +259,19 @@ def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
 
 def fused_newton_poisson_step(beta, v_cache, g_cache, h_cache, log_scale,
                               bg_s, log_tau_s, x, y, mask, rng=None,
-                              noise=None, frozen: bool = False, const=None):
+                              noise=None, frozen: bool = False, const=None,
+                              units=None):
     """One Newton-MH update of the whole subject block. log_scale: (C, S)
     or (C, 1) log sqrt(c). frozen: h_cache is a constant metric; the obs
-    pass skips the Hessian and new_h is h_cache itself.
+    pass skips the Hessian and new_h is h_cache itself. units: as in
+    fused_rwmh_poisson_step.
     Returns (new_beta, new_v, new_g, new_h, alpha (C, S))."""
     C, S, p = beta.shape
     T = p * (p + 1) // 2
     log_scale = log_scale.expand(C, S)
     if on_cpu(beta, "pois_newton_step"):
         if noise is None:
-            noise = (rng.normal(beta.shape), rng.log_uniform((C, S)))
+            noise = step_noise(rng, beta.shape, units)
         return fused_newton_poisson_step_plain(
             beta, v_cache, g_cache, h_cache, log_scale, bg_s, log_tau_s,
             x, y, mask, noise, frozen=frozen, const=const,
@@ -289,7 +297,7 @@ def fused_newton_poisson_step(beta, v_cache, g_cache, h_cache, log_scale,
             ptr(g_cache), ptr(h_cache), ptr(log_scale), ptr(bg_s),
             ptr(log_tau_s), ptr(eps), ptr(logu), ptr(out_beta), ptr(out_v),
             ptr(out_g), ptr(out_h), ptr(out_alpha), C, S, x.shape[1], k0,
-            k1, int(frozen), stream_of(beta),
+            k1, int(frozen), stream_of(beta), *cell_offsets(rng, units, S),
         )
     kname = ("pois_newton_step_frozen" if frozen
              else "pois_newton_step_refresh")

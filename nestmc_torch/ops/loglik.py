@@ -26,8 +26,31 @@ from __future__ import annotations
 import torch
 
 
-def _eta(beta, x):
-    return torch.einsum("cgp,gnp->cgn", beta, x)
+# The contractions over p and over n. On the card they are batched
+# matmuls. On the CPU they are sums a chain: a CPU matmul's blocking, and
+# so its bits, change with the number of chains, and a chain shard's run
+# must repeat the unsharded run's bits (parallel/sharding.py). On the card
+# a chain slice of each matmul is its full call's slice, bitwise
+# (chip_smoke.py, phase 10a).
+
+def eta_padded(beta, x):
+    """(C, G, n) linear predictor."""
+    if x.is_cuda:
+        return torch.einsum("cgp,gnp->cgn", beta, x)
+    if x.shape[-1] == 0:
+        return beta.new_zeros((beta.shape[0],) + tuple(x.shape[:2]))
+    eta = beta[:, :, None, 0] * x[None, :, :, 0]
+    for k in range(1, x.shape[-1]):
+        eta = eta + beta[:, :, None, k] * x[None, :, :, k]
+    return eta
+
+
+def xt_sum(r, x):
+    """(C, G, p) sum_i r_i x_i over the obs axis."""
+    if x.is_cuda:
+        return torch.einsum("cgn,gnp->cgp", r, x).contiguous()
+    return torch.stack([torch.sum(r * x[..., k], dim=-1)
+                        for k in range(x.shape[-1])], dim=-1)
 
 
 def _terms(eta, y, mask):
@@ -53,8 +76,10 @@ def xx_packed(x):
 
 def xxt_packed(x, w):
     """(C, G, T) packed lower triangle of sum_i w_i x_i x_i^T over the obs
-    axis: x (G, n, p), w (C, G, n); one (C, G, n) product a pair, no
-    (C, G, n, p, p) temporary (nestmc.ops.loglik._xxt_packed)."""
+    axis: x (G, n, p), w (C, G, n). On the CPU one (C, G, n) product a
+    pair, no (C, G, n, p, p) temporary (nestmc.ops.loglik._xxt_packed)."""
+    if x.is_cuda:
+        return torch.einsum("cgn,gnt->cgt", w, xx_packed(x)).contiguous()
     p = x.shape[-1]
     return torch.stack(
         [torch.sum(w * (x[..., i] * x[..., j]), dim=-1)
@@ -65,27 +90,27 @@ def xxt_packed(x, w):
 
 def logistic_loglik_padded(beta, x, y, mask):
     """sum_i mask * [y*eta - softplus(eta)] -> (C, G)."""
-    ll, _, _ = _terms(_eta(beta, x), y, mask)
+    ll, _, _ = _terms(eta_padded(beta, x), y, mask)
     return ll.sum(dim=-1)
 
 
 def logistic_logp_grad_padded(beta, x, y, mask):
     """((C, G) loglik, (C, G, p) grad wrt beta)."""
-    ll, resid, _ = _terms(_eta(beta, x), y, mask)
+    ll, resid, _ = _terms(eta_padded(beta, x), y, mask)
     return (
         ll.sum(dim=-1),
-        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
+        xt_sum(resid, x),
     )
 
 
 def logistic_logp_grad_hess_padded(beta, x, y, mask):
     """((C, G) loglik, (C, G, p) grad, (C, G, T) packed -Hessian
     sum_i mask w x_i x_i^T)."""
-    ll, resid, w = _terms(_eta(beta, x), y, mask)
+    ll, resid, w = _terms(eta_padded(beta, x), y, mask)
     return (
         ll.sum(dim=-1),
-        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
-        torch.einsum("cgn,gnt->cgt", w, xx_packed(x)).contiguous(),
+        xt_sum(resid, x),
+        xxt_packed(x, w),
     )
 
 
@@ -93,7 +118,7 @@ def normal_loglik_padded(beta, x, y, mask, sigma):
     """Gaussian response: sum_i mask * log N(y | eta, sigma) -> (C, G).
     ``sigma`` (a float or a tensor) gets trailing axes until it is 3-D, as
     the reference broadcasts it: a scalar, (C, 1) or (C, G)."""
-    eta = _eta(beta, x)
+    eta = eta_padded(beta, x)
     sig = torch.as_tensor(sigma, dtype=eta.dtype, device=eta.device)
     while sig.ndim < 3:
         sig = sig[..., None]
@@ -191,7 +216,7 @@ def poisson_loglik_padded(beta, x, y, mask, const=None):
     """sum_i mask * [y*eta - exp(eta) - lgamma(y+1)] -> (C, S)."""
     if const is None:
         const = poisson_const(y, mask)
-    ll, _, _ = _pois_terms(_eta(beta, x), y, mask)
+    ll, _, _ = _pois_terms(eta_padded(beta, x), y, mask)
     return ll.sum(dim=-1) - const
 
 
@@ -199,10 +224,10 @@ def poisson_logp_grad_padded(beta, x, y, mask, const=None):
     """((C, S) loglik, (C, S, p) grad sum_i mask (y - exp(eta)) x_i)."""
     if const is None:
         const = poisson_const(y, mask)
-    ll, resid, _ = _pois_terms(_eta(beta, x), y, mask)
+    ll, resid, _ = _pois_terms(eta_padded(beta, x), y, mask)
     return (
         ll.sum(dim=-1) - const,
-        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
+        xt_sum(resid, x),
     )
 
 
@@ -211,9 +236,9 @@ def poisson_logp_grad_hess_padded(beta, x, y, mask, const=None):
     sum_i mask exp(eta) x_i x_i^T)."""
     if const is None:
         const = poisson_const(y, mask)
-    ll, resid, w = _pois_terms(_eta(beta, x), y, mask)
+    ll, resid, w = _pois_terms(eta_padded(beta, x), y, mask)
     return (
         ll.sum(dim=-1) - const,
-        torch.einsum("cgn,gnp->cgp", resid, x).contiguous(),
-        torch.einsum("cgn,gnt->cgt", w, xx_packed(x)).contiguous(),
+        xt_sum(resid, x),
+        xxt_packed(x, w),
     )

@@ -35,6 +35,12 @@ from nestmc_torch.models import (
 )
 
 
+def override_run(cfg: SamplerConfig, **kwargs) -> SamplerConfig:
+    """``cfg`` with the RunConfig fields in ``kwargs`` replaced."""
+    return dataclasses.replace(cfg, run=dataclasses.replace(cfg.run,
+                                                            **kwargs))
+
+
 def _n(full: int, least: int, scale: float) -> int:
     """A schedule length or size shrunk by ``scale`` (the reference's
     max(least, int(full * scale)); ``full`` at scale 1)."""

@@ -8,6 +8,14 @@ no global RNG anywhere in the port. A checkpoint carries both generators'
 states (:meth:`SweepRNG.get_state`), so a resumed run draws the same noise
 an uninterrupted one would. Tests replace it with an object of the
 same methods that replays the reference's noise.
+
+A sharded run (nestmc_torch.parallel) keeps the unsharded run's draws:
+every rank seeds the same generators, and a rank that holds chains
+c0.. of C (:attr:`SweepRNG.chains`) draws every tensor at its global
+shape and keeps its slice. A draw whose tensor has a unit axis split over
+group shards says so with ``units=(axis, u0, U)``: that axis holds units
+u0.. of U. A draw without it (a population block's (C, p)) is the same on
+every group shard of a chain shard.
 """
 
 from __future__ import annotations
@@ -18,34 +26,56 @@ _TINY = torch.finfo(torch.float32).tiny
 
 
 class SweepRNG:
+    """chains: None, or (c0, C) when this process holds chains c0.. of C
+    (a chain shard): every draw's leading axis is then the chains axis."""
+
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.host = torch.Generator()
         self.host.manual_seed(seed + 0x5EED)
+        self.chains = None
 
-    def normal(self, shape) -> torch.Tensor:
-        return torch.randn(
-            tuple(shape), generator=self.generator, device=self.device
-        )
+    def _sharded(self, draw, shape, units):
+        """draw(shape) when this process holds the whole of it, else the
+        slice of draw(global shape) it holds."""
+        shape = tuple(shape)
+        if self.chains is None and units is None:
+            return draw(shape)
+        full, idx = list(shape), [slice(None)] * len(shape)
+        if self.chains is not None:
+            c0, full[0] = self.chains
+            idx[0] = slice(c0, c0 + shape[0])
+        if units is not None:
+            axis, u0, full[axis] = units
+            idx[axis] = slice(u0, u0 + shape[axis])
+        return draw(tuple(full))[tuple(idx)].contiguous()
 
-    def log_uniform(self, shape) -> torch.Tensor:
+    def normal(self, shape, units=None) -> torch.Tensor:
+        return self._sharded(lambda s: torch.randn(
+            s, generator=self.generator, device=self.device), shape, units)
+
+    def log_uniform(self, shape, units=None) -> torch.Tensor:
         """log u, u uniform on [tiny, 1) as the reference draws it."""
-        u = torch.rand(
-            tuple(shape), generator=self.generator, device=self.device
-        )
+        u = self._sharded(lambda s: torch.rand(
+            s, generator=self.generator, device=self.device), shape, units)
         return torch.log(u.clamp_min(_TINY))
 
-    def gamma(self, a, shape) -> torch.Tensor:
+    def gamma(self, a, shape, units=None) -> torch.Tensor:
         """Gamma(a, 1) draws; ``a`` a float or a tensor broadcast to
-        ``shape`` (a per-element or per-chain concentration)."""
+        ``shape`` (a per-element or per-chain concentration; not in a
+        sharded run, where it would have to be the global one)."""
         if torch.is_tensor(a):
+            if self.chains is not None or units is not None:
+                raise NotImplementedError(
+                    "gamma with a tensor concentration in a sharded run")
             conc = a.to(device=self.device, dtype=torch.float32).expand(
                 tuple(shape)).contiguous()
-        else:
-            conc = torch.full(tuple(shape), float(a), device=self.device)
-        return torch._standard_gamma(conc, generator=self.generator)
+            return torch._standard_gamma(conc, generator=self.generator)
+        return self._sharded(lambda s: torch._standard_gamma(
+            torch.full(s, float(a), device=self.device),
+            generator=self.generator), shape, units)
 
     def poisson(self, rate: torch.Tensor) -> torch.Tensor:
         """Poisson(rate) counts as float32, elementwise (sample_data)."""
@@ -95,13 +125,13 @@ class ReplayRNG:
             )
         return a.to(self.device)
 
-    def normal(self, shape):
+    def normal(self, shape, units=None):
         return self._next(shape)
 
-    def log_uniform(self, shape):
+    def log_uniform(self, shape, units=None):
         return self._next(shape)
 
-    def gamma(self, a, shape):
+    def gamma(self, a, shape, units=None):
         return self._next(shape)
 
     def poisson(self, rate):

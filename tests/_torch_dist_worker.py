@@ -1,0 +1,360 @@
+"""One rank of a 2-process gloo run of the port (spawned by the
+test_torch_sharding, test_torch_multihost and test_torch_determinism
+files through :func:`spawn`).
+
+Each rank calls nestmc_torch.parallel.multihost.initialize(device="cpu")
+with the NESTMC_* env (a ``file://`` rendezvous in the test's tmp dir, so
+parallel test workers never race for a port), runs every case of its mode
+on the CPU with one torch thread, and writes ``rank<r>.npz`` (arrays) and
+``rank<r>.json`` (scalars) into the tmp dir. Inputs the test made come in
+``in.npz`` there.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def spawn(mode: str, tmp, timeout: float = 120.0, nproc: int = 2):
+    """Run ``mode`` on ``nproc`` ranks; returns [(arrays, scalars)] by rank.
+    Every rank has ``timeout`` seconds: a hung rendezvous fails the test
+    instead of the whole run."""
+    tmp = str(tmp)
+    procs = []
+    # stderr to files: a full pipe would stall a rank, and every other
+    # rank in its next collective
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+            for r in range(nproc)]
+    for rank in range(nproc):
+        env = {
+            **os.environ,
+            "NESTMC_COORDINATOR_ADDRESS": f"file://{tmp}/rendezvous",
+            "NESTMC_NUM_PROCESSES": str(nproc),
+            "NESTMC_PROCESS_ID": str(rank),
+            "NESTMC_WORKER_DIR": tmp,
+            "NESTMC_WORKER_MODE": mode,
+            "OMP_NUM_THREADS": "1",
+        }
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__)], env=env, cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=logs[rank]))
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"{mode}: a rank ran past {timeout} s")
+    finally:
+        for f in logs:
+            f.close()
+    for rank, p in enumerate(procs):
+        with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+            err = f.read()
+        assert p.returncode == 0, f"{mode} rank failed:\n{err[-3000:]}"
+    out = []
+    for rank in range(nproc):
+        with np.load(os.path.join(tmp, f"rank{rank}.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            out.append((arrays, json.load(f)))
+    return out
+
+
+# ---- the cases (run in the spawned ranks) ------------------------------
+
+def _cfg(chains, warmup, draws, cs=1, gs=1, **run):
+    from nestmc_torch import RunConfig, SamplerConfig, ShardingConfig
+
+    return SamplerConfig(
+        run=RunConfig(chains=chains, warmup=warmup, draws=draws,
+                      log_every_segment=False, **run),
+        sharding=ShardingConfig(chain_shards=cs, group_shards=gs))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def mode_sharding(inp, arrays, scalars):
+    import torch
+
+    from nestmc_torch import sample
+    from nestmc_torch.data import from_numpy
+    from nestmc_torch.kernels.state import init_kernel_state
+    from nestmc_torch.models import (
+        make_hier_logistic,
+        make_nested_poisson,
+        synth_logistic,
+        synth_poisson3,
+    )
+    from nestmc_torch.parallel import (
+        data_shardings,
+        make_mesh,
+        shard_inputs,
+        state_shardings,
+    )
+    from nestmc_torch.parallel.collectives import (
+        activate,
+        gather,
+        groups_sum,
+    )
+    from nestmc_torch.parallel.sharding import make_shard
+    from nestmc_torch.rng import SweepRNG
+
+    # the population conditionals and the joint on group-sharded state
+    data = from_numpy(inp["x"], inp["y"], inp["mask"], device="cpu")
+    model = make_hier_logistic(data)
+    cfg = _cfg(16, 0, 0, gs=2)
+    mesh = make_mesh(cfg)
+    full = init_kernel_state(
+        model, cfg, SweepRNG(0, "cpu"), data,
+        position={k: torch.from_numpy(inp[k]) for k in
+                  ("beta", "mu", "log_tau")})
+    sstate, sdata = shard_inputs(full, data, model, cfg, mesh)
+    with activate(make_shard(model, data, cfg, mesh)):
+        pos = sstate.position
+        arrays["cond_mu"] = _np(model.cond_logdensity("mu", pos["mu"], pos,
+                                                      sdata))
+        arrays["cond_log_tau"] = _np(model.cond_logdensity(
+            "log_tau", pos["log_tau"], pos, sdata))
+        arrays["joint"] = _np(model.joint_logdensity(pos, sdata))
+        arrays["beta_local"] = _np(pos["beta"])
+        # placement: specs and the rank's shapes
+        sh = state_shardings(model, cfg, mesh)
+        scalars["spec_beta"] = list(sh.position["beta"])
+        scalars["spec_mu"] = list(sh.position["mu"])
+        scalars["spec_x"] = list(data_shardings(data, cfg, mesh)["x"])
+        scalars["beta_shape"] = list(pos["beta"].shape)
+        scalars["mu_shape"] = list(pos["mu"].shape)
+        scalars["x_shape"] = list(sdata.x.shape)
+        scalars["cache_shape"] = list(sstate.cache["beta"].shape)
+        # groups_sum over the two ranks against the plain sum
+        g = torch.Generator().manual_seed(3)
+        whole = torch.randn(4, 10, 3, generator=g)
+        half = whole[:, 5 * mesh.group_index:5 * mesh.group_index + 5]
+        arrays["groups_sum"] = _np(groups_sum(half, 1))
+        arrays["plain_sum"] = _np(whole.sum(dim=1))
+        arrays["gathered_beta"] = _np(gather(pos["beta"], ("chains",
+                                                          "groups")))
+
+    # two sweeps of every group-sharded model and algorithm
+    from nestmc_torch.parallel.collectives import gather
+    from nestmc_torch.parallel.sharding import map_specs
+
+    for name, m, d, alg in sweep_cases():
+        cfg = _cfg(6, 0, 0, gs=2)
+        shard = make_shard(m, d, cfg, mesh)
+        st = sweep_pair(m, d, alg, shard)
+        specs = state_shardings(m, cfg, mesh)
+        full = map_specs(lambda t, sp: gather(t, sp, shard), specs, st)
+        for k, v in full.position.items():
+            arrays[f"sweep_{name}_{k}"] = _np(v)
+        for k, v in full.accept_sum.items():
+            arrays[f"sweep_{name}_accept_{k}"] = _np(v)
+
+    # the three-level model, groups and subjects split over the ranks
+    d3, _ = synth_poisson3(6, G=8, subjects_per_group=4, n=6, p=2,
+                           device="cpu")
+    post = sample(make_nested_poisson(d3), d3, _cfg(
+        8, 30, 30, gs=2, collect={"mu": None, "log_tau_g": None,
+                                  "beta_s": 3}))
+    arrays["np_mu"] = _np(post.draws["mu"])
+    arrays["np_beta_s"] = _np(post.draws["beta_s"])
+    scalars["np_final_beta_s"] = list(post.final_state.position[
+        "beta_s"].shape)
+
+    # ragged data: chain-sharded runs, group-sharded raises
+    rd, _ = synth_logistic(7, G=40, n=12, p=2, ragged=True, device="cpu")
+    rmodel = make_hier_logistic(rd)
+    post = sample(rmodel, rd, _cfg(16, 30, 30, cs=2, collect={"mu": None}))
+    arrays["ragged_mu"] = _np(post.draws["mu"])
+    try:
+        sample(rmodel, rd, _cfg(16, 2, 2, gs=2))
+        scalars["ragged_groups_error"] = None
+    except ValueError as e:
+        scalars["ragged_groups_error"] = str(e)
+
+
+def sweep_cases():
+    """(name, model, data, algorithm) of the one-sweep group-sharding
+    checks: every model that declares unit axes, every algorithm."""
+    from nestmc_torch.models import (
+        make_hier_glm,
+        make_hier_logistic,
+        make_nested_poisson,
+        synth_glm,
+        synth_logistic,
+        synth_poisson3,
+    )
+
+    out = []
+    d2, _ = synth_logistic(4, G=12, n=10, p=3, device="cpu")
+    d3, _ = synth_poisson3(4, G=6, subjects_per_group=3, n=8, p=2,
+                           device="cpu")
+    for alg in ("rwmh", "mala", "newton"):
+        out.append((f"logistic_{alg}", make_hier_logistic(d2), d2, alg))
+        out.append((f"logistic_ig_{alg}", make_hier_logistic(
+            d2, tau_prior="invgamma"), d2, alg))
+        out.append((f"poisson3_{alg}", make_nested_poisson(d3), d3, alg))
+    for fam, alg in (("poisson", "newton"), ("gaussian", "mala"),
+                     ("binomial", "newton"), ("negbin", "rwmh")):
+        dg, _ = synth_glm(2, fam, G=11, n=8, p=2, device="cpu")  # 5 + 6
+        out.append((f"glm_{fam}_{alg}", make_hier_glm(dg, family=fam), dg,
+                    alg))
+    return out
+
+
+def sweep_pair(model, data, alg, shard=None):
+    """Two sweeps (a warmup one, then a sampling one) from the seeded
+    carry; with ``shard``, on its part of the carry, data and noise."""
+    from nestmc_torch import KernelConfig, SamplerConfig
+    from nestmc_torch.kernels.gibbs import make_sweep
+    from nestmc_torch.kernels.state import init_kernel_state
+    from nestmc_torch.parallel.collectives import activate
+    from nestmc_torch.parallel.sharding import map_specs, state_shardings
+    from nestmc_torch.parallel.sharding import take
+    from nestmc_torch.rng import SweepRNG
+
+    mesh = None if shard is None else shard.mesh
+    cfg = _cfg(6, 0, 0, cs=mesh.chain_shards if mesh else 1,
+               gs=mesh.group_shards if mesh else 1)
+    cfg = SamplerConfig(kernel=KernelConfig(algorithm=alg), run=cfg.run,
+                        sharding=cfg.sharding)
+    state = init_kernel_state(model, cfg, SweepRNG(1, "cpu"), data)
+    rng = SweepRNG(2, "cpu")
+    if shard is not None:
+        specs = state_shardings(model, cfg, mesh)
+        state = map_specs(lambda t, sp: take(t, sp, shard.spans), specs,
+                          state)
+        data = shard.local
+        c0, cl, C = shard.spans["chains"]
+        if cl != C:
+            rng.chains = (c0, C)
+    with activate(shard):
+        sweep = make_sweep(model, cfg)
+        state = sweep(sweep(state, data, True, rng), data, False, rng)
+    return state
+
+
+def mode_multihost(inp, arrays, scalars):
+    from nestmc_torch import sample
+    from nestmc_torch.models import (
+        make_eight_schools,
+        make_hier_logistic,
+        synth_logistic,
+    )
+    from nestmc_torch.parallel import multihost
+
+    def moments(post, tag):
+        for k in ("mu", "log_tau"):
+            v = post.draws[k].double()
+            scalars[f"{tag}_{k}_mean"] = float(v.mean())
+            scalars[f"{tag}_{k}_var"] = float(v.var(unbiased=False))
+
+    model, data = make_eight_schools(device="cpu")
+    moments(sample(model, data, _cfg(
+        8, 40, 80, cs=2, seed=7, segment_size=80,
+        collect={"mu": None, "log_tau": None})), "chains")
+    data, _ = synth_logistic(9, G=64, n=12, p=3, device="cpu")
+    moments(sample(make_hier_logistic(data), data, _cfg(
+        8, 30, 50, gs=2, seed=7, segment_size=50,
+        collect={"mu": None, "log_tau": None})), "groups")
+    # the command line under the same launch: the primary saves the draws
+    from nestmc_torch import cli
+
+    scalars["cli_rc"] = cli.main(
+        ["run", "--preset", "eight-schools", "--device", "cpu",
+         "--scale", "0.05", "--chain-shards", "2", "--quiet",
+         "--collect", "mu,log_tau", "--save-draws",
+         os.path.join(inp["dir"], "cli.npz")])
+    scalars["rank"] = multihost.rank()
+    scalars["world_size"] = multihost.world_size()
+    scalars["is_primary"] = multihost.is_primary()
+    scalars["backend"] = multihost.backend()
+
+
+def mode_determinism(inp, arrays, scalars):
+    from nestmc_torch import sample
+    from nestmc_torch.models import make_hier_logistic, synth_logistic
+
+    data, _ = synth_logistic(21, G=16, n=12, p=2, device="cpu")
+    model = make_hier_logistic(data)
+    for alg in ("rwmh", "newton"):
+        cfg = _cfg(16, 60, 60, cs=2, seed=9)
+        cfg = cfg.__class__(kernel=cfg.kernel.__class__(algorithm=alg),
+                            run=cfg.run, sharding=cfg.sharding)
+        post = sample(model, data, cfg)
+        for k, v in post.draws.items():
+            arrays[f"chains_{alg}_{k}"] = _np(v)
+    post = sample(model, data, _cfg(32, 60, 60, gs=2, seed=9))
+    for k, v in post.accept_rates.items():
+        scalars[f"groups_accept_{k}"] = float(v.mean())
+    arrays["groups_mu_mean"] = _np(post.draws["mu"].mean(dim=(0, 1)))
+    # a checkpointed chain-sharded run, resumed unsharded by the test
+    post = sample(model, data, _cfg(
+        16, 40, 60, cs=2, seed=9, segment_size=20, full_rhat=True,
+        checkpoint_dir=os.path.join(inp["dir"], "ck"), checkpoint_every=1))
+    arrays["ck_mu"] = _np(post.draws["mu"])
+
+
+def mode_mesh22(inp, arrays, scalars):
+    """Four ranks, chains and groups both split (2 x 2): two sweeps of
+    three of the sweep cases, gathered."""
+    from nestmc_torch.parallel import make_mesh, state_shardings
+    from nestmc_torch.parallel.collectives import gather
+    from nestmc_torch.parallel.sharding import make_shard, map_specs
+
+    for name, m, d, alg in sweep_cases():
+        if name not in MESH22_CASES:
+            continue
+        cfg = _cfg(6, 0, 0, cs=2, gs=2)
+        mesh = make_mesh(cfg)
+        shard = make_shard(m, d, cfg, mesh)
+        st = sweep_pair(m, d, alg, shard)
+        for k in ("mu",):
+            arrays[f"local_{name}_{k}"] = _np(st.position[k])
+        full = map_specs(lambda t, sp: gather(t, sp, shard),
+                         state_shardings(m, cfg, mesh), st)
+        for k, v in full.position.items():
+            arrays[f"sweep_{name}_{k}"] = _np(v)
+    scalars["chain_index"] = mesh.chain_index
+
+
+MESH22_CASES = ("logistic_newton", "poisson3_mala", "glm_gaussian_mala")
+MODES = {"sharding": mode_sharding, "multihost": mode_multihost,
+         "determinism": mode_determinism, "mesh22": mode_mesh22}
+
+
+def main() -> int:
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(1)
+    from nestmc_torch.parallel import multihost
+
+    multihost.initialize(device="cpu")
+    tmp = os.environ["NESTMC_WORKER_DIR"]
+    path = os.path.join(tmp, "in.npz")
+    inp = {"dir": tmp}
+    if os.path.exists(path):
+        with np.load(path) as z:
+            inp.update({k: z[k] for k in z.files})
+    arrays, scalars = {}, {}
+    MODES[os.environ["NESTMC_WORKER_MODE"]](inp, arrays, scalars)
+    rank = multihost.rank()
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(scalars, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -54,6 +54,9 @@ from nestmc_torch.ops.cuda.loglik_segment import (
 )
 from nestmc_torch.ops.segment import SegmentLayout
 from nestmc_torch.rng import SweepRNG
+# a sibling module by its own name: the card's host may have another
+# package called tests on its path
+from _torch_steps import STEPS, cut_inputs, run_step, step_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -1350,3 +1353,38 @@ def test_same_seed_bitwise_on_the_card(dev, algorithm, impl):
     for k in a.draws:
         assert torch.equal(a.draws[k], b.draws[k]), k
     assert not torch.equal(a.draws["mu"], c.draws["mu"])
+
+
+@pytest.mark.parametrize("name", STEPS)
+def test_step_kernels_at_offsets_slice_the_full_launch(dev, name):
+    """Each step kernel in Philox mode, launched on a chain slice and on
+    a unit slice with its offsets (c0, g0, G_total), gives that slice of
+    the full-width launch bitwise (a sharded run's draws are the
+    unsharded run's); a partial tile at both ends of each slice."""
+    C, U = 70, 37
+    a = step_inputs(C, U, 9, 3, name, dev)
+    full = run_step(name, a, SweepRNG(5, dev))
+    for cs, us in ((slice(33, 70), slice(None)), (slice(None), slice(17, 37)),
+                   (slice(0, 33), slice(None))):
+        part = run_step(name, cut_inputs(a, cs, us), SweepRNG(5, dev), cs,
+                        us, C, U)
+        for f, q in zip(full, part):
+            assert torch.equal(q, f[cs, us]), name
+
+
+@pytest.mark.parametrize("C", [64, 70])
+def test_plain_matmuls_on_a_chain_slice_are_bitwise(dev, C):
+    """ops/loglik.py's batched matmuls on the card (eta_padded, xt_sum,
+    xxt_packed): a chain slice's call is the full call's slice bitwise, so
+    a chain shard of a plain path repeats the unsharded run's bits."""
+    from nestmc_torch.ops.loglik import eta_padded, xt_sum, xxt_packed
+
+    g = torch.Generator().manual_seed(3)
+    x = (0.5 * torch.randn(37, 9, 4, generator=g)).to(dev)
+    beta = (0.3 * torch.randn(C, 37, 4, generator=g)).to(dev)
+    r = torch.randn(C, 37, 9, generator=g).to(dev)
+    for cs in (slice(33, C), slice(0, 3)):
+        assert torch.equal(eta_padded(beta, x)[cs], eta_padded(beta[cs], x))
+        assert torch.equal(xt_sum(r, x)[cs], xt_sum(r[cs], x))
+        assert torch.equal(xxt_packed(x, r.abs())[cs],
+                           xxt_packed(x, r[cs].abs()))

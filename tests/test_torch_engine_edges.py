@@ -235,3 +235,75 @@ def test_posterior_helpers_match_reference(es):
             np.testing.assert_allclose(got[name][k], np.asarray(v),
                                        rtol=1e-3, atol=1e-4,
                                        err_msg=f"{name} {k}")
+
+
+def test_override_run_replaces_run_fields_only():
+    """presets.override_run behaves as nestmc.presets.override_run."""
+    from nestmc.config import KernelConfig as JKernelConfig
+    from nestmc.config import RunConfig as JRunConfig
+    from nestmc.config import SamplerConfig as JSamplerConfig
+    from nestmc.presets import override_run as j_override_run
+    from nestmc_torch.presets import override_run
+
+    kw = {"draws": 7, "seed": 3, "collect": {"mu": None}}
+    cfg = SamplerConfig(kernel=KernelConfig(algorithm="mala"),
+                        run=RunConfig(chains=8, warmup=5))
+    out = override_run(cfg, **kw)
+    ref = j_override_run(JSamplerConfig(
+        kernel=JKernelConfig(algorithm="mala"),
+        run=JRunConfig(chains=8, warmup=5)), **kw)
+    assert out.kernel == cfg.kernel and out.sharding == cfg.sharding
+    assert cfg.run.draws == RunConfig().draws          # not changed in place
+    for k, v in out.run.__dict__.items():
+        assert getattr(ref.run, k) == v, k
+    with pytest.raises(TypeError):
+        override_run(cfg, no_such_field=1)
+
+
+def test_warmup_then_state_is_the_adapted_carry(es):
+    """engine.warmup_then_state runs the warmup only (draws=0, as the
+    reference's) and returns its carry: a draws=0 run's final state, bit
+    for bit, after warmup sweeps."""
+    from nestmc_torch.engine import warmup_then_state
+
+    model, data = es
+    cfg = SamplerConfig(run=RunConfig(chains=4, warmup=30, draws=50,
+                                      log_every_segment=False))
+    st = warmup_then_state(model, data, cfg)
+    assert st.t == 30
+    ref = sample(model, data, SamplerConfig(run=RunConfig(
+        chains=4, warmup=30, draws=0, log_every_segment=False)))
+    for k, v in st.position.items():
+        torch.testing.assert_close(v, ref.final_state.position[k], rtol=0,
+                                   atol=0)
+    for k, v in st.log_scale.items():
+        torch.testing.assert_close(v, ref.final_state.log_scale[k], rtol=0,
+                                   atol=0)
+    # a run resumed from it with skip_warmup continues from the carry
+    post = sample(model, data, cfg, init_state=st, skip_warmup=True)
+    assert post.draws["mu"].shape == (4, 50)
+
+
+def test_streaming_rhat_finalize_chain_axes():
+    """Accumulators of a chains-minor leaf (beta (G, p, C): chain axis 2)
+    pool to the same R-hat as the default layout's, given chain_axes."""
+    from nestmc_torch.diagnostics import (
+        streaming_rhat_finalize,
+        streaming_rhat_init,
+        streaming_rhat_update,
+    )
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(8, 21, 5, 3, generator=g).cumsum(dim=1)
+    acc = streaming_rhat_init({"beta": x[:, 0]})
+    minor = streaming_rhat_init({"beta": x[:, 0].permute(1, 2, 0)})
+    for j in range(21):
+        acc = streaming_rhat_update(acc, {"beta": x[:, j]}, j, 10)
+        minor = streaming_rhat_update(
+            minor, {"beta": x[:, j].permute(1, 2, 0)}, j, 10)
+    ref = streaming_rhat_finalize(acc)["beta"]
+    out = streaming_rhat_finalize(minor, chain_axes={"beta": 2})["beta"]
+    assert out.shape == (5, 3)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(ref, split_rhat(x[:, :20]), rtol=2e-4,
+                               atol=2e-4)

@@ -282,8 +282,8 @@ def test_validate_takes_the_three_algorithms():
     with pytest.raises(ValueError):
         tconfig.validate(tconfig.SamplerConfig(
             run=tconfig.RunConfig(full_rhat_thin=0)))
-    # thinning, checkpoints, log_rhat and both preconditioners are ported;
-    # sharding is not
+    # thinning, checkpoints, log_rhat, both preconditioners and sharding
+    # are ported
     tconfig.validate(tconfig.SamplerConfig(
         kernel=tconfig.KernelConfig(precond="full"),
         run=tconfig.RunConfig(thin=2, log_rhat=True, checkpoint_every=1,
@@ -291,6 +291,8 @@ def test_validate_takes_the_three_algorithms():
     with pytest.raises(ValueError):
         tconfig.validate(tconfig.SamplerConfig(
             run=tconfig.RunConfig(thin=0)))
-    with pytest.raises(NotImplementedError):
+    tconfig.validate(tconfig.SamplerConfig(
+        sharding=tconfig.ShardingConfig(chain_shards=2, group_shards=2)))
+    with pytest.raises(ValueError):
         tconfig.validate(tconfig.SamplerConfig(
-            sharding=tconfig.ShardingConfig(chain_shards=2)))
+            sharding=tconfig.ShardingConfig(chain_shards=0)))
