@@ -71,7 +71,8 @@ Needs one CUDA card and this checkout (it builds the kernels from
    tests/test_torch_exactness.py), config 3 (nested-poisson-1k), config 4
    (ragged-10k: Newton-MH per size bucket; these five at full schedule,
    never cut), config 5's Newton variant (mala-100k-newton at full width,
-   200/300 sweeps: its launches asserted, its R-hat printed), config 5
+   100/150 sweeps, cut from 200/300 to pay for phase 10d: its launches
+   asserted, its R-hat printed), config 5
    (mala-100k), config 4's data on the segment-kernel
    route (ragged-10k-mala's model built with loglik_impl='pallas-segment':
    MALA, then RW-MH on a short schedule whose R-hat is printed, not
@@ -209,7 +210,17 @@ Needs one CUDA card and this checkout (it builds the kernels from
    groups_sum calls and ms a sweep and gather seconds printed; then the
    cost model (utils/profiling.count_sweep) of config 2 and of config 4
    at 8 chains counted on the card and on the CPU, which must be equal,
-   and the judged preset's ``--cost-analysis`` line.
+   and the judged preset's ``--cost-analysis`` line; (d) memory: each
+   rank's ``timings.peak_mem_gb`` (the peak allocated through the last
+   sweep and the finalize, less what was allocated at sample()'s entry;
+   ``peak_mem_gb_gather`` through the final gathers printed beside it) at
+   most 0.6x the unsharded run's at the same preset, schedule and seed:
+   10b(i) against this process's judged run, 10c's two routes against the
+   rank's own unsharded runs, and mala-100k-newton at full width (C=512,
+   G=100,000, p=3) on P10D_SCHED, unsharded on rank 0 alone, then with
+   the groups split in two on every rank; 10b(i)'s streamed R-hat maps,
+   finalized on the rank's chains a slice of units at a time, within
+   1e-6 relative of the unsharded run's.
 
 Bound: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -397,6 +408,8 @@ def calibration_model(G: int, n: int):
 P10_SCHED = (40, 40)        # phase 10b's warmup / draws at the judged width
 P10_SWEEP_SEED = 77         # the noise of 10b(ii)'s one sweep
 P10C_SCHED = (20, 20)       # phase 10c's warmup / draws at config 4's width
+P10D_SCHED = (5, 5)         # phase 10d's mala-100k-newton memory reading
+P10_MEM_RATIO = 0.6         # a rank's peak_mem_gb / the unsharded run's
 # 10c's routes: (tag, preset, loglik_impl): config 4's bucket route (frozen
 # Newton) and ragged-10k-mala's segment route (MALA)
 P10C_ROUTES = (("bucket", "ragged-10k", "bucket"),
@@ -462,6 +475,14 @@ def phase10_rank() -> int:
     res = {"rank": rank, "backend": multihost.backend(), "device": str(dev),
            "world_size": world, "ready_s": ready_s}
     arrays = {}
+    # the cuBLAS workspace is allocated at a process's first matmul and
+    # kept: made here, it is not a run's memory
+    torch.ones(64, 64, device=dev) @ torch.ones(64, 64, device=dev)
+    torch.cuda.synchronize(dev)
+
+    def peaks(post):
+        return [post.timings["peak_mem_gb"],
+                post.timings["peak_mem_gb_gather"]]
 
     def leaves(prefix, st):
         for part in ("position", "log_scale", "accept_sum", "cache"):
@@ -483,11 +504,14 @@ def phase10_rank() -> int:
         res[f"{tag}_setup_s"] = t["setup_s"]
         res[f"{tag}_accept"] = {k: float(v.mean())
                                 for k, v in post.accept_rates.items()}
+        res[f"{tag}_peak"] = peaks(post)
         return post
 
     post = run("i", ShardingConfig(chain_shards=world))
     for k, v in post.draws.items():
         arrays[f"i.draws.{k}"] = v.cpu().numpy()
+    for k, v in post.full_rhat.items():
+        arrays[f"r.i.rhat.{k}"] = v.cpu().numpy()
     leaves("i.final", post.final_state)
     carry = post.final_state
 
@@ -556,6 +580,8 @@ def phase10_rank() -> int:
         t = upost.timings
         res[f"{tag}_unsharded_ms_sweep"] = (
             1e3 * (t["warmup_s"] + t["sample_s"]) / sweeps)
+        res[f"{tag}_peak"] = peaks(post)
+        res[f"{tag}_unsharded_peak"] = peaks(upost)
         res[f"{tag}_gather_s"] = post.timings["gather_s"]
         res[f"{tag}_groups_sum_calls_sweep"] = (
             collectives.STATS["groups_sum_calls"] / sweeps)
@@ -633,6 +659,34 @@ def phase10_rank() -> int:
                 post.final_state.position[k].cpu().numpy())
         del rm, rd, post, upost
         torch.cuda.empty_cache()
+
+    # 10d: mala-100k-newton at full width on P10D_SCHED, unsharded on rank
+    # 0 alone (the others wait), then with the groups split on every rank
+    t_d = time.perf_counter()
+    mm, md, mcfg = get_preset("mala-100k-newton", device=dev)
+    mbase = override_run(mcfg, warmup=P10D_SCHED[0], draws=P10D_SCHED[1])
+    sweeps = sum(P10D_SCHED)
+    if rank == 0:
+        upost = sample(mm, md, mbase)
+        res["d_unsharded_peak"] = peaks(upost)
+        t = upost.timings
+        res["d_unsharded_ms_sweep"] = (1e3 * (t["warmup_s"] + t["sample_s"])
+                                       / sweeps)
+        del upost
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    reset_launch_counts()
+    post = sample(mm, md, dataclasses.replace(mbase, sharding=split))
+    res["d_launches"] = launch_counts()
+    res["d_peak"] = peaks(post)
+    t = post.timings
+    res["d_ms_sweep"] = 1e3 * (t["warmup_s"] + t["sample_s"]) / sweeps
+    res["d_setup_s"] = t["setup_s"]
+    res["d_finite"] = all(bool(torch.isfinite(v).all())
+                          for v in post.draws.values())
+    del post, mm, md
+    torch.cuda.empty_cache()
+    res["d_s"] = time.perf_counter() - t_d
     np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -878,6 +932,20 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
     if i_keys != sorted(ref_arrays):
         fail(f"10b(i): leaves {i_keys} != {sorted(ref_arrays)}")
     diff_i = [k for k in i_keys if not np.array_equal(got[k], ref_arrays[k])]
+    judged_peak = [jpost.timings["peak_mem_gb"],
+                   jpost.timings["peak_mem_gb_gather"]]
+    # the streamed R-hat maps: the chain shards finalize a slice of their
+    # units at a time; the unsharded run finalizes the whole
+    rhat_err, rhat_same = 0.0, 0
+    for k, v in jpost.full_rhat.items():
+        ref, q = v.cpu().numpy(), got[f"r.i.rhat.{k}"]
+        rhat_same += int(np.array_equal(q, ref))
+        rhat_err = max(rhat_err, float(np.max(np.abs(q - ref) / np.abs(ref))))
+    say(f"10b(i) streamed R-hat maps of the chain-sharded run against the "
+        f"unsharded run's: {rhat_same} of {len(jpost.full_rhat)} blocks "
+        f"bitwise, worst relative difference {rhat_err:.3e} (<= 1e-6)")
+    if not rhat_err <= 1e-6:
+        fail(f"10b(i): the chain-sharded R-hat maps differ by {rhat_err}")
     say(f"10b(i) chain_shards={ranks} vs the unsharded run ({P10_SCHED[0]}/"
         f"{P10_SCHED[1]}, every collected draw and the final carry, "
         f"{len(i_keys)} arrays): "
@@ -925,10 +993,52 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
     torch.cuda.empty_cache()
     t10c = time.perf_counter()
     launches10 = phase10c(dev, smi, rk, ranks, shared)
+    phase10d(smi, rk, judged_peak)
     say(f"phase 10 (sharding) took {time.perf_counter() - t10:.1f} s: 10a "
         f"{t10a:.1f}, the ranks (10b and 10c) {t10b_ranks:.1f} from spawn "
         f"to exit, 10c in this process {time.perf_counter() - t10c:.1f}")
     return launches10
+
+
+def phase10d(smi: str, rk: list, judged_peak: list) -> None:
+    """Phase 10d: each rank's peak memory against the unsharded run's at
+    the same preset, schedule and seed (``[peak_mem_gb,
+    peak_mem_gb_gather]``, GB): 10b(i), 10c's two routes and
+    mala-100k-newton, each at most P10_MEM_RATIO; the sharded runs' ms a
+    sweep printed beside."""
+    unsharded = {"i": judged_peak, "d": rk[0][0]["d_unsharded_peak"]}
+    cases = (("i", f"10b(i) judged, {P10_SCHED[0]}/{P10_SCHED[1]}, chains "
+                   "split"),
+             ("c_bucket", f"10c ragged-10k bucket, {P10C_SCHED[0]}/"
+                          f"{P10C_SCHED[1]}, groups split"),
+             ("c_segment", f"10c ragged-10k-mala segment, {P10C_SCHED[0]}/"
+                           f"{P10C_SCHED[1]}, groups split"),
+             ("d", f"10d mala-100k-newton, {P10D_SCHED[0]}/{P10D_SCHED[1]}"
+                   ", groups split"))
+    for tag, what in cases:
+        for res, _ in rk:
+            ref = unsharded.get(tag) or res[f"{tag}_unsharded_peak"]
+            got = res[f"{tag}_peak"]
+            ratio = got[0] / ref[0]
+            say(f"{what} rank {res['rank']}: peak_mem_gb {got[0]:.4f} "
+                f"(through the gathers {got[1]:.4f}) against the unsharded "
+                f"run's {ref[0]:.4f} ({ref[1]:.4f}): {ratio:.3f}x (<= "
+                f"{P10_MEM_RATIO}); {res[f'{tag}_ms_sweep']:.2f} ms a sweep "
+                f"on '{smi}'")
+            if not ratio <= P10_MEM_RATIO:
+                fail(f"{what} rank {res['rank']}: peak memory {ratio:.3f}x "
+                     "the unsharded run's")
+    for res, _ in rk:
+        la = res["d_launches"]
+        for k in ("newton_step_refresh", "newton_step_frozen",
+                  "logp_grad_hess", "logp_grad"):
+            if not la.get(k):
+                fail(f"10d rank {res['rank']}: {k} launched no time ({la})")
+        if not res["d_finite"]:
+            fail("10d: NaN or inf in the group-sharded mala-100k-newton run")
+        say(f"10d rank {res['rank']}: mala-100k-newton block {res['d_s']:.1f}"
+            f" s (set-up {res['d_setup_s']:.1f} s; unsharded "
+            f"{rk[0][0]['d_unsharded_ms_sweep']:.2f} ms a sweep on rank 0)")
 
 
 def phase10c(dev, smi: str, rk: list, ranks: int, shared: bool) -> dict:
@@ -2478,7 +2588,7 @@ def main() -> int:
     # asserted, its R-hat printed (the full schedule's gate comes from
     # python -m nestmc_torch.bench --preset mala-100k-newton)
     run_path("mala-100k-newton", newton_path, "beta", (0.5, 1.0),
-             logistic_shapes(512, 3, 8), warmup=200, draws=300, gate=False)
+             logistic_shapes(512, 3, 8), warmup=100, draws=150, gate=False)
 
     # phases 7 and 8 run here, between phase 6's fixed paths and its cut
     # ones, so the cuts below see the time they actually took

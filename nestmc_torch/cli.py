@@ -275,12 +275,10 @@ def cmd_run(args) -> int:
         resume_s = time.perf_counter() - t_r
 
     prof = contextlib.nullcontext()
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+    if args.profile and primary:
+        from nestmc_torch.utils.profiling import trace
 
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        prof = profile(activities=acts)
+        prof = trace(args.profile, args.preset, device.type == "cuda")
     t0 = time.perf_counter()
     try:
         with prof:
@@ -295,10 +293,10 @@ def cmd_run(args) -> int:
     if not primary:
         return 0
     if args.profile:
-        os.makedirs(args.profile, exist_ok=True)
-        path = os.path.join(args.profile, f"{args.preset}.trace.json")
-        prof.export_chrome_trace(path)
-        print(f"profile trace written to {path}", file=sys.stderr)
+        from nestmc_torch.utils.profiling import trace_path
+
+        print("profile trace written to "
+              f"{trace_path(args.profile, args.preset)}", file=sys.stderr)
 
     if args.save_draws:
         full = {f"__full_rhat__.{k}": v.cpu().numpy()

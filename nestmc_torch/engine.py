@@ -30,15 +30,27 @@ the first resumed sweep folds it, once. Timings synchronise the device
 before every clock read.
 
 A sharded run (ShardingConfig; one process a rank, parallel/multihost)
-runs the same loop on this rank's part (parallel/sharding.py): the carry
-is built in full from the seed on every rank and cut, the rng draws at
+runs the same loop on this rank's part (parallel/sharding.py): each rank
+builds only its part of the carry (sharding.shard_state: the positions
+drawn at their global shapes and cut at once, the rest built from them on
+the rank's data; a resumed run's global carry is cut), the rng draws at
 the global shapes (rng.py), and the sums over a group-sharded unit axis
-are all_reduces (parallel/collectives.groups_sum). The draws, the
-accumulators, the acceptance rates and the final carry are gathered to
-the global layout at the end, so every rank's Posterior is the unsharded
-layout; checkpoints hold the gathered carry and are written by the
-primary rank, so a resume may use any topology. Per-rank logs come from
-the primary, over its own chains and units.
+are all_reduces (parallel/collectives.groups_sum). The streamed R-hat and
+ESS are finalized where the units live (:func:`_finalize`), and only
+their maps, which have no chain axis, are gathered. The draws, the
+acceptance rates and the final carry are gathered to the global layout
+at the end, so every rank's Posterior is the unsharded layout;
+checkpoints hold the gathered carry and are written by the primary rank,
+so a resume may use any topology. Per-rank logs come from the primary,
+over its own chains and units.
+
+On a card, ``timings`` holds two memory readings, each the peak of
+torch.cuda.max_memory_allocated since sample()'s entry less the memory
+allocated at that entry (the caller's own tensors), in GB:
+``peak_mem_gb`` through the last sweep and the finalize, and
+``peak_mem_gb_gather`` through the final gathers too. Each segment runs
+under a profiler span, ``nestmc.warmup.seg{i}`` or
+``nestmc.sample.seg{i}`` (utils/profiling.annotate), as the reference's.
 
 Not ported: the reference's remote-backend warm-up and compile retries.
 """
@@ -75,11 +87,13 @@ from nestmc_torch.parallel.sharding import (
     make_mesh,
     make_shard,
     map_specs,
+    shard_state,
     state_shardings,
     take,
 )
 from nestmc_torch.posterior import Posterior
 from nestmc_torch.rng import SweepRNG
+from nestmc_torch.utils.profiling import annotate
 
 log = logging.getLogger("nestmc_torch")
 
@@ -170,6 +184,91 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _mem_entry(device):
+    """The memory allocated at sample()'s entry, with the peak statistics
+    reset there; None off the card."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _mem_peak(timings, key, device, mem0) -> None:
+    """timings[key]: the peak allocated since the entry, less mem0, GB."""
+    if mem0 is not None:
+        timings[key] = (torch.cuda.max_memory_allocated(device) - mem0) / 1e9
+
+
+def _finalize_maps(std_acc, fold_acc):
+    """(R-hat, ESS) maps of a run's accumulators, as one device holds them."""
+    return ({**streaming_rhat_finalize(std_acc),
+             **fold_rhat_finalize(fold_acc)},
+            {**streaming_ess_finalize(std_acc),
+             **fold_ess_finalize(fold_acc)})
+
+
+def _finalize(acc, shard, specs):
+    """(full_rhat, full_ess) of the streamed accumulators (std_acc,
+    fold_acc), in the global layout on every rank.
+
+    Sharded, each rank finalizes the units it holds, never (C, units) at
+    the global extents: with its chains whole (chains not split), its own
+    accumulators; with the chains split, one slice of its units at a time,
+    gathered over the chain shards (mesh.chains_group) and finalized before
+    the next, chain_shards slices of a block, so a slice gathered is the
+    size of the rank's own part. Only the maps, which have no chain axis,
+    are then gathered over the group shards. The finalize reduces over the
+    chains alone, so the maps are the gathered accumulators' maps up to
+    the last bits (PyTorch picks a reduction's summation order by the
+    tensor's extents; within 1e-6 relative, tests/test_torch_sharding)."""
+    std_acc, fold_acc = acc
+    if shard is None:
+        return _finalize_maps(std_acc, fold_acc)
+    split = shard.split("chains")
+    rhat, ess = {}, {}
+    for fold, accs in ((False, std_acc), (True, fold_acc)):
+        # std (C, 2, *dims), fold (2, *dims, C): the chains' dim and the
+        # first of the leaf's own dims
+        for k, (count, mean, m2) in accs.items():
+            cdim, udim = (mean.ndim - 1, 1) if fold else (0, 2)
+            parts = [(mean, m2)]
+            if split and mean.ndim > 2:
+                n = min(shard.mesh.chain_shards, mean.shape[udim])
+                parts = zip(mean.tensor_split(n, udim),
+                            m2.tensor_split(n, udim))
+            pieces = []
+            for pm, pm2 in parts:
+                if split:
+                    spec = tuple("chains" if d == cdim else None
+                                 for d in range(pm.ndim))
+                    pm, pm2 = gather(pm, spec, shard), gather(pm2, spec,
+                                                              shard)
+                one = ({}, {k: (count, pm, pm2)}) if fold else (
+                    {k: (count, pm, pm2)}, {})
+                r, e = _finalize_maps(*one)
+                pieces.append((r[k], e[k]))
+            spec = tuple(specs.position[k][1:])
+
+            def whole(maps):
+                out = maps[0] if len(maps) == 1 else torch.cat(maps)
+                return gather(out, spec, shard)
+            rhat[k] = whole([r for r, _ in pieces])
+            ess[k] = {q: whole([e[q] for _, e in pieces])
+                      for q in pieces[0][1]}
+    return rhat, ess
+
+
+def _gather_out(model, draws, warm_rates, state, shard, specs, picks):
+    """The draws, the warmup acceptance rates and the final carry of a
+    sharded run, gathered to the global layout on every rank."""
+    draws = {k: gather(v, _draw_spec(model, k, shard, picks), shard)
+             for k, v in draws.items()}
+    warm_rates = {k: gather(v, specs.accept_sum[k], shard)
+                  for k, v in warm_rates.items()}
+    state = map_specs(lambda t, spec: gather(t, spec, shard), specs, state)
+    return draws, warm_rates, state
+
+
 def _segments(total: int, segment: int):
     segment = max(1, min(segment, total)) if total else 0
     done = 0
@@ -229,6 +328,7 @@ def sample(
             "the accumulators of the draws before it: without them the "
             "gate would certify the remaining draws only")
     device = data_device(data)
+    mem0 = _mem_entry(device)
     if rng is None:
         rng = SweepRNG(rc.seed, device)
     mesh = make_mesh(cfg)
@@ -236,18 +336,21 @@ def sample(
     _sync(device)
     t_setup = time.perf_counter()
     resumed = init_state is not None
-    state = (init_state if resumed
-             else init_kernel_state(model, cfg, rng, data))
     shard = None
-    if mesh is not None:
-        # every rank built the same global carry: keep this rank's part
+    if mesh is None:
+        state = (init_state if resumed
+                 else init_kernel_state(model, cfg, rng, data))
+    else:
+        # this rank's part only: a resumed run's global carry is cut, a
+        # fresh one built per shard
         shard = make_shard(model, data, cfg, mesh)
         specs = state_shardings(model, cfg, mesh)
 
         def cut(t, spec):
             return take(t, spec, shard.spans)
 
-        state = map_specs(cut, specs, state)
+        state = (map_specs(cut, specs, init_state) if resumed
+                 else shard_state(model, cfg, rng, shard))
         if init_acc is not None:
             init_acc = _map_acc(cut, init_acc, specs.position)
         data = shard.local
@@ -261,14 +364,14 @@ def sample(
         with activate(shard):
             return _run(model, data, cfg, rng, state, sweep, timings, shard,
                         skip_warmup, resumed, init_acc,
-                        draws_offset, debug_nans)
+                        draws_offset, debug_nans, mem0)
     finally:
         if shard is not None:
             rng.chains = None
 
 
 def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
-         resumed, init_acc, draws_offset, debug_nans) -> Posterior:
+         resumed, init_acc, draws_offset, debug_nans, mem0) -> Posterior:
     """sample()'s two phases on this rank's carry (the whole carry
     unsharded), then the gather of what the Posterior holds."""
     rc = cfg.run
@@ -323,8 +426,9 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
     if not skip_warmup and rc.warmup > 0:
         for i, (start, n) in enumerate(_segments(rc.warmup,
                                                  rc.segment_size)):
-            for _ in range(n):
-                state = sweep(state, data, True, rng)
+            with annotate(f"nestmc.warmup.seg{i}"):
+                for _ in range(n):
+                    state = sweep(state, data, True, rng)
             if rc.log_every_segment and primary:
                 _sync(device)
                 log.info("warmup: %d/%d sweeps (%.0f sweeps/s)",
@@ -364,42 +468,43 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
     _sync(device)
     t_s = time.perf_counter()
     for i, (start, n) in enumerate(_segments(remaining, rc.segment_size)):
-        for j in range(draws_offset + start, draws_offset + start + n):
-            if fold_names:
-                # fold retained draw j-1, the position (none at j == 0)
-                jm1 = j - 1 if j >= 1 else -1
-                scs = {
-                    k: fold_rhat_scalars(fold_acc[k][0], jm1, half_len)
-                    for k in fold_names
-                }
-                folds = {
-                    k: (fold_acc[k][1], fold_acc[k][2], scs[k])
-                    for k in fold_names
-                }
-                state, fout = sweep(state, data, False, rng, folds)
-                fold_acc = {
-                    k: (fold_acc[k][0] + scs[k][:, 1], *fout[k])
-                    for k in fold_names
-                }
-            else:
-                state = sweep(state, data, False, rng)
-            for _ in range(rc.thin - 1):
-                state = sweep(state, data, False, rng)
-            if streamed and j % rthin == 0:
-                std_acc = streaming_rhat_update(
-                    std_acc, state.position, j // rthin, half_len
-                )
-            views = _collect(state.position, rc.collect, model.derived,
-                             picks)
-            if not draws:
-                draws = {
-                    k: torch.empty((v.shape[0], remaining)
-                                   + tuple(v.shape[1:]), dtype=v.dtype,
-                                   device=v.device)
-                    for k, v in views.items()
-                }
-            for k, v in views.items():
-                draws[k][:, j - draws_offset] = v
+        with annotate(f"nestmc.sample.seg{i}"):
+            for j in range(draws_offset + start, draws_offset + start + n):
+                if fold_names:
+                    # fold retained draw j-1, the position (none at j == 0)
+                    jm1 = j - 1 if j >= 1 else -1
+                    scs = {
+                        k: fold_rhat_scalars(fold_acc[k][0], jm1, half_len)
+                        for k in fold_names
+                    }
+                    folds = {
+                        k: (fold_acc[k][1], fold_acc[k][2], scs[k])
+                        for k in fold_names
+                    }
+                    state, fout = sweep(state, data, False, rng, folds)
+                    fold_acc = {
+                        k: (fold_acc[k][0] + scs[k][:, 1], *fout[k])
+                        for k in fold_names
+                    }
+                else:
+                    state = sweep(state, data, False, rng)
+                for _ in range(rc.thin - 1):
+                    state = sweep(state, data, False, rng)
+                if streamed and j % rthin == 0:
+                    std_acc = streaming_rhat_update(
+                        std_acc, state.position, j // rthin, half_len
+                    )
+                views = _collect(state.position, rc.collect, model.derived,
+                                 picks)
+                if not draws:
+                    draws = {
+                        k: torch.empty((v.shape[0], remaining)
+                                       + tuple(v.shape[1:]), dtype=v.dtype,
+                                       device=v.device)
+                        for k, v in views.items()
+                    }
+                for k, v in views.items():
+                    draws[k][:, j - draws_offset] = v
         done = draws_offset + start + n
         if rc.log_every_segment and primary:
             _sync(device)
@@ -437,25 +542,16 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
                     mean, m2, state.position[k].movedim(0, -1), sc
                 )
                 fold_acc[k] = (count + sc[:, 1], nm, nm2)
-        std_acc, fold_acc = gather_acc((std_acc, fold_acc))
-        full_rhat = {
-            **streaming_rhat_finalize(std_acc),
-            **fold_rhat_finalize(fold_acc),
-        }
-        full_ess = {
-            **streaming_ess_finalize(std_acc),
-            **fold_ess_finalize(fold_acc),
-        }
+        full_rhat, full_ess = _finalize((std_acc, fold_acc), shard, specs)
+    _mem_peak(timings, "peak_mem_gb", device, mem0)
 
     if shard is not None:
         t_g = time.perf_counter()
-        draws = {k: gather(v, _draw_spec(model, k, shard, picks), shard)
-                 for k, v in draws.items()}
-        warm_rates = {k: gather(v, specs.accept_sum[k], shard)
-                      for k, v in warm_rates.items()}
-        state = gather_state(state)
+        draws, warm_rates, state = _gather_out(model, draws, warm_rates,
+                                               state, shard, specs, picks)
         _sync(device)
         timings["gather_s"] = time.perf_counter() - t_g
+    _mem_peak(timings, "peak_mem_gb_gather", device, mem0)
     post = Posterior(
         draws=draws,
         accept_rates={k: v / max(remaining * rc.thin, 1)

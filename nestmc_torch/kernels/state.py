@@ -18,6 +18,7 @@ from nestmc_torch.adapt import init_precond
 from nestmc_torch.config import SamplerConfig
 from nestmc_torch.data import check_device, data_device
 from nestmc_torch.model import ModelSpec
+from nestmc_torch.parallel.collectives import local_count
 
 
 @dataclass
@@ -59,21 +60,29 @@ def init_kernel_state(model: ModelSpec, cfg: SamplerConfig, rng, data,
     the cache its algorithm carries, from one obs pass: the self part's
     value (RW-MH), value and gradient (MALA), or value, gradient and
     Hessian (Newton-MH, whose log_scale is 0: c = 1, never adapted), and
-    the preconditioner state of KernelConfig.precond."""
+    the preconditioner state of KernelConfig.precond.
+
+    The carry takes its chains from ``position`` and, under an active
+    group shard (parallel.collectives.activate), its units of every split
+    unit axis from the shard: with this rank's part of the position and
+    the shard's local data it is this rank's part of the carry
+    (parallel.sharding.shard_state)."""
     from nestmc_torch.kernels.gibbs import block_algorithm, grad_cache_live
 
-    chains = cfg.run.chains
     if position is None:
-        position = model.init_state(rng, data, chains)
-    dev = next(iter(position.values())).device
+        position = model.init_state(rng, data, cfg.run.chains)
+    first = next(iter(position.values()))
+    chains, dev = first.shape[0], first.device
     log_scale, accept_sum, cache, precond = {}, {}, {}, {}
     for b in model.blocks:
-        u = scale_units(b, cfg)
+        units = local_count(model.unit_axes.get(b.name), b.units)
+        u = units if scale_units(b, cfg) > 1 else 1
         s0 = b.init_scale * 2.38 / math.sqrt(max(b.unit_dim, 1))
         log_scale[b.name] = torch.full((chains, u), math.log(s0), device=dev)
         precond[b.name] = init_precond(position[b.name], cfg.kernel,
                                        unit_dim=b.unit_dim)
-        accept_sum[b.name] = torch.zeros((chains, max(b.units, 1)), device=dev)
+        accept_sum[b.name] = torch.zeros((chains, max(units, 1)),
+                                         device=dev)
         cache[b.name] = None
         if b.name in model.gibbs_draws:
             continue

@@ -2,8 +2,9 @@
 
 Port of :mod:`nestmc.parallel`. The reference has XLA insert its
 collectives from ``jit`` + ``NamedSharding``; here one process runs each
-rank (multihost.initialize), the engine cuts the inputs to the rank's
-part (sharding.py), and the hot-loop collectives are written out: the sum
+rank (multihost.initialize), the engine builds the rank's part of the
+carry (sharding.shard_state) and finalizes its streamed R-hat where its
+units live, and the hot-loop collectives are written out: the sum
 over groups of a population conditional (collectives.groups_sum) and, for
 a vmap_chains user model, the gather of the unit axis its hooks run on
 (collectives.groups_gather).
@@ -13,6 +14,7 @@ from nestmc_torch.parallel.sharding import (
     data_shardings,
     make_mesh,
     shard_inputs,
+    shard_state,
     state_shardings,
 )
 
@@ -20,5 +22,6 @@ __all__ = [
     "data_shardings",
     "make_mesh",
     "shard_inputs",
+    "shard_state",
     "state_shardings",
 ]

@@ -210,6 +210,16 @@ def unit_span(axis: str):
     return start, total
 
 
+def local_count(axis: str | None, total: int) -> int:
+    """How many of the ``total`` units of data axis ``axis`` this rank
+    holds: its span's length when the active shard splits the axis, else
+    ``total``."""
+    s = _ACTIVE
+    if axis is None or s is None or not s.split(axis):
+        return total
+    return s.spans[axis][1]
+
+
 def unit_draw(axis: str | None, dim: int = 1):
     """The ``units`` argument of an rng draw whose tensor's ``dim`` is
     the unit axis of data axis ``axis`` (None: no unit axis)."""

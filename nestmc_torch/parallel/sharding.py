@@ -12,8 +12,14 @@ group_shards and group shard r % group_shards:
   all_reduce over the ranks of its chain shard
   (collectives.groups_sum).
 
-Every rank builds the full inputs from the same seed and keeps its part
-(:func:`shard_inputs`), as the reference's multi-process path does. A
+Every rank holds the full data (it has no chain axis) and only its part
+of every tensor with a chain or unit axis: :func:`shard_state` draws the
+initial positions at their global shapes (the seed's bits), cuts them at
+once and builds the rest of the carry (scales, acceptance sums,
+preconditioner moments, caches) from the cut positions on the shard's
+local data, as the reference places each device's part on the mesh. A
+given global carry (a resumed run's) is cut (:func:`take`;
+:func:`shard_inputs` cuts a carry and the data together). A
 spec is a tuple of axis names, one a leading dim ('chains', 'groups',
 'subjects' or None), like the reference's PartitionSpec; an axis is split
 into contiguous near-equal ranges.
@@ -43,7 +49,7 @@ import torch.distributed as dist
 
 from nestmc_torch.config import SamplerConfig
 from nestmc_torch.data import NestedData, NestedData3, RaggedData
-from nestmc_torch.parallel.collectives import Shard
+from nestmc_torch.parallel.collectives import Shard, activate
 from nestmc_torch.parallel.multihost import world_size
 
 
@@ -259,6 +265,25 @@ def shard_inputs(state, data, model, cfg: SamplerConfig, mesh: Mesh | None):
     return (map_specs(lambda t, s: take(t, s, shard.spans),
                       state_shardings(model, cfg, mesh), state),
             shard.local)
+
+
+def shard_state(model, cfg: SamplerConfig, rng, shard: Shard):
+    """This rank's part of ``init_kernel_state(model, cfg, rng,
+    shard.data)``, built without the global carry: the positions are drawn
+    at their global shapes and cut at once (the only global tensors, and
+    only until the cut), and every other leaf is built from the cut
+    positions on the shard's local data, the cache hooks running with the
+    shard active as the sweep runs them (the kernels at the shard's
+    offsets). Every such leaf is per (chain, unit), so the part is the cut
+    of the global carry bit for bit."""
+    from nestmc_torch.kernels.state import init_kernel_state
+
+    specs = state_shardings(model, cfg, shard.mesh).position
+    position = {k: take(v, specs[k], shard.spans) for k, v in
+                model.init_state(rng, shard.data, cfg.run.chains).items()}
+    with activate(shard):
+        return init_kernel_state(model, cfg, rng, shard.local,
+                                 position=position)
 
 
 def make_shard(model, data, cfg: SamplerConfig, mesh: Mesh) -> Shard:

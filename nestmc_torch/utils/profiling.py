@@ -1,4 +1,12 @@
-"""The cost of one sweep: port of :func:`nestmc.utils.profiling.sweep_cost`.
+"""Profiling helpers: port of :mod:`nestmc.utils.profiling`.
+
+- ``trace(directory)``: torch.profiler over a block, its Chrome trace
+  written to the directory (the command line's ``--profile DIR``), and
+  ``annotate(name)``: a labelled span in that trace (the engine's
+  ``nestmc.warmup.seg{i}`` and ``nestmc.sample.seg{i}``).
+- ``sweep_cost``: the cost of one sweep, below.
+
+The cost of one sweep: port of :func:`nestmc.utils.profiling.sweep_cost`.
 
 The reference compiles one sweep and reads XLA's cost model. Eager
 PyTorch has none, so the port counts one ``adapt=False`` sweep as it runs
@@ -29,10 +37,38 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+@contextlib.contextmanager
+def trace(directory: str, name: str = "trace", cuda: bool | None = None):
+    """torch.profiler over the block (CPU ops, and the card's kernels when
+    ``cuda``, by default when a card is present); at exit its Chrome trace
+    is written to ``directory/name.trace.json``. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if cuda is None:
+        cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        yield prof
+    os.makedirs(directory, exist_ok=True)
+    prof.export_chrome_trace(trace_path(directory, name))
+
+
+def trace_path(directory: str, name: str = "trace") -> str:
+    """Where :func:`trace` writes its trace."""
+    return os.path.join(directory, f"{name}.trace.json")
+
+
+def annotate(name: str):
+    """Label a region in the profiler timeline (a no-op's cost when no
+    profiler runs)."""
+    return torch.profiler.record_function(name)
+
 
 # NVIDIA H100 80GB HBM3 (SXM), 700 W power limit: HBM3 memory rate and
 # float32 rate outside the tensor cores, from the data sheet

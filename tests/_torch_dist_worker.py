@@ -1,6 +1,6 @@
 """One rank of a 2-process gloo run of the port (spawned by the
 test_torch_sharding, test_torch_multihost and test_torch_determinism
-files through :func:`spawn`).
+files through :func:`spawn`; the 'mesh22' mode runs four).
 
 Each rank calls nestmc_torch.parallel.multihost.initialize(device="cpu")
 with the NESTMC_* env (a ``file://`` rendezvous in the test's tmp dir, so
@@ -16,6 +16,7 @@ import subprocess
 import sys
 
 import numpy as np
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -209,6 +210,227 @@ def mode_sharding(inp, arrays, scalars):
         arrays[f"ragged_run_{k}"] = _np(v)
     arrays["ragged_run_final_beta"] = _np(post.final_state.position["beta"])
 
+    # each rank's setup carry against the cut of the global one
+    for split, cs, gs in (("groups", 1, 2), ("chains", 2, 1)):
+        for name, m, d, alg, precond in setup_cases():
+            scalars[f"setup_{split}_{name}"] = setup_check(m, d, alg, precond,
+                                                           cs, gs)
+    # the allocation audit and the finalized maps, on both splits
+    for split, cs, gs in (("groups", 1, 2), ("chains", 2, 1)):
+        for name, m, d, alg in run_cases():
+            scalars[f"audit_{split}_{name}"] = audit_run(m, d, alg, cs, gs)
+    for name, m, d, alg in run_cases():
+        rhat_pair(m, d, alg, 1, 2, f"rhat_groups_{name}", arrays)
+
+
+AUDIT_C = 12       # the audit's chains: no other extent of its runs
+
+
+def setup_cases():
+    """(name, model, data, algorithm, precond) of the per-shard setup
+    checks: every sweep case, and two with a preconditioner."""
+    out = [c + ("none",) for c in sweep_cases()]
+    byname = {c[0]: c for c in sweep_cases()}
+    for name, precond in (("logistic_rwmh", "diag"),
+                          ("logistic_mala", "full")):
+        _, m, d, alg = byname[name]
+        out.append((f"{name}_{precond}", m, d, alg, precond))
+    return out
+
+
+def _kcfg(alg, chains, warmup, draws, cs, gs, precond="none", **run):
+    from nestmc_torch import KernelConfig, SamplerConfig
+
+    cfg = _cfg(chains, warmup, draws, cs, gs, **run)
+    return SamplerConfig(kernel=KernelConfig(algorithm=alg, precond=precond),
+                         run=cfg.run, sharding=cfg.sharding)
+
+
+def _leaves(tree, prefix=""):
+    """[(path, tensor)] of a KernelState's or a nested dict's tensors."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(tree):
+        tree = {f.name: getattr(tree, f.name)
+                for f in dataclasses.fields(tree)}
+    if torch.is_tensor(tree):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _leaves(tree[k], f"{prefix}.{k}")]
+    return []
+
+
+def setup_check(model, data, alg, precond, cs, gs):
+    """{'leaves': n, 'differ': [...]}: this rank's shard_state against
+    the cut of the global init_kernel_state from the same seed, leaf by
+    leaf, bitwise (shapes included)."""
+    import torch
+
+    from nestmc_torch.kernels.state import init_kernel_state
+    from nestmc_torch.parallel.sharding import (
+        make_mesh,
+        make_shard,
+        map_specs,
+        shard_state,
+        state_shardings,
+        take,
+    )
+    from nestmc_torch.rng import SweepRNG
+
+    cfg = _kcfg(alg, 6, 0, 0, cs, gs, precond)
+    mesh = make_mesh(cfg)
+    shard = make_shard(model, data, cfg, mesh)
+    ref = map_specs(lambda t, sp: take(t, sp, shard.spans),
+                    state_shardings(model, cfg, mesh),
+                    init_kernel_state(model, cfg, SweepRNG(1, "cpu"), data))
+    got = shard_state(model, cfg, SweepRNG(1, "cpu"), shard)
+    a, b = dict(_leaves(got)), dict(_leaves(ref))
+    differ = sorted(set(a) ^ set(b)) + [
+        k for k in sorted(set(a) & set(b))
+        if a[k].shape != b[k].shape or not torch.equal(a[k], b[k])]
+    return {"leaves": len(b), "differ": differ}
+
+
+def run_cases():
+    """(name, model, data, algorithm) of the audited and R-hat runs: the
+    padded hier_logistic on each algorithm, nested_poisson and config 4's
+    two ragged routes, at AUDIT_C chains and unit extents that no part
+    of them, nor a slice of a part, shares (20 groups; 40 subjects of 8
+    groups; 40 ragged groups)."""
+    from nestmc_torch.data import from_numpy_ragged
+    from nestmc_torch.models import (
+        make_hier_logistic,
+        make_nested_poisson,
+        synth_logistic,
+        synth_poisson3,
+    )
+
+    d2, _ = synth_logistic(4, G=20, n=8, p=3, device="cpu")
+    d3, _ = synth_poisson3(4, G=8, subjects_per_group=5, n=6, p=2,
+                           device="cpu")
+    rd = from_numpy_ragged(*ragged_case(), device="cpu")
+    out = [(f"logistic_{alg}", make_hier_logistic(d2), d2, alg)
+           for alg in ("newton", "mala", "rwmh")]
+    out.append(("poisson3_newton", make_nested_poisson(d3), d3, "newton"))
+    out.append(("ragged_bucket_newton",
+                make_hier_logistic(rd, loglik_impl="bucket"), rd, "newton"))
+    out.append(("ragged_segment_mala",
+                make_hier_logistic(rd, loglik_impl="pallas-segment"), rd,
+                "mala"))
+    return out
+
+
+def _unit_extents(data):
+    from nestmc_torch.data import NestedData3
+
+    if isinstance(data, NestedData3):
+        return (data.num_groups, data.num_subjects)
+    return (data.num_groups,)
+
+
+def audit_run(model, data, alg, cs, gs):
+    """A short full_rhat run under :class:`_Audit`: the tensors this rank
+    allocated, outside SweepRNG's draws and the model's position draw,
+    with both the global chain extent and a global unit extent, from
+    sample()'s entry to the window's end: the final gathers
+    (engine._gather_out) when the groups are split, the finalize
+    (engine._finalize) when only the chains are."""
+    import dataclasses
+
+    from nestmc_torch import engine, sample
+    from nestmc_torch.rng import SweepRNG
+
+    audit = _Audit(AUDIT_C, _unit_extents(data))
+    model = dataclasses.replace(model,
+                                init_state=audit.outside(model.init_state))
+    end = "_gather_out" if gs > 1 else "_finalize"
+    saved = {"end": getattr(engine, end), "rng": SweepRNG._sharded}
+    setattr(engine, end, audit.ends(saved["end"]))
+    SweepRNG._sharded = audit.outside(saved["rng"])
+    try:
+        with audit:
+            sample(model, data, _kcfg(alg, AUDIT_C, 4, 6, cs, gs,
+                                      full_rhat=True, segment_size=3))
+    finally:
+        setattr(engine, end, saved["end"])
+        SweepRNG._sharded = saved["rng"]
+    return {"ops": audit.ops, "global": audit.hits[:10],
+            "n_global": len(audit.hits), "ended": not audit.on}
+
+
+class _Audit(TorchDispatchMode):
+    """Records every op output (no views) whose shape holds both the
+    global chain extent and one of the global unit extents, while on and
+    not inside a call wrapped by :meth:`outside`."""
+
+    def __init__(self, chains, units):
+        super().__init__()
+        self.chains, self.units = chains, units
+        self.on, self.depth, self.ops, self.hits = True, 0, 0, []
+
+    def outside(self, fn):
+        def wrapped(*a, **kw):
+            self.depth += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.depth -= 1
+        return wrapped
+
+    def ends(self, fn):
+        def wrapped(*a, **kw):
+            self.on = False
+            return fn(*a, **kw)
+        return wrapped
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        import torch
+        from torch.utils._pytree import tree_flatten
+
+        out = func(*args, **(kwargs or {}))
+        if self.on and not self.depth and not func.is_view:
+            self.ops += 1
+            for t in tree_flatten(out)[0]:
+                if (torch.is_tensor(t) and self.chains in t.shape
+                        and any(u in t.shape for u in self.units)):
+                    self.hits.append(f"{func} {tuple(t.shape)}")
+        return out
+
+
+def rhat_pair(model, data, alg, cs, gs, tag, arrays):
+    """A sharded full_rhat run's maps (``tag``.rhat.<block>,
+    ``tag``.ess.<block>.<key>) and, under ``tag``.ref, the maps of its
+    accumulators gathered to the global layout first and finalized as one
+    device would (the way before the finalize moved to the shards)."""
+    from nestmc_torch import engine, sample
+    from nestmc_torch.parallel.collectives import gather
+
+    refs = {}
+    finalize = engine._finalize
+
+    def spy(acc, shard, specs):
+        whole = engine._map_acc(lambda t, sp: gather(t, sp, shard), acc,
+                                specs.position)
+        refs["maps"] = engine._finalize_maps(*whole)
+        return finalize(acc, shard, specs)
+
+    engine._finalize = spy
+    try:
+        post = sample(model, data, _kcfg(alg, AUDIT_C, 4, 6, cs, gs,
+                                         full_rhat=True, segment_size=3))
+    finally:
+        engine._finalize = finalize
+    for pre, (rhat, ess) in ((tag, (post.full_rhat, post.full_ess)),
+                             (f"{tag}.ref", refs["maps"])):
+        for k, v in rhat.items():
+            arrays[f"{pre}.rhat.{k}"] = _np(v)
+        for k, e in ess.items():
+            for q, v in e.items():
+                arrays[f"{pre}.ess.{k}.{q}"] = _np(v)
+
 
 def ragged_case():
     """(x, y, segment_ids, G) of a small ragged data set whose bucket
@@ -395,9 +617,15 @@ def mode_mesh22(inp, arrays, scalars):
         for k, v in full.position.items():
             arrays[f"sweep_{name}_{k}"] = _np(v)
     scalars["chain_index"] = mesh.chain_index
+    # the allocation audit and the finalized maps on the 2 x 2 mesh
+    for name, m, d, alg in run_cases():
+        if name in MESH22_RUNS:
+            scalars[f"audit_mesh22_{name}"] = audit_run(m, d, alg, 2, 2)
+            rhat_pair(m, d, alg, 2, 2, f"rhat_mesh22_{name}", arrays)
 
 
 MESH22_CASES = ("logistic_newton", "poisson3_mala", "glm_gaussian_mala")
+MESH22_RUNS = ("logistic_newton", "poisson3_newton", "ragged_bucket_newton")
 MODES = {"sharding": mode_sharding, "multihost": mode_multihost,
          "determinism": mode_determinism, "mesh22": mode_mesh22}
 

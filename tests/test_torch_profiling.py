@@ -10,7 +10,12 @@
 - flops_per_sweep grows linearly with the chains at fixed data.
 - The count stops inside a kernel wrapper: a wrapper's plain version
   adds its kernel_work and nothing else.
+- trace() writes a torch.profiler trace that holds the engine's segment
+  spans under the reference's names (annotate).
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +32,8 @@ from nestmc_torch.utils.profiling import (
     count_sweep,
     kernel_work,
     sweep_cost,
+    trace,
+    trace_path,
 )
 from tests._torch_dist_worker import ragged_case
 from tests.test_torch_calibration import one_thread  # noqa: F401
@@ -113,3 +120,26 @@ def test_count_pauses_inside_a_wrapper():
         cuda.RECORDER = prev
     assert counter.launches == [("logp_grad", 4, 6, 5, 3, False, False)]
     assert counter.flops == counter.bytes == 0
+
+
+def test_trace_holds_the_engine_segment_spans(tmp_path):
+    """A two-segment run (warmup and sampling) under trace(): the profile
+    and the trace file written at exit hold nestmc.warmup.seg0/seg1 and
+    nestmc.sample.seg0/seg1, the reference's span names."""
+    from nestmc_torch import sample
+
+    data, _ = synth_logistic(3, G=6, n=5, p=2, device="cpu")
+    cfg = SamplerConfig(run=RunConfig(chains=4, warmup=4, draws=4,
+                                      segment_size=2,
+                                      log_every_segment=False))
+    with trace(str(tmp_path), "run") as prof:
+        sample(make_hier_logistic(data), data, cfg)
+    want = {f"nestmc.{phase}.seg{i}" for phase in ("warmup", "sample")
+            for i in (0, 1)}
+    assert want <= {e.key for e in prof.key_averages()}
+    path = trace_path(str(tmp_path), "run")
+    assert os.path.exists(path)
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert want <= names
+    assert "nestmc.sample.seg2" not in names

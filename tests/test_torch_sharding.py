@@ -30,6 +30,7 @@ from tests._torch_dist_worker import (
     MESH22_CASES,
     _cfg,
     ragged_case,
+    setup_cases,
     spawn,
     sweep_cases,
     sweep_pair,
@@ -274,3 +275,71 @@ def test_plain_steps_at_offsets_slice_the_full_call(name):
                         cs, us, 8, 12)
         for f, q in zip(full, part):
             torch.testing.assert_close(q, f[cs, us], rtol=0, atol=0)
+
+
+def _setup_names():
+    return [c[0] for c in setup_cases()]
+
+
+@pytest.mark.parametrize("split", ["groups", "chains"])
+@pytest.mark.parametrize("case", _setup_names())
+def test_rank_setup_carry_is_the_cut_of_the_global_one(ranks, case, split):
+    """Each rank builds its part of the initial carry on its own
+    (sharding.shard_state: the positions drawn at their global shapes and
+    cut, the scales, acceptance sums, preconditioner moments and caches
+    from the cut positions on the rank's data): bitwise the cut of the
+    unsharded init_kernel_state, every leaf, with the groups or the chains
+    split over the two ranks."""
+    out, _, _ = ranks
+    for arrays, sc in out:
+        got = sc[f"setup_{split}_{case}"]
+        assert got["leaves"] >= 3
+        assert got["differ"] == [], got["differ"]
+
+
+def _audits(out, prefix):
+    return [(k, v) for _, sc in out for k, v in sc.items()
+            if k.startswith(prefix)]
+
+
+@pytest.mark.parametrize("split", ["groups", "chains", "mesh22"])
+def test_no_rank_allocates_at_the_global_extents(ranks, mesh22, split):
+    """The allocation audit (tests/_torch_dist_worker._Audit, a
+    TorchDispatchMode): outside SweepRNG's draws and the model's position
+    draw, no op a rank runs in a short full_rhat run makes a tensor with
+    both the global chain extent and a global unit extent: from
+    sample()'s entry to the final gathers when the groups are split (two
+    group shards, with one and with two chain shards), through the last
+    sweep when only the chains are. Padded hier_logistic on each
+    algorithm, nested_poisson and both ragged routes."""
+    out = mesh22 if split == "mesh22" else ranks[0]
+    audits = _audits(out, f"audit_{split}_")
+    assert len(audits) >= (3 if split == "mesh22" else 6) * len(out) // 2
+    for k, a in audits:
+        assert a["ended"] and a["ops"] > 100, (k, a)
+        assert a["n_global"] == 0, (k, a["n_global"], a["global"])
+
+
+@pytest.mark.parametrize("split", ["groups", "mesh22"])
+def test_sharded_rhat_maps_equal_the_gathered_finalize(ranks, mesh22, split):
+    """A group-sharded run finalizes its streamed R-hat and ESS where its
+    units live (its own accumulators with one chain shard; slices of its
+    units gathered over the chain shards on the 2 x 2 mesh) and gathers
+    only the maps: they equal the maps of the accumulators gathered to the
+    global layout and finalized whole, to 1e-6 relative. The finalize
+    reduces over the chains alone, but PyTorch picks a reduction's
+    summation order by the tensor's extents, so a part's maps may differ
+    from the whole's in the last bits (2.2e-07 relative at worst here)."""
+    out = mesh22 if split == "mesh22" else ranks[0]
+    n = 0
+    for arrays, _ in out:
+        pre = f"rhat_{split}_"
+        for k in arrays:
+            if k.startswith(pre) and ".ref." not in k:
+                name, rest = k.split(".", 1)
+                ref = arrays[f"{name}.ref.{rest}"]
+                assert arrays[k].shape == ref.shape, k
+                np.testing.assert_allclose(arrays[k], ref, rtol=1e-6,
+                                           atol=0, err_msg=k)
+                n += 1
+    assert n >= 3 * 3 * len(out)
