@@ -77,8 +77,13 @@ Needs one CUDA card and this checkout (it builds the kernels from
    route (ragged-10k-mala's model built with loglik_impl='pallas-segment':
    MALA, then RW-MH on a short schedule whose R-hat is printed, not
    asserted), config 3's MALA and Newton variants and the judged config.
-   Each must launch exactly its kernels, as many times as its schedule
-   implies, reach worst all-parameter R-hat < 1.01, a plausible
+   Each runs through sample() as a user's run does on the card: each
+   phase's step captured once as a CUDA graph and replayed
+   (``timings["sweep"] == "graph"``, asserted; its capture seconds and
+   peak_mem_gb printed), the launches counted at the capture counted again
+   at each replay. Each must launch exactly its kernels, as many times as
+   its schedule implies, reach worst all-parameter R-hat < 1.01, a
+   plausible
    acceptance of its MH-updated block and no NaN. When the time budget
    requires, depth is cut (never width), and the R-hat line is then
    printed, not asserted: first config 3's variants, then the segment
@@ -221,6 +226,26 @@ Needs one CUDA card and this checkout (it builds the kernels from
    the groups split in two on every rank; 10b(i)'s streamed R-hat maps,
    finalized on the rank's chains a slice of units at a time, within
    1e-6 relative of the unsharded run's.
+11. the compiled segments (nestmc_torch/segments.py), after phase 5 and
+   before phase 6: (a) the streamed R-hat update's device-table form
+   against its host-index form on the card, bitwise; (b) for judged,
+   config 2, rw, config 3 (RW-MH, MALA, Newton), ragged-10k (bucket
+   route), ragged-10k-mala (segment route), each 10 warmup sweeps and 10
+   sampling draws with the fold, and mala-100k-newton at 4/4, all at full
+   width: the engine's warmup and sampling steps from the same carry and
+   seed, stepped eagerly and replayed from their captured graphs, every
+   leaf of the carry (positions, caches, scales, accept sums,
+   preconditioner moments), the fold's and the streamed update's
+   accumulators, both generators' states and the launch counts bitwise;
+   (c) the same schedule through sample(), eager (its private ``_eager``)
+   and graph: draws, streamed R-hat and ESS maps, final positions,
+   acceptance, generators and launches bitwise, and each run's wall ms a
+   sweep (synced, the capture apart), the capture's seconds and
+   ``timings.peak_mem_gb`` printed (the graph's against 1.25x the
+   eager's: printed, not gated), with a JSON line of the table. The
+   script prints this phase's seconds and phase 6's fixed paths' seconds,
+   which the graph shortens. ``python3 chip_smoke.py --phase11`` runs
+   this phase alone.
 
 Bound: the least time the card could take for a call, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -300,6 +325,20 @@ def say(msg: str) -> None:
 
 def left_s() -> float:
     return BUDGET_S - (time.perf_counter() - T_START)
+
+
+class DeviceKey:
+    """Fixed Philox key words on the card, the pair a captured sweep's key
+    row hands a launch: times a step kernel's Philox mode without the copy
+    to the device that an eagerly drawn key takes."""
+
+    def __init__(self, seed: int, dev):
+        from nestmc_torch.rng import SweepRNG
+
+        self.words = SweepRNG(seed, dev).key_table(1)[0].to(dev)
+
+    def key_words(self, device):
+        return self.words
 
 
 def eight_schools_quadrature() -> dict:
@@ -414,6 +453,199 @@ P10_MEM_RATIO = 0.6         # a rank's peak_mem_gb / the unsharded run's
 # Newton) and ragged-10k-mala's segment route (MALA)
 P10C_ROUTES = (("bucket", "ragged-10k", "bucket"),
                ("segment", "ragged-10k-mala", "pallas-segment"))
+
+
+# phase 11's paths: (label, preset, loglik_impl, warmup, draws)
+P11_PATHS = (
+    ("judged", "judged", "auto", 10, 10),
+    ("config 2", "hier-logistic-100", "auto", 10, 10),
+    ("rw", "hier-logistic-100-rw", "auto", 10, 10),
+    ("config 3 RW-MH", "nested-poisson-1k", "auto", 10, 10),
+    ("config 3 MALA", "nested-poisson-1k-mala", "auto", 10, 10),
+    ("config 3 Newton", "nested-poisson-1k-newton", "auto", 10, 10),
+    ("ragged-10k bucket", "ragged-10k", "bucket", 10, 10),
+    ("ragged-10k-mala segment", "ragged-10k-mala", "pallas-segment", 10,
+     10),
+    ("mala-100k-newton", "mala-100k-newton", "auto", 4, 4),
+)
+P11_MEM_RATIO = 1.25        # graph / eager peak_mem_gb, printed
+
+
+def phase11(dev, smi: str) -> dict:
+    """Phase 11, the compiled segments (nestmc_torch/segments.py), graph
+    against eager: (a) the streamed R-hat update's device-table form
+    against the host-index form, bitwise; (b) for each of P11_PATHS at
+    full width, the warmup and sampling steps from the same carry and seed
+    stepped eagerly and replayed from their captured graphs: positions,
+    caches, scales, accept sums, preconditioner moments, the fold's and
+    the streamed update's accumulators, both generators' states and the
+    launch counts bitwise; then sample() on the same schedule, eager (its
+    private _eager) and graph: the draws, the streamed R-hat and ESS maps
+    and the final carry bitwise, each run's wall ms a sweep (synced; the
+    capture apart), capture seconds and timings.peak_mem_gb printed (the
+    graph's against P11_MEM_RATIO x the eager's, printed, not gated).
+    Returns the graph runs' launch counts."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from nestmc_torch import sample
+    from nestmc_torch.diagnostics import (
+        fold_rhat_init,
+        streaming_rhat_init,
+        streaming_rhat_table,
+        streaming_rhat_update,
+        streaming_rhat_update_at,
+    )
+    from nestmc_torch.kernels.gibbs import make_sweep, rhat_fold_names
+    from nestmc_torch.kernels.state import init_kernel_state
+    from nestmc_torch.ops.cuda import launch_counts, reset_launch_counts
+    from nestmc_torch.presets import get_preset
+    from nestmc_torch.rng import SweepRNG
+    from nestmc_torch.segments import DrawProgram, WarmupProgram
+
+    t11 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pos = {"a": torch.randn(512, 7, 3, generator=gen, device=dev)}
+    acc = {"a": (torch.tensor([3.0, 0.0]),
+                 torch.randn(512, 2, 7, 3, generator=gen, device=dev),
+                 torch.rand(512, 2, 7, 3, generator=gen, device=dev))}
+    for idx in (3, 9):
+        ref = streaming_rhat_update(acc, pos, idx, 6)["a"]
+        act, cnt, _ = streaming_rhat_table(acc["a"][0], [idx], 6)
+        got = streaming_rhat_update_at(acc, pos, act[0].to(dev),
+                                       cnt[0].to(dev))["a"]
+        ok = torch.equal(ref[1], got[0]) and torch.equal(ref[2], got[1])
+        say(f"11a streamed update at draw {idx} (half {idx // 6}): device "
+            f"table form {'bitwise' if ok else 'DIFFERS from'} the host "
+            "index form")
+        if not ok:
+            fail("the streamed update's table form differs on the card")
+
+    def same(a, b) -> bool:
+        """Bitwise equal, NaN where NaN (an R-hat of a short run)."""
+        if a.is_floating_point():
+            return (a.shape == b.shape
+                    and torch.equal(torch.isnan(a), torch.isnan(b))
+                    and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+        return torch.equal(a, b)
+
+    def leaves(tree, where=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{where}.{k}")
+        elif isinstance(tree, (tuple, list)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{where}[{i}]")
+        elif torch.is_tensor(tree):
+            yield where, tree
+
+    def steps(model, data, cfg, W, D, graph):
+        """The engine's two programs from one seed: (carry, acc, rng
+        states, launches)."""
+        rng = SweepRNG(cfg.run.seed, dev)
+        reset_launch_counts()
+        sweep = make_sweep(model, cfg)
+        pool = torch.cuda.graph_pool_handle() if graph else None
+        warm = WarmupProgram(sweep, init_kernel_state(model, cfg, rng, data),
+                             data, rng, cfg, W, graph, pool)
+        warm.run(W)
+        state = warm.state()
+        warm.close()
+        folds = rhat_fold_names(model, cfg)
+        prog = DrawProgram(
+            sweep, state, data, rng, cfg,
+            streaming_rhat_init({k: v for k, v in state.position.items()
+                                 if k not in folds}),
+            fold_rhat_init(state.position, folds), lambda p: {}, 0, 0,
+            D // 2, D, graph, pool)
+        del state, warm
+        prog.run(D, 0)
+        prog.close()
+        torch.cuda.synchronize()
+        st = prog.state()
+        return ({"position": st.position, "log_scale": st.log_scale,
+                 "accept_sum": st.accept_sum, "cache": st.cache,
+                 "precond": st.precond, "acc": prog.acc()},
+                rng.get_state(), launch_counts())
+
+    launches = {}
+    table = []
+    for label, preset, impl, W, D in P11_PATHS:
+        model, data, cfg = get_preset(preset, device=dev, loglik_impl=impl)
+        cfg = dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, warmup=W, draws=D, full_rhat=True,
+            log_every_segment=False))
+        (e_c, er, el), (g_c, gr, gl) = (steps(model, data, cfg, W, D, g)
+                                        for g in (False, True))
+        bad = [w for (w, a), (_, b) in zip(leaves(e_c), leaves(g_c))
+               if not same(a, b)]
+        bad += [f"rng {k}" for k in er if not torch.equal(er[k], gr[k])]
+        if el != gl:
+            bad.append(f"launches {el} != {gl}")
+        n_leaves = sum(1 for _ in leaves(e_c))
+        say(f"11b {label} ({preset}, C={cfg.run.chains}, {W}/{D}): graph "
+            f"and eager steps {'bitwise' if not bad else 'DIFFER'} over "
+            f"{n_leaves} carry and accumulator leaves, both generators and"
+            f" the launches {sum(gl.values())}" + (f": {bad}" if bad else ""))
+        if bad:
+            fail(f"11b {label}: the graph's steps differ from the eager "
+                 f"ones at {bad}")
+        del e_c, g_c
+        runs = {}
+        for eager in (True, False):
+            # what earlier runs left to the collector is freed before the
+            # run's entry, where its peak_mem_gb starts
+            gc.collect()
+            torch.cuda.empty_cache()
+            rng = SweepRNG(cfg.run.seed, dev)
+            reset_launch_counts()
+            post = sample(model, data, cfg, rng=rng, _eager=eager)
+            runs[eager] = (post, rng.get_state(), launch_counts())
+        (e, e_rng, e_l), (g, g_rng, g_l) = runs[True], runs[False]
+        for k, v in g_l.items():
+            launches[k] = launches.get(k, 0) + v
+        ok = (g.timings["sweep"] == "graph" and e_l == g_l
+              and all(torch.equal(e_rng[k], g_rng[k]) for k in e_rng))
+        for a, b in ((e.draws, g.draws), (e.full_rhat, g.full_rhat),
+                     (e.full_ess, g.full_ess),
+                     (e.final_state.position, g.final_state.position),
+                     (e.accept_rates, g.accept_rates)):
+            ok &= all(same(x, y) for (_, x), (_, y) in zip(leaves(a),
+                                                           leaves(b)))
+        sweeps = W + D * cfg.run.thin
+
+        def ms(post):
+            return 1e3 * (post.timings["warmup_s"]
+                          + post.timings["sample_s"]) / sweeps
+        ratio = g.timings["peak_mem_gb"] / max(e.timings["peak_mem_gb"],
+                                               1e-12)
+        row = {"path": label, "preset": preset, "W_D": [W, D],
+               "eager_ms_sweep": ms(e), "graph_ms_sweep": ms(g),
+               "capture_s": g.timings["capture_s"],
+               "eager_peak_mem_gb": e.timings["peak_mem_gb"],
+               "graph_peak_mem_gb": g.timings["peak_mem_gb"],
+               "mem_ratio": ratio}
+        table.append(row)
+        say(f"11c {label} through sample(): draws, R-hat and ESS maps, "
+            f"final positions, acceptance, generators and launches "
+            f"{'bitwise' if ok else 'DIFFER'}; ms a sweep eager "
+            f"{row['eager_ms_sweep']:.3f} graph {row['graph_ms_sweep']:.3f}"
+            f" (capture {row['capture_s']:.3f} s); peak_mem_gb eager "
+            f"{row['eager_peak_mem_gb']:.4f} graph "
+            f"{row['graph_peak_mem_gb']:.4f} ({ratio:.3f}x, "
+            f"{'within' if ratio <= P11_MEM_RATIO else 'OVER'} "
+            f"{P11_MEM_RATIO}x; printed) on '{smi}'")
+        if not ok:
+            fail(f"11c {label}: sample()'s graph run differs from its "
+                 "eager run")
+        del runs, e, g, model, data
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase11": table}), flush=True)
+    say(f"phase 11 (graph against eager) took "
+        f"{time.perf_counter() - t11:.1f} s")
+    return launches
 
 
 def state_pairs(got, ref):
@@ -1556,7 +1788,7 @@ def main() -> int:
                                       device=dev),
                           torch.rand(2, G, P, C, generator=d["gen"],
                                      device=dev),
-                          fold_rhat_scalars([11.0, 0.0], 11, 2048))
+                          fold_rhat_scalars([11.0, 0.0], 11, 2048).to(dev))
                 args = (beta, v, g, h, ls, mu, lt, x, y, m)
                 out = fused_newton_logistic_step(
                     *args, noise=(eps, logu), frozen=frozen, rhat_fold=rf)
@@ -1629,7 +1861,7 @@ def main() -> int:
                 fmean = torch.randn(2, G, P, C, generator=d["gen"],
                                     device=dev)
                 fm2 = torch.rand(2, G, P, C, generator=d["gen"], device=dev)
-                sc = fold_rhat_scalars([11.0, 0.0], 11, 512)
+                sc = fold_rhat_scalars([11.0, 0.0], 11, 512).to(dev)
                 rf, rf_s = (fmean, fm2, sc), (fmean[..., :S], fm2[..., :S],
                                               sc)
             args = (beta, v, g, ls, mu, lt, x, y, m)
@@ -1664,7 +1896,7 @@ def main() -> int:
             main = dname == "dense" and not fold
             record("mala_step", err)
             if main:
-                key = SweepRNG(8, dev)
+                key = DeviceKey(8, dev)
                 ms_px = timed(lambda: fused_mala_logistic_step(*args,
                                                                rng=key))
                 w_px = work("mala_step", C, G, N, P, noise=False)
@@ -1904,7 +2136,7 @@ def main() -> int:
                              .clamp_min(1e-38))
             rf = (torch.randn(2, G, P, C, generator=ge, device=dev),
                   torch.rand(2, G, P, C, generator=ge, device=dev),
-                  fold_rhat_scalars([3.0, 0.0], 3, 5))
+                  fold_rhat_scalars([3.0, 0.0], 3, 5).to(dev))
             errs = {}
             for name, kern, plain, a in (
                 ("logp_grad", logistic_logp_grad,
@@ -2112,7 +2344,7 @@ def main() -> int:
             if fold:
                 fm = torch.randn(2, G, P, C, generator=d["gen"], device=dev)
                 fm2 = torch.rand(2, G, P, C, generator=d["gen"], device=dev)
-                sc = fold_rhat_scalars([11.0, 0.0], 11, 2048)
+                sc = fold_rhat_scalars([11.0, 0.0], 11, 2048).to(dev)
                 rf, rf_s = (fm, fm2, sc), (fm[..., :S], fm2[..., :S], sc)
             args = (beta, v, g, h, ls, mu, lt, x, y, m)
             out = fused_newton_logistic_step(*args, noise=(eps, logu),
@@ -2130,7 +2362,7 @@ def main() -> int:
                 logu[:S], keep.index(4))
             ms_ext = timed(lambda: fused_newton_logistic_step(
                 *args, noise=(eps, logu), frozen=frozen, rhat_fold=rf))
-            key = SweepRNG(seed, dev)
+            key = DeviceKey(seed, dev)
             ms = timed(lambda: fused_newton_logistic_step(
                 *args, rng=key, frozen=frozen, rhat_fold=rf))
             pms = timed(lambda: fused_newton_logistic_step_plain(
@@ -2159,7 +2391,7 @@ def main() -> int:
             lsm = torch.full((C, G), -1.3, device=dev)
             rf = (torch.randn(2, G, P, C, generator=d["gen"], device=dev),
                   torch.rand(2, G, P, C, generator=d["gen"], device=dev),
-                  fold_rhat_scalars([11.0, 0.0], 11, 2048))
+                  fold_rhat_scalars([11.0, 0.0], 11, 2048).to(dev))
             args = (beta, *vg, lsm, mu, lt, x, y, m)
             out = fused_mala_logistic_step(*args, noise=(eps, logu),
                                            rhat_fold=rf)
@@ -2169,7 +2401,7 @@ def main() -> int:
             err, ok, n_diff, n_bad = step_check(out, ref, beta, logu, 3)
             ms_ext = timed(lambda: fused_mala_logistic_step(
                 *args, noise=(eps, logu), rhat_fold=rf))
-            key = SweepRNG(seed, dev)
+            key = DeviceKey(seed, dev)
             ms = timed(lambda: fused_mala_logistic_step(*args, rng=key,
                                                         rhat_fold=rf))
             pms = timed(lambda: fused_mala_logistic_step_plain(
@@ -2256,7 +2488,7 @@ def main() -> int:
         if fold:
             rf = (torch.randn(2, G, P, C, generator=gen, device=dev),
                   torch.rand(2, G, P, C, generator=gen, device=dev),
-                  fold_rhat_scalars([11.0, 0.0], 11, 2048))
+                  fold_rhat_scalars([11.0, 0.0], 11, 2048).to(dev))
         args = (beta, v, g, h, ls, mu, lt, x, yb, wm)
         out = fused_newton_logistic_step(*args, noise=(eps, logu),
                                          frozen=frozen, rhat_fold=rf)
@@ -2271,7 +2503,7 @@ def main() -> int:
             keep.index(4))
         ms_ext = timed(lambda: fused_newton_logistic_step(
             *args, noise=(eps, logu), frozen=frozen, rhat_fold=rf))
-        key = SweepRNG(22, dev)
+        key = DeviceKey(22, dev)
         ms = timed(lambda: fused_newton_logistic_step(
             *args, rng=key, frozen=frozen, rhat_fold=rf))
         pms = timed(lambda: fused_newton_logistic_step_plain(
@@ -2382,7 +2614,12 @@ def main() -> int:
                         algorithm, ("mu", "log_tau_g", "log_tau_s"),
                         "beta_s")
 
+    # ---- 11. the compiled segments: graph against eager ----
+    for k, nl in phase11(dev, smi).items():
+        launches_total[k] = launches_total.get(k, 0) + nl
+
     # ---- 6. the end-to-end paths at full width ----
+    fixed_s = {}    # wall seconds of phase 6's fixed paths
 
     def logistic_shapes(C_, P_, k_):
         return lambda D: {"mu": (C_, D, P_), "log_tau": (C_, D, P_),
@@ -2402,9 +2639,17 @@ def main() -> int:
         ``check(post)`` where given."""
         runner = runner or (lambda **kw: bench.run(preset=preset, **kw))
         reset_launch_counts()
+        t_path = time.perf_counter()
         result, post, run_info = runner(warmup=warmup, draws=draws,
                                         full_rhat=full_rhat)
         launches = launch_counts()
+        fixed_s[preset] = time.perf_counter() - t_path
+        if post.timings["sweep"] != "graph":
+            fail(f"{preset}: the run stepped {post.timings['sweep']}, not "
+                 "the captured graph")
+        say(f"{preset}: replayed captured graphs (capture "
+            f"{post.timings['capture_s']:.3f} s; peak_mem_gb "
+            f"{post.timings['peak_mem_gb']:.4f})")
         W, D = run_info["warmup"], run_info["draws"]
         say(f"{preset} run: {json.dumps(run_info)}")
         print(json.dumps(result), flush=True)
@@ -2590,6 +2835,10 @@ def main() -> int:
     run_path("mala-100k-newton", newton_path, "beta", (0.5, 1.0),
              logistic_shapes(512, 3, 8), warmup=100, draws=150, gate=False)
 
+    say("phase 6's fixed paths took "
+        f"{sum(fixed_s.values()):.1f} s (phase 11 is paid for by what the "
+        "graph saves here): " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in fixed_s.items()))
     # phases 7 and 8 run here, between phase 6's fixed paths and its cut
     # ones, so the cuts below see the time they actually took
     # ---- 7. the command line: run -> checkpoint -> resume -> compare ----
@@ -3563,9 +3812,29 @@ def phase10_alone(ranks: int) -> int:
     return 0
 
 
+def phase11_alone() -> int:
+    """``python3 chip_smoke.py --phase11``: build p=3 and p=4, then phase
+    11 alone."""
+    import torch
+
+    from nestmc_torch import bench
+    from nestmc_torch.ops.cuda import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    _build.build([3, 4])
+    smi = bench.gpu_query()
+    say(f"phase 11 alone on '{smi}'")
+    phase11(torch.device("cuda"), smi)
+    say(f"total {time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--phase10-rank"]:
         raise SystemExit(phase10_rank())
+    if sys.argv[1:] == ["--phase11"]:
+        raise SystemExit(phase11_alone())
     if sys.argv[1:2] == ["--phase10"]:
         raise SystemExit(phase10_alone(int(sys.argv[2])))
     raise SystemExit(main())

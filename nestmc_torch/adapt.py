@@ -7,7 +7,9 @@ when sampling begins:
   log s_{t+1} = log s_t + c (t + 1 + t0)^(-kappa) (alpha_t - alpha*)
 
 with kappa = 0.6, t0 = 10, c = 1 by default; alpha* = 0.234 / 0.44 (RW by
-dimension) or 0.574 (MALA). ``t`` counts sweeps from 0 and is a host int.
+dimension) or 0.574 (MALA). ``t`` counts sweeps from 0 and is a host int;
+a captured sweep reads its gain from a device table of rm_step_size(t)
+instead (nestmc_torch/segments.py), the same float32 multiplier.
 The preconditioner state of a block (KernelState.precond) is an EMA of the
 posterior moments per (chain, unit): the diagonal variance ('diag') or the
 Haario covariance ('full'), which falls back to 'diag' for scalar units.
@@ -26,10 +28,15 @@ def rm_step_size(t: int, cfg: KernelConfig) -> float:
 
 
 def adapt_log_scale(log_scale, alpha, t: int, target: float,
-                    cfg: KernelConfig):
+                    cfg: KernelConfig, gain=None):
     """One RM update of per-(chain, unit) log proposal scales, clipped to
-    [-12, 8]. alpha: (C, U) realised acceptance probabilities this sweep."""
-    new = log_scale + rm_step_size(t, cfg) * (alpha - target)
+    [-12, 8]. alpha: (C, U) realised acceptance probabilities this sweep.
+    gain: the step's gain as a float32 tensor on alpha's device (a
+    captured sweep's entry of the segment's table), in place of
+    rm_step_size(t); the product is the same float32 product."""
+    if gain is None:
+        gain = rm_step_size(t, cfg)
+    new = log_scale + gain * (alpha - target)
     return torch.clamp(new, -12.0, 8.0)
 
 
@@ -77,16 +84,20 @@ def _ready_gate(pc, like, warm_steps: int):
 def precond_std(pc, cfg: KernelConfig, warm_steps: int = 50):
     """The proposal's shape multiplier: None, the per-coordinate std
     (diag) or the lower Cholesky factor of the EMA covariance plus
-    precond_reg I (full; torch.linalg.cholesky per (chain, unit)); the
-    identity until the chain's EMA has seen ``warm_steps`` sweeps. The RW
-    and MALA updates apply a diag multiplier elementwise and a full factor
-    as eps -> L eps over the trailing dim (the extra matrix dim tells)."""
+    precond_reg I (full; per (chain, unit), NaN where the matrix is not
+    positive definite, as the reference's jnp.linalg.cholesky gives, and
+    with no host read of the factorization's status, so a captured sweep
+    can take it); the identity until the chain's EMA has seen
+    ``warm_steps`` sweeps. The RW and MALA updates apply a diag multiplier
+    elementwise and a full factor as eps -> L eps over the trailing dim
+    (the extra matrix dim tells)."""
     if pc is None:
         return None
     if "cov" in pc:
         cov = pc["cov"]
         eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
-        chol = torch.linalg.cholesky(cov + cfg.precond_reg * eye)
+        chol, info = torch.linalg.cholesky_ex(cov + cfg.precond_reg * eye)
+        chol = torch.where((info == 0)[..., None, None], chol, float("nan"))
         ready = _ready_gate(pc, cov, warm_steps)
         return ready * chol + (1.0 - ready) * eye
     std = torch.sqrt(pc["var"] + cfg.precond_reg)

@@ -318,7 +318,7 @@ def cmd_run(args) -> int:
         print(post.summary_table())
         print(f"\nworst R-hat: {post.worst_rhat():.4f}")
         print(f"wall: {wall:.1f}s  timings: "
-              + json.dumps({k: round(v, 2)
+              + json.dumps({k: round(v, 2) if isinstance(v, float) else v
                             for k, v in post.timings.items()}))
     else:
         sample_s = max(post.timings.get("sample_s", wall), 1e-9)

@@ -90,8 +90,10 @@ class RunConfig:
 @dataclass(frozen=True)
 class ShardingConfig:
     """Device layout: chain_shards x group_shards ranks, one process (and
-    device) a rank (nestmc_torch/parallel). donate_carry is carried
-    unused (PyTorch reuses the carry's memory by itself)."""
+    device) a rank (nestmc_torch/parallel). donate_carry is carried for
+    the reference's surface: its counterpart, the static carry that each
+    step reads and writes in place (nestmc_torch/segments.py), is always
+    used."""
 
     chain_shards: int = 1
     group_shards: int = 1

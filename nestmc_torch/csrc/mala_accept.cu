@@ -40,9 +40,11 @@
 #error "build with -DNESTMC_P=<covariate count>"
 #endif
 
-// fmean != null turns on the fold; eps != null takes external noise
-// (eps, logu) instead of Philox(k0, k1). Returns the cudaError_t of the
-// launch (0 = success).
+// fmean != null turns on the fold, whose (2, 2) scalars fsc [[cnt_0,
+// act_0], [cnt_1, act_1]] the kernel reads from the device; eps != null
+// takes external noise (eps, logu) instead of Philox noise keyed by the
+// two words at key (device memory, so a captured launch reads each
+// replay's key). Returns the cudaError_t of the launch (0 = success).
 // c0, g0, G_total: the first chain and unit this launch holds in the
 // unsharded launch and that launch's unit count (0, 0, G unsharded), so
 // the Philox counters are the unsharded run's. They come last: a build
@@ -52,17 +54,15 @@ extern "C" int nestmc_mala_step(
     const float* v, const float* g, const float* ls, const float* mu,
     const float* lt, const float* eps, const float* logu, const float* fmean,
     const float* fm2, float* out_beta, float* out_v, float* out_g,
-    float* out_alpha, float* out_fmean, float* out_fm2, float cnt0,
-    float act0, float cnt1, float act1, int C, int G, int n, unsigned int k0,
-    unsigned int k1, void* stream, int c0, int g0, int G_total) {
+    float* out_alpha, float* out_fmean, float* out_fm2, const float* fsc,
+    int C, int G, int n, const unsigned int* key, void* stream, int c0,
+    int g0, int G_total) {
   using namespace nestmc;
   constexpr int P = NESTMC_P;
-  MalaArgs a{x,         y,         mask,      nullptr,      beta,
-             v,         g,         ls,        mu,           lt,
-             eps,       logu,      fmean,     fm2,          out_beta,
-             out_v,     out_g,     out_alpha, out_fmean,    out_fm2,
-             {cnt0, cnt1}, {act0, act1}, C,   G,            n,
-             k0,        k1};
+  MalaArgs a{x,     y,     mask,      nullptr,   beta,    v,   g,
+             ls,    mu,    lt,        eps,       logu,    fmean, fm2,
+             out_beta, out_v, out_g,  out_alpha, out_fmean, out_fm2, fsc,
+             C,     G,     n,         key};
   a.cell_c0 = c0;
   a.cell_g0 = g0;
   a.cell_G = G_total;

@@ -60,10 +60,12 @@ struct MalaArgs {
   float* out_alpha;
   float* out_fmean;
   float* out_fm2;
-  float cnt[2];        // fold: count after this draw (>= 1), per half
-  float act[2];        // fold: 1 if the draw belongs to the half, else 0
+  // fold: (2, 2) [[cnt_0, act_0], [cnt_1, act_1]] on the device, or null:
+  // per half the count after this draw (>= 1) and 1 if the draw belongs
+  // to the half, else 0
+  const float* fsc;
   int C, G, n;
-  uint32_t k0, k1;     // Philox key
+  const uint32_t* key;  // the two Philox key words, on the device
   // cell (c, g)'s Philox counter is (cell_c0 + c) * cell_G + cell_g0 + g:
   // its index in the unsharded launch when this one holds chains
   // cell_c0.. and units cell_g0.. of cell_G (0, 0, G when unsharded)
@@ -148,14 +150,16 @@ __global__ void __launch_bounds__(kTileWarps * 32, kMalaBlocks)
       if (FOLD) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
+          // the half's count after this draw and its flag (a.fsc)
+          const float cnt = a.fsc[2 * hf], act = a.fsc[2 * hf + 1];
 #pragma unroll
           for (int k = 0; k < P; ++k) {
             const size_t idx = (((size_t)hf * a.G + gi) * P + k) * a.C + c;
             const float m = a.fmean[idx];
             const float delta = beta[k] - m;
-            const float nm = m + a.act[hf] * delta / a.cnt[hf];
+            const float nm = m + act * delta / cnt;
             a.out_fmean[idx] = nm;
-            a.out_fm2[idx] = a.fm2[idx] + a.act[hf] * delta * (beta[k] - nm);
+            a.out_fm2[idx] = a.fm2[idx] + act * delta * (beta[k] - nm);
           }
         }
       }
@@ -167,7 +171,7 @@ __global__ void __launch_bounds__(kTileWarps * 32, kMalaBlocks)
         logu = ub[o1];
       } else {
         float uni[2 * P + 1];
-        philox_uniforms<2 * P + 1>(a.k0, a.k1, (uint32_t)cell, uni);
+        philox_uniforms<2 * P + 1>(a.key[0], a.key[1], (uint32_t)cell, uni);
 #pragma unroll
         for (int k = 0; k < P; ++k)
           eps[k] = box_muller(uni[2 * k], uni[2 * k + 1]);

@@ -44,8 +44,8 @@
 #error "build with -DNESTMC_P=<covariate count>"
 #endif
 
-// eps != null takes external noise (eps, logu) instead of Philox(k0, k1).
-// Returns the cudaError_t of the launch (0 = success).
+// eps != null takes external noise (eps, logu) instead of Philox noise
+// keyed by the two words at key (device memory). Returns the cudaError_t of the launch (0 = success).
 // c0, g0, G_total: the first chain and unit this launch holds in the
 // unsharded launch and that launch's unit count (0, 0, G unsharded), so
 // the Philox counters are the unsharded run's. They come last: a build
@@ -57,13 +57,11 @@ extern "C" int nestmc_rwmh_step(const float* x, const float* y,
                                 const float* eps, const float* logu,
                                 float* out_beta, float* out_lik,
                                 float* out_alpha, int C, int G, int n,
-                                unsigned int k0, unsigned int k1,
-                                void* stream,
+                                const unsigned int* key, void* stream,
     int c0, int g0, int G_total) {
   using namespace nestmc;
-  RwArgs a{x,   y,    mask,     nullptr, beta,    lik,       ls, mu, lt,
-           eps, logu, out_beta, out_lik, out_alpha, C,       G,  n,  k0,
-           k1};
+  RwArgs a{x,   y,    mask,     nullptr, beta,      lik, ls, mu, lt,
+           eps, logu, out_beta, out_lik, out_alpha, C,   G,  n,  key};
   a.cell_c0 = c0;
   a.cell_g0 = g0;
   a.cell_G = G_total;

@@ -50,8 +50,8 @@
 #error "build with -DNESTMC_P=<covariate count>"
 #endif
 
-// eps != null takes external noise (eps, logu) instead of Philox(k0, k1).
-// Returns the cudaError_t of the launch (0 = success).
+// eps != null takes external noise (eps, logu) instead of Philox noise
+// keyed by the two words at key (device memory). Returns the cudaError_t of the launch (0 = success).
 // c0, g0, G_total: the first chain and unit this launch holds in the
 // unsharded launch and that launch's unit count (0, 0, G unsharded), so
 // the Philox counters are the unsharded run's. They come last: a build
@@ -60,12 +60,11 @@ extern "C" int nestmc_pois_rwmh_step(
     const float* x, const float* y, const float* mask, const float* cst,
     const float* beta, const float* lik, const float* ls, const float* bgs,
     const float* lt, const float* eps, const float* logu, float* out_beta,
-    float* out_lik, float* out_alpha, int C, int S, int n, unsigned int k0,
-    unsigned int k1, void* stream, int c0, int g0, int G_total) {
+    float* out_lik, float* out_alpha, int C, int S, int n,
+    const unsigned int* key, void* stream, int c0, int g0, int G_total) {
   using namespace nestmc;
   RwArgs a{x,   y,    mask,     cst,     beta,      lik, ls, bgs, lt,
-           eps, logu, out_beta, out_lik, out_alpha, C,   S,  n,   k0,
-           k1};
+           eps, logu, out_beta, out_lik, out_alpha, C,   S,  n,   key};
   a.cell_c0 = c0;
   a.cell_g0 = g0;
   a.cell_G = G_total;
@@ -82,16 +81,14 @@ extern "C" int nestmc_pois_mala_step(
     const float* beta, const float* v, const float* g, const float* ls,
     const float* bgs, const float* lt, const float* eps, const float* logu,
     float* out_beta, float* out_v, float* out_g, float* out_alpha, int C,
-    int S, int n, unsigned int k0, unsigned int k1, void* stream,
-    int c0, int g0, int G_total) {
+    int S, int n, const unsigned int* key, void* stream, int c0, int g0,
+    int G_total) {
   using namespace nestmc;
   constexpr int P = NESTMC_P;
-  MalaArgs a{x,        y,          mask,       cst,     beta,
-             v,        g,          ls,         bgs,     lt,
-             eps,      logu,       nullptr,    nullptr, out_beta,
-             out_v,    out_g,      out_alpha,  nullptr, nullptr,
-             {1.0f, 1.0f}, {0.0f, 0.0f}, C,    S,       n,
-             k0,       k1};
+  MalaArgs a{x,        y,     mask,      cst,     beta,    v,       g,
+             ls,       bgs,   lt,        eps,     logu,    nullptr, nullptr,
+             out_beta, out_v, out_g,     out_alpha, nullptr, nullptr,
+             nullptr,  C,     S,         n,       key};
   a.cell_c0 = c0;
   a.cell_g0 = g0;
   a.cell_G = G_total;
@@ -110,17 +107,16 @@ extern "C" int nestmc_pois_newton_step(
     const float* beta, const float* v, const float* g, const float* h,
     const float* ls, const float* bgs, const float* lt, const float* eps,
     const float* logu, float* out_beta, float* out_v, float* out_g,
-    float* out_h, float* out_alpha, int C, int S, int n, unsigned int k0,
-    unsigned int k1, int frozen, void* stream,
-    int c0, int g0, int G_total) {
+    float* out_h, float* out_alpha, int C, int S, int n,
+    const unsigned int* key, int frozen, void* stream, int c0, int g0,
+    int G_total) {
   using namespace nestmc;
   constexpr int P = NESTMC_P;
-  NewtonArgs a{x,        y,        mask,         cst,          beta,
-               v,        g,        h,            ls,           bgs,
-               lt,       eps,      logu,         nullptr,      nullptr,
-               out_beta, out_v,    out_g,        out_h,        out_alpha,
-               nullptr,  nullptr,  {1.0f, 1.0f}, {0.0f, 0.0f}, C,
-               S,        n,        k0,           k1};
+  NewtonArgs a{x,        y,         mask,    cst,     beta,    v,
+               g,        h,         ls,      bgs,     lt,      eps,
+               logu,     nullptr,   nullptr, out_beta, out_v,  out_g,
+               out_h,    out_alpha, nullptr, nullptr, nullptr, C,
+               S,        n,         key};
   a.cell_c0 = c0;
   a.cell_g0 = g0;
   a.cell_G = G_total;

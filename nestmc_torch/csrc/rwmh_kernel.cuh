@@ -47,7 +47,7 @@ struct RwArgs {
   float* out_lik;
   float* out_alpha;
   int C, G, n;
-  uint32_t k0, k1;     // Philox key
+  const uint32_t* key;  // the two Philox key words, on the device
   // cell (c, g)'s Philox counter is (cell_c0 + c) * cell_G + cell_g0 + g:
   // its index in the unsharded launch when this one holds chains
   // cell_c0.. and units cell_g0.. of cell_G (0, 0, G when unsharded)
@@ -125,7 +125,7 @@ __global__ void __launch_bounds__(kTileWarps * 32, kRwBlocks)
         logu = ub[o1];
       } else {
         float uni[2 * P + 1];
-        philox_uniforms<2 * P + 1>(a.k0, a.k1, (uint32_t)cell, uni);
+        philox_uniforms<2 * P + 1>(a.key[0], a.key[1], (uint32_t)cell, uni);
 #pragma unroll
         for (int k = 0; k < P; ++k)
           eps[k] = box_muller(uni[2 * k], uni[2 * k + 1]);

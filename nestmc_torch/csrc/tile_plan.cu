@@ -47,3 +47,8 @@ extern "C" int nestmc_tile_plan(int kind, int n, int* tg) {
   *tg = t.tg;
   return t.smem;
 }
+
+// The scalar interface of the step entry points: 2 = each launch's Philox
+// key words and the fold's scalars passed by device pointer. A library
+// without this symbol takes them by value (kernel_ab's base trees).
+extern "C" int nestmc_scalar_abi(void) { return 2; }

@@ -9,7 +9,11 @@ Streaming accumulators keep the reference's layouts: standard
 {name: (count (2,), mean (C, 2, ...), m2 (C, 2, ...))} and kernel ("fold")
 {name: (count (2,), mean (2, *dims, C), m2 (2, *dims, C))}. The counts and
 the fold scalars are host tensors: the engine knows every draw index on the
-host, so no device value is read back per draw.
+host, so no device value is read back per draw. A captured segment
+(nestmc_torch/segments.py) takes each draw's scalars from a table the host
+builds before the segment (:func:`fold_rhat_table`,
+:func:`streaming_rhat_table`) and copies to the device once, and keeps the
+counts on the host.
 """
 
 from __future__ import annotations
@@ -238,6 +242,58 @@ def streaming_rhat_update(acc: dict, position: dict, idx: int,
     return out
 
 
+def streaming_rhat_table(count, idxs, half_len: int):
+    """((n, 2) act, (n, 2) cnt, count after) of the device-table form of
+    :func:`streaming_rhat_update` for n retained draws in turn: idxs[i] the
+    i-th draw's index among the folded draws (None: the draw is not
+    folded, as a draw that full_rhat_thin skips). act[i, h] is 1 for the
+    half the draw folds into (none past 2 half_len) and cnt[i] the count
+    each half has after it, as float32 host tensors; ``count`` (2,) the
+    counts before the first."""
+    count = torch.as_tensor(count, dtype=torch.float32).cpu().clone()
+    act = torch.zeros(len(idxs), 2, dtype=torch.float32)
+    cnt = torch.empty(len(idxs), 2, dtype=torch.float32)
+    for i, idx in enumerate(idxs):
+        if idx is not None and idx < 2 * half_len:
+            h = 0 if idx < half_len else 1
+            act[i, h] = 1.0
+            count[h] = float(count[h]) + 1.0
+        cnt[i] = torch.clamp_min(count, 1.0)
+    return act, cnt, count
+
+
+def streaming_rhat_update_at(acc: dict, position: dict, act, cnt) -> dict:
+    """{name: (mean', m2')}: :func:`streaming_rhat_update`'s means and M2s
+    with the draw's half and count read from tensors on their device (a
+    row of :func:`streaming_rhat_table`), so one captured program folds
+    every draw; the same bits. The half whose flag is set is gathered,
+    updated and written into copies of mean and m2 (none set: both keep
+    their values); the counts stay with the caller. Dividing by a Python
+    float is a float32 division on the CPU and a multiply by the float32
+    reciprocal on the card, so the card's quotient is one."""
+    h = (act[1] > 0).long().reshape(1)
+    on = act.index_select(0, h) > 0
+    c = cnt.index_select(0, h)
+    out = {}
+    for name, (_, mean, m2) in acc.items():
+        x = position[name].float()
+        shape = (1,) * x.ndim
+        mean_h = mean.index_select(1, h).squeeze(1)
+        m2_h = m2.index_select(1, h).squeeze(1)
+        delta = x - mean_h
+        step = (delta * torch.reciprocal(c.reshape(shape)) if mean.is_cuda
+                else delta / c.reshape(shape))
+        new_mean = mean_h + step
+        new_m2 = m2_h + delta * (x - new_mean)
+        keep = on.reshape(shape)
+        mean, m2 = mean.clone(), m2.clone()
+        mean.index_copy_(1, h, torch.where(keep, new_mean, mean_h)
+                         .unsqueeze(1))
+        m2.index_copy_(1, h, torch.where(keep, new_m2, m2_h).unsqueeze(1))
+        out[name] = (mean, m2)
+    return out
+
+
 # ---- kernel-layout (fold) accumulators -----------------------------------
 
 def fold_rhat_init(position: dict, names) -> dict:
@@ -266,6 +322,22 @@ def fold_rhat_scalars(count, jm1: int, half_len: int):
     )
     cnt_new = torch.clamp_min(count + act_h, 1.0)
     return torch.stack([cnt_new, act_h], dim=-1)
+
+
+def fold_rhat_table(count, jm1s, half_len: int):
+    """((n, 2, 2) scalars, count after): :func:`fold_rhat_scalars` for
+    folding retained draws jm1s[0], jm1s[1], ... in turn (-1: nothing
+    pending), each at the count its predecessors leave, the count advanced
+    by each one's flags as the engine advances it."""
+    count = torch.as_tensor(count, dtype=torch.float32).cpu()
+    rows = []
+    for jm1 in jm1s:
+        sc = fold_rhat_scalars(count, jm1, half_len)
+        rows.append(sc)
+        count = count + sc[:, 1]
+    if not rows:
+        return torch.empty(0, 2, 2), count
+    return torch.stack(rows), count
 
 
 def fold_rhat_update(mean, m2, x_t, scalars):

@@ -1,12 +1,23 @@
-"""Chain orchestration: warmup, then sampling, as Python loops over sweeps.
+"""Chain orchestration: warmup, then sampling, each a program of steps on a
+static carry, replayed as a captured CUDA graph on the card.
 
-Port of :mod:`nestmc.engine`, one device a process. PyTorch runs eagerly,
-so each phase is a loop over sweeps on the data's device; the two phases stay
-separate and the metric freezes at warmup end (KernelConfig.newton_freeze).
-Each retained draw takes RunConfig.thin sweeps. Retained draws
-(RunConfig.collect: blocks, and the model's derived quantities computed
-from the position) go into buffers of shape (C, D', ...), allocated at
-the first draw, D' the draws this call runs. With RunConfig.full_rhat
+Port of :mod:`nestmc.engine`, one device a process. As the reference has
+two compiled hot programs, the port has two steps (segments.py): a warmup
+sweep and a sampling draw, each reading and writing a carry held in fixed
+buffers, with what changes between sweeps (the kernels' Philox key words,
+the Robbins-Monro gain, the R-hat fold's scalars) read from device tables
+filled before each segment. The loop is chosen before the run, by the
+config alone, and ``timings["sweep"]`` records it: an unsharded run on the
+card captures each step once as a CUDA graph and replays it (``"graph"``:
+between the draws of a segment the host only launches); a sharded run
+steps eagerly (``"eager"``: its collectives cannot be captured), as does a
+run on the CPU. A capture that fails raises: there is no fallback. The
+two phases stay separate and the metric freezes at warmup end
+(KernelConfig.newton_freeze). Each retained draw takes RunConfig.thin
+sweeps. Retained draws (RunConfig.collect: blocks, and the model's
+derived quantities computed from the position) go into buffers of shape
+(C, D', ...), allocated at the first draw, D' the draws this call runs,
+each draw written at its column by the step. With RunConfig.full_rhat
 every block streams split-R-hat Welford accumulators; blocks whose fused
 step folds them in-kernel (kernels/gibbs.rhat_fold_names) fold each draw
 in the draw's first sweep, one draw late, with the pre-update value, and
@@ -27,7 +38,9 @@ RNG's restored state; ``skip_warmup`` for a sample-phase checkpoint; and
 schedule, so only the remaining draws run and the gate still covers every
 draw. The draw pending in the one-draw-late fold is the carry's position:
 the first resumed sweep folds it, once. Timings synchronise the device
-before every clock read.
+before every clock read; ``timings["capture_s"]``, the seconds the two
+captures took (a probe step and a capture each), is kept out of
+``warmup_s`` and ``sample_s``.
 
 A sharded run (ShardingConfig; one process a rank, parallel/multihost)
 runs the same loop on this rank's part (parallel/sharding.py): each rank
@@ -76,7 +89,6 @@ from nestmc_torch.diagnostics import (
     streaming_ess_finalize,
     streaming_rhat_finalize,
     streaming_rhat_init,
-    streaming_rhat_update,
 )
 from nestmc_torch.kernels.gibbs import make_sweep, rhat_fold_names
 from nestmc_torch.kernels.state import KernelState, init_kernel_state
@@ -93,6 +105,7 @@ from nestmc_torch.parallel.sharding import (
 )
 from nestmc_torch.posterior import Posterior
 from nestmc_torch.rng import SweepRNG
+from nestmc_torch.segments import DrawProgram, WarmupProgram
 from nestmc_torch.utils.profiling import annotate
 
 log = logging.getLogger("nestmc_torch")
@@ -301,6 +314,7 @@ def sample(
     init_acc=None,
     draws_offset: int = 0,
     debug_nans: bool = False,
+    _eager: bool = False,
 ) -> Posterior:
     """Run the sampler on the data's device (data_device: its ``device``,
     else that of its first tensor); returns a :class:`Posterior`.
@@ -316,7 +330,9 @@ def sample(
     draws only. debug_nans: raise FloatingPointError at the first segment
     whose position holds a NaN. A sharded config (cfg.sharding) runs as
     one rank of a multi-process run: every rank passes the same full
-    data, init_state and init_acc, in the global layout.
+    data, init_state and init_acc, in the global layout. _eager (private,
+    for the card's A/B of the two loops): step an unsharded run on the card
+    eagerly instead of replaying its captured steps.
     """
     cfg = cfg or SamplerConfig()
     validate(cfg)
@@ -357,23 +373,27 @@ def sample(
         c0, cl, C = shard.spans["chains"]
         rng.chains = (c0, C) if cl != C else None
     sweep = make_sweep(model, cfg)
+    graph = device.type == "cuda" and mesh is None and not _eager
     _sync(device)
     timings = {"setup_s": time.perf_counter() - t_setup,
-               "checkpoint_s": 0.0, "checkpoints": 0}
+               "checkpoint_s": 0.0, "checkpoints": 0,
+               "sweep": "graph" if graph else "eager", "capture_s": 0.0}
     try:
         with activate(shard):
             return _run(model, data, cfg, rng, state, sweep, timings, shard,
                         skip_warmup, resumed, init_acc,
-                        draws_offset, debug_nans, mem0)
+                        draws_offset, debug_nans, mem0, graph)
     finally:
         if shard is not None:
             rng.chains = None
 
 
 def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
-         resumed, init_acc, draws_offset, debug_nans, mem0) -> Posterior:
+         resumed, init_acc, draws_offset, debug_nans, mem0,
+         graph) -> Posterior:
     """sample()'s two phases on this rank's carry (the whole carry
-    unsharded), then the gather of what the Posterior holds."""
+    unsharded), then the gather of what the Posterior holds. graph: replay
+    each phase's captured step (segments.py), else step eagerly."""
     rc = cfg.run
     D = rc.draws
     streamed = rc.full_rhat and D > 0
@@ -420,15 +440,22 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
         timings["checkpoint_s"] += time.perf_counter() - t_c
         timings["checkpoints"] += 1
 
+    # both phases' graphs share one memory pool
+    pool = torch.cuda.graph_pool_handle() if graph else None
+
     # ---- warmup: refreshed metric ----
     warm_rates = {k: torch.zeros_like(v) for k, v in state.accept_sum.items()}
     t_w = time.perf_counter()
+    capture_w = 0.0
     if not skip_warmup and rc.warmup > 0:
-        for i, (start, n) in enumerate(_segments(rc.warmup,
-                                                 rc.segment_size)):
+        segs = list(_segments(rc.warmup, rc.segment_size))
+        prog = WarmupProgram(sweep, state, data, rng, cfg,
+                             max(n for _, n in segs), graph, pool)
+        state = prog.state()
+        for i, (start, n) in enumerate(segs):
             with annotate(f"nestmc.warmup.seg{i}"):
-                for _ in range(n):
-                    state = sweep(state, data, True, rng)
+                prog.run(n)
+            state = prog.state()
             if rc.log_every_segment and primary:
                 _sync(device)
                 log.info("warmup: %d/%d sweeps (%.0f sweeps/s)",
@@ -439,13 +466,16 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
             checkpoint(i, "warmup", state.t,
                        {"state": state, "rng": rng.get_state()},
                        {"sweeps_done": state.t, "has_acc": False})
+        # released before the sampling step is captured
+        prog.close()
+        capture_w = prog.capture_s
         warm_rates = {k: v / rc.warmup for k, v in state.accept_sum.items()}
         state = _zero_accept(state)
     elif resumed and skip_warmup:
         # the carry's accept sums belong to sweeps this call did not run
         state = _zero_accept(state)
     _sync(device)
-    timings["warmup_s"] = time.perf_counter() - t_w
+    timings["warmup_s"] = time.perf_counter() - t_w - capture_w
 
     # ---- sampling: frozen metric, thin sweeps a retained draw ----
     remaining = max(D - draws_offset, 0)
@@ -467,64 +497,48 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
 
     _sync(device)
     t_s = time.perf_counter()
-    for i, (start, n) in enumerate(_segments(remaining, rc.segment_size)):
-        with annotate(f"nestmc.sample.seg{i}"):
-            for j in range(draws_offset + start, draws_offset + start + n):
-                if fold_names:
-                    # fold retained draw j-1, the position (none at j == 0)
-                    jm1 = j - 1 if j >= 1 else -1
-                    scs = {
-                        k: fold_rhat_scalars(fold_acc[k][0], jm1, half_len)
-                        for k in fold_names
-                    }
-                    folds = {
-                        k: (fold_acc[k][1], fold_acc[k][2], scs[k])
-                        for k in fold_names
-                    }
-                    state, fout = sweep(state, data, False, rng, folds)
-                    fold_acc = {
-                        k: (fold_acc[k][0] + scs[k][:, 1], *fout[k])
-                        for k in fold_names
-                    }
-                else:
-                    state = sweep(state, data, False, rng)
-                for _ in range(rc.thin - 1):
-                    state = sweep(state, data, False, rng)
-                if streamed and j % rthin == 0:
-                    std_acc = streaming_rhat_update(
-                        std_acc, state.position, j // rthin, half_len
-                    )
-                views = _collect(state.position, rc.collect, model.derived,
-                                 picks)
-                if not draws:
-                    draws = {
-                        k: torch.empty((v.shape[0], remaining)
-                                       + tuple(v.shape[1:]), dtype=v.dtype,
-                                       device=v.device)
-                        for k, v in views.items()
-                    }
-                for k, v in views.items():
-                    draws[k][:, j - draws_offset] = v
-        done = draws_offset + start + n
-        if rc.log_every_segment and primary:
-            _sync(device)
-            extra = ""
-            if rc.log_rhat and start + n >= 8 and draws:
-                worst = max(float(split_rhat(v[:, :start + n]).max())
-                            for v in draws.values())
-                extra = f", worst split-rhat so far {worst:.4f}"
-            log.info("sample: %d/%d draws (%.0f sweeps/s)%s", done, D,
-                     (start + n) * rc.thin
-                     / max(time.perf_counter() - t_s, 1e-9), extra)
-        if debug_nans:
-            nan_check(state, "sample", done)
-        carry = {"state": state, "rng": rng.get_state()}
-        if streamed:
-            carry["acc"] = (std_acc, fold_acc)
-        checkpoint(i, "sample", done, carry,
-                   {"draws_done": done, "has_acc": streamed})
+    capture_s = 0.0
+    if remaining > 0:
+        segs = list(_segments(remaining, rc.segment_size))
+        prog = DrawProgram(
+            sweep, state, data, rng, cfg, std_acc, fold_acc,
+            lambda pos: _collect(pos, rc.collect, model.derived, picks),
+            remaining, draws_offset, half_len, max(n for _, n in segs),
+            graph, pool)
+        # the program's copies from here: the engine's first accumulators
+        # and carry are let go
+        state = prog.state()
+        std_acc, fold_acc = prog.acc()
+        draws = prog.draws
+        for i, (start, n) in enumerate(segs):
+            with annotate(f"nestmc.sample.seg{i}"):
+                prog.run(n, draws_offset + start)
+            state = prog.state()
+            std_acc, fold_acc = prog.acc()
+            done = draws_offset + start + n
+            if rc.log_every_segment and primary:
+                _sync(device)
+                extra = ""
+                if rc.log_rhat and start + n >= 8 and draws:
+                    worst = max(float(split_rhat(v[:, :start + n]).max())
+                                for v in draws.values())
+                    extra = f", worst split-rhat so far {worst:.4f}"
+                log.info("sample: %d/%d draws (%.0f sweeps/s)%s", done, D,
+                         (start + n) * rc.thin
+                         / max(time.perf_counter() - t_s - prog.capture_s,
+                               1e-9), extra)
+            if debug_nans:
+                nan_check(state, "sample", done)
+            carry = {"state": state, "rng": rng.get_state()}
+            if streamed:
+                carry["acc"] = (std_acc, fold_acc)
+            checkpoint(i, "sample", done, carry,
+                       {"draws_done": done, "has_acc": streamed})
+        prog.close()
+        capture_s = prog.capture_s
     _sync(device)
-    timings["sample_s"] = time.perf_counter() - t_s
+    timings["sample_s"] = time.perf_counter() - t_s - capture_s
+    timings["capture_s"] = capture_w + capture_s
     timings["draws_run"] = remaining
 
     full_rhat = full_ess = None

@@ -41,6 +41,12 @@ The shapes:
   value-only loglik and the RW-MH step only; a few blocks, so the times
   are mostly the wrapper's).
 
+The step kernels read their Philox key words and the fold's scalars from
+device memory (nestmc_scalar_abi 2); a base tree built before that takes
+them by value, and its step entry points are then called with the values
+this script put at those pointers (:class:`_ByValue`), so both builds run
+at the same key words and fold scalars.
+
 One JSON line a case: the largest |new - base| over every output (0.0:
 bitwise equal) and the two builds' ms, timed in turns base, new, new, base
 (CUDA events; median over 7 batches of 10 back-to-back launches after
@@ -58,6 +64,7 @@ loop that holds the MUFU.EX2 operations.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import sys
@@ -75,14 +82,84 @@ TILED = (r"logp_grad_kernel|loglik_kernel|rwmh_step_kernel|mala_step_kernel|"
          r"newton_step_kernel|segment_kernel")
 
 
+# the values behind the device pointers this script passes: {data_ptr:
+# host words or scalars}, for a base tree that takes them by value
+_HOST: dict = {}
+
+
+def _device_words(values, dtype, dev) -> torch.Tensor:
+    """A device tensor of ``values`` whose pointer _ByValue can read back."""
+    t = torch.tensor(values, dtype=dtype, device=dev)
+    _HOST[t.data_ptr()] = [v for row in values for v in row] if isinstance(
+        values[0], (list, tuple)) else list(values)
+    return t
+
+
 class _Key:
     """A fixed Philox key in place of a SweepRNG."""
 
     def __init__(self, k0: int, k1: int):
         self.key = (k0, k1)
+        self._dev = {}
 
-    def philox_key(self):
-        return self.key
+    def key_words(self, device):
+        device = torch.device(device)
+        if device not in self._dev:
+            words = [w - (1 << 32) if w >= 1 << 31 else w for w in self.key]
+            self._dev[device] = _device_words(words, torch.int32, device)
+            _HOST[self._dev[device].data_ptr()] = list(self.key)
+        return self._dev[device]
+
+
+_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_float)
+# the step entry points of a tree that takes the key words and the fold's
+# scalars by value: (their argument types, the index of this tree's fold
+# scalars pointer or None, the index of its key pointer)
+_BY_VALUE = {
+    "nestmc_newton_step": ([_P] * 21 + [_F] * 4 + [_I] * 3 + [_U] * 2
+                           + [_I, _P] + [_I] * 3, 21, 25),
+    "nestmc_mala_step": ([_P] * 19 + [_F] * 4 + [_I] * 3 + [_U] * 2 + [_P]
+                         + [_I] * 3, 19, 23),
+    "nestmc_rwmh_step": ([_P] * 13 + [_I] * 3 + [_U] * 2 + [_P] + [_I] * 3,
+                         None, 16),
+    "nestmc_pois_rwmh_step": ([_P] * 14 + [_I] * 3 + [_U] * 2 + [_P]
+                              + [_I] * 3, None, 17),
+    "nestmc_pois_mala_step": ([_P] * 16 + [_I] * 3 + [_U] * 2 + [_P]
+                              + [_I] * 3, None, 19),
+    "nestmc_pois_newton_step": ([_P] * 18 + [_I] * 3 + [_U] * 2 + [_I, _P]
+                                + [_I] * 3, None, 21),
+}
+
+
+class _ByValue:
+    """A base tree's library whose step entry points take the key words
+    and the fold's scalars by value: called with this tree's arguments,
+    it passes the values behind the pointers (_HOST; zeros for no key,
+    the identity fold for none)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        for name, (argtypes, _, _) in _BY_VALUE.items():
+            getattr(lib, name).argtypes = argtypes
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in _BY_VALUE:
+            return fn
+        _, fsc_at, key_at = _BY_VALUE[name]
+
+        def call(*args):
+            args = list(args)
+            key = args[key_at]
+            key = (0, 0) if key is None else _HOST[key]
+            out = args[:key_at] + list(key) + args[key_at + 1:]
+            if fsc_at is not None:
+                fsc = args[fsc_at]
+                fsc = [1.0, 0.0, 1.0, 0.0] if fsc is None else _HOST[fsc]
+                out = out[:fsc_at] + list(fsc) + out[fsc_at + 1:]
+            return fn(*out)
+        return call
 
 
 def timed(fn, batches: int = 7, per: int = 10) -> float:
@@ -157,7 +234,9 @@ def logistic_cases(shape, r, groups):
     x, y, m, beta = r["x"], r["y"], r["mask"], r["beta"]
     ls = torch.full((C, G), -1.3, device=beta.device)
     noise = (r["eps"], r["logu"])
-    fold = (r["fmean"], r["fm2"], fold_rhat_scalars([11.0, 0.0], 11, 512))
+    fold = (r["fmean"], r["fm2"], _device_words(
+        fold_rhat_scalars([11.0, 0.0], 11, 512).tolist(), torch.float32,
+        beta.device))
     cases = []
     if "obs" in groups:
         cases += [
@@ -414,13 +493,26 @@ def main(argv=None) -> int:
                 if out:
                     out.write(line + "\n")
     _build.SRC_DIR = new_src
+    library = _build.library
+    _build.SRC_DIR = base_src
+    by_value = getattr(library(3), "nestmc_scalar_abi", None) is None
+    _build.SRC_DIR = new_src
+    wrapped = {}
+
+    def base_library(p):
+        if p not in wrapped:
+            wrapped[p] = _ByValue(library(p))
+        return wrapped[p]
 
     def on(src, fn):
         _build.SRC_DIR = src
+        if src == base_src and by_value:
+            _build.library = base_library
         try:
             return fn()
         finally:
             _build.SRC_DIR = new_src
+            _build.library = library
 
     def report(shape_name, shape, cases, extra=None):
         for name, fn in cases:

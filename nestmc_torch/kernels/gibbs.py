@@ -127,14 +127,17 @@ def rhat_fold_names(model: ModelSpec, cfg: SamplerConfig) -> tuple:
 
 
 def make_sweep(model: ModelSpec, cfg: SamplerConfig):
-    """Build sweep(state, data, adapt, rng, rhat_fold=None) -> state.
+    """Build sweep(state, data, adapt, rng, rhat_fold=None, gain=None) ->
+    state.
 
     rhat_fold: optional {block: (mean, m2, scalars)} kernel-layout
     accumulators folded with each block's PRE-update value (the previous
     retained draw): in the fused step when its hook takes them, else by
     the plain fold; the return is then (state, {block: (mean', m2')}).
     Noise is drawn from ``rng`` in the reference's order: each block in
-    turn (each repeat in turn), then each joint move.
+    turn (each repeat in turn), then each joint move. gain: the
+    Robbins-Monro gain of this sweep as a float32 tensor (a captured
+    sweep's entry of the segment's table), else rm_step_size(state.t).
     """
     validate(cfg)
     plan = {}
@@ -153,7 +156,8 @@ def make_sweep(model: ModelSpec, cfg: SamplerConfig):
         m: joint_move_target(model, m, cfg) for m in model.joint_moves
     }
 
-    def sweep(state: KernelState, data, adapt: bool, rng, rhat_fold=None):
+    def sweep(state: KernelState, data, adapt: bool, rng, rhat_fold=None,
+              gain=None):
         frozen = (not adapt) and cfg.kernel.newton_freeze
         t = state.t
         position = dict(state.position)
@@ -216,7 +220,7 @@ def make_sweep(model: ModelSpec, cfg: SamplerConfig):
                     else:
                         alpha = alpha.mean(dim=1, keepdim=True)
                 log_scale[name] = adapt_log_scale(
-                    log_scale[name], alpha, t, target, cfg.kernel
+                    log_scale[name], alpha, t, target, cfg.kernel, gain
                 )
                 precond[name] = update_precond(precond.get(name), new_value,
                                                cfg.kernel)
@@ -237,7 +241,7 @@ def make_sweep(model: ModelSpec, cfg: SamplerConfig):
             if adapt and move_target[mname] is not None:
                 log_scale[mname] = adapt_log_scale(
                     log_scale[mname], alpha, t, move_target[mname],
-                    cfg.kernel,
+                    cfg.kernel, gain,
                 )
 
         new_state = KernelState(

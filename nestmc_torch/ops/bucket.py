@@ -227,7 +227,7 @@ def bucketed_fused_mala_step(beta, v, g, log_scale, mu, log_tau,
     """One fused MALA step (ops/cuda/mala_accept) per size bucket: each
     bucket is a partition of the conditionally independent group block,
     so the composition is the whole-block update. Each launch keys its
-    Philox streams with its own ``rng.philox_key()`` (the reference's
+    Philox streams with its own key (``rng``'s next; the reference's
     fold_in(key, bucket)); ``noise=(eps (C, G, p), logu (C, G))`` is
     gathered per bucket. Requires covers_all_groups(layout).
     Returns (new_beta, new_v, new_g, alpha (C, G))."""

@@ -39,23 +39,20 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "nestmc_logp_grad": [_P] * 7 + [_I] * 3 + [_P],
     "nestmc_loglik": [_P] * 5 + [_I] * 3 + [_P],
-    "nestmc_newton_step": [_P] * 21 + [_F] * 4 + [_I] * 3 + [_U] * 2
-    + [_I, _P] + [_I] * 3,
-    "nestmc_mala_step": [_P] * 19 + [_F] * 4 + [_I] * 3 + [_U] * 2 + [_P]
-    + [_I] * 3,
-    "nestmc_rwmh_step": [_P] * 13 + [_I] * 3 + [_U] * 2 + [_P] + [_I] * 3,
+    "nestmc_newton_step": [_P] * 22 + [_I] * 3 + [_P, _I, _P] + [_I] * 3,
+    "nestmc_mala_step": [_P] * 20 + [_I] * 3 + [_P, _P] + [_I] * 3,
+    "nestmc_rwmh_step": [_P] * 13 + [_I] * 3 + [_P, _P] + [_I] * 3,
     "nestmc_philox_probe": [_P, _P, _I, _U, _U, _P],
     "nestmc_pois_loglik": [_P] * 6 + [_I] * 3 + [_P],
     "nestmc_pois_logp_grad": [_P] * 8 + [_I] * 3 + [_P],
-    "nestmc_pois_rwmh_step": [_P] * 14 + [_I] * 3 + [_U] * 2 + [_P]
-    + [_I] * 3,
-    "nestmc_pois_mala_step": [_P] * 16 + [_I] * 3 + [_U] * 2 + [_P]
-    + [_I] * 3,
-    "nestmc_pois_newton_step": [_P] * 18 + [_I] * 3 + [_U] * 2 + [_I, _P]
+    "nestmc_pois_rwmh_step": [_P] * 14 + [_I] * 3 + [_P, _P] + [_I] * 3,
+    "nestmc_pois_mala_step": [_P] * 16 + [_I] * 3 + [_P, _P] + [_I] * 3,
+    "nestmc_pois_newton_step": [_P] * 18 + [_I] * 3 + [_P, _I, _P]
     + [_I] * 3,
     "nestmc_seg_loglik": [_P] * 5 + [_I] * 2 + [_P],
     "nestmc_seg_logp_grad": [_P] * 6 + [_I] * 2 + [_P],
     "nestmc_tile_plan": [_I, _I, _P],
+    "nestmc_scalar_abi": [],
 }
 
 _libs: dict = {}

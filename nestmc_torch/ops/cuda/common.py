@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from nestmc_torch.rng import words_i32
+
 
 def on_cpu(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (plain path), False for CUDA (kernel path);
@@ -40,14 +42,27 @@ def step_noise(rng, shape, units=None):
 def skip_step(rng, device, shape, units) -> None:
     """Draw the noise of a step launch that a group shard skips because it
     holds none of the launch's units (an empty size bucket on this shard,
-    ops/bucket.py): the Philox key on the card, the plain version's
-    step_noise at the global shape on the CPU. Every rank then draws the
-    same a sweep, and the generators, and with them the replicated
-    blocks, stay equal across ranks. ``shape`` (C, 0, p)."""
+    ops/bucket.py): the Philox key on the card (SweepRNG.skip_key), the
+    plain version's step_noise at the global shape on the CPU. Every rank
+    then draws the same a sweep, and the generators, and with them the
+    replicated blocks, stay equal across ranks. ``shape`` (C, 0, p)."""
     if torch.device(device).type == "cuda":
-        rng.philox_key()
+        getattr(rng, "skip_key", rng.philox_key)()
     else:
         step_noise(rng, shape, units)
+
+
+def launch_key(rng, device) -> torch.Tensor:
+    """The two Philox key words of a step launch without external noise, as
+    the (2,) int32 device tensor the kernel reads: ``rng.key_words`` (a
+    SweepRNG: drawn now, or the captured sweep's next pair), else the
+    words of ``rng.philox_key()`` (a fixed key of the tests and A/Bs)
+    copied to the device."""
+    key_words = getattr(rng, "key_words", None)
+    if key_words is not None:
+        return key_words(device)
+    words = torch.tensor(rng.philox_key(), dtype=torch.int64)
+    return words_i32(words).to(device)
 
 
 def cell_offsets(rng, units, U: int) -> tuple:
@@ -166,10 +181,12 @@ def tile_plan(kind: str, n: int, p: int) -> tuple:
     return 1, TILE_C, b
 
 
-def fold_scalars(rhat_fold) -> list:
-    """The (2, 2) fold scalars [[cnt, act], [cnt, act]] as host floats
-    (identity [[1, 0], [1, 0]] without a fold), passed to a kernel by
-    value."""
+def fold_scalars(rhat_fold, device):
+    """The (2, 2) fold scalars [[cnt, act], [cnt, act]] as the contiguous
+    float32 tensor on ``device`` the kernel reads (a captured draw's row of
+    the segment's table as it is; host scalars copied), None without a
+    fold."""
     if rhat_fold is None:
-        return [[1.0, 0.0], [1.0, 0.0]]
-    return torch.as_tensor(rhat_fold[2], dtype=torch.float32).tolist()
+        return None
+    return torch.as_tensor(rhat_fold[2], dtype=torch.float32).to(
+        device).reshape(2, 2).contiguous()

@@ -8,7 +8,8 @@ scalars from diagnostics.fold_rhat_scalars.
 
 Noise: ``noise=(eps (C, G, p), logu (C, G))`` feeds both versions the same
 numbers (the parity tests). Without it the kernel draws Philox noise keyed
-by two words from ``rng.philox_key()``, and the plain version draws eps and
+by two words it reads from the device (common.launch_key: ``rng``'s next
+key), and the plain version draws eps and
 then log u from ``rng``, as kernels/mala.py does.
 """
 
@@ -23,6 +24,7 @@ from nestmc_torch.ops.cuda.common import (
     cell_offsets,
     check_tensor,
     fold_scalars,
+    launch_key,
     on_cpu,
     ptr,
     stream_of,
@@ -93,7 +95,7 @@ def _launch(lib, beta, v_cache, g_cache, log_scale, mu, log_tau, x, y, mask,
         fmean, fm2, _ = rhat_fold
         checks += [("fold mean", fmean, (2, G, p, C)),
                    ("fold m2", fm2, (2, G, p, C))]
-    fsc = fold_scalars(rhat_fold)
+    fsc = fold_scalars(rhat_fold, dev)
     for name, t, shape in checks:
         check_tensor(t, name, shape, dev)
     tile_plan("mala" if noise is None else "mala_noise", n, p)
@@ -105,13 +107,12 @@ def _launch(lib, beta, v_cache, g_cache, log_scale, mu, log_tau, x, y, mask,
     fold_out = (None, None)
     if rhat_fold is not None:
         fold_out = (empty(2, G, p, C), empty(2, G, p, C))
-    k0, k1 = key if key is not None else (0, 0)
     rc = lib.nestmc_mala_step(
         ptr(x), ptr(y), ptr(mask), ptr(beta), ptr(v_cache), ptr(g_cache),
         ptr(log_scale), ptr(mu), ptr(log_tau), ptr(eps), ptr(logu),
         ptr(fmean), ptr(fm2), ptr(out[0]), ptr(out[1]), ptr(out[2]),
-        ptr(out[3]), ptr(fold_out[0]), ptr(fold_out[1]), fsc[0][0], fsc[0][1],
-        fsc[1][0], fsc[1][1], C, G, n, k0, k1, stream, *offsets,
+        ptr(out[3]), ptr(fold_out[0]), ptr(fold_out[1]), ptr(fsc), C, G, n,
+        ptr(key), stream, *offsets,
     )
     _build.check(rc, "mala_step")
     return out if rhat_fold is None else out + fold_out
@@ -140,7 +141,7 @@ def fused_mala_logistic_step(
             noise, rhat_fold=rhat_fold,
         )
     lib = _build.library(beta.shape[-1])
-    key = None if noise is not None else rng.philox_key()
+    key = None if noise is not None else launch_key(rng, beta.device)
     with torch.cuda.device(beta.device):
         out = _launch(
             lib, beta, v_cache, g_cache, log_scale.contiguous(), mu, log_tau,

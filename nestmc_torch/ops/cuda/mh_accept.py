@@ -5,9 +5,10 @@ Port of nestmc/ops/pallas/mh_accept.py::fused_rwmh_logistic_step. Public
 layouts are the reference's: beta (C, G, p); lik, log_scale, alpha (C, G);
 mu, log_tau (C, p). Unlike the TPU kernel it takes ``noise=(eps (C, G, p),
 logu (C, G))``, which feeds both versions the same numbers (the parity
-tests). Without it the kernel draws Philox noise keyed by two words from
-``rng.philox_key()``, and the plain version draws eps and then log u from
-``rng``, as kernels/rwmh.py does.
+tests). Without it the kernel draws Philox noise keyed by two words it
+reads from the device (common.launch_key: ``rng``'s next key), and the
+plain version draws eps and then log u from ``rng``, as kernels/rwmh.py
+does.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from nestmc_torch.ops.cuda import LAUNCHES, _build, costed, step
 from nestmc_torch.ops.cuda.common import (
     cell_offsets,
     check_tensor,
+    launch_key,
     on_cpu,
     ptr,
     stream_of,
@@ -73,11 +75,10 @@ def _launch(lib, beta, lik, log_scale, mu, log_tau, x, y, mask, noise, key,
     out_beta = torch.empty((C, G, p), dtype=torch.float32, device=dev)
     out_lik = torch.empty((C, G), dtype=torch.float32, device=dev)
     out_alpha = torch.empty((C, G), dtype=torch.float32, device=dev)
-    k0, k1 = key if key is not None else (0, 0)
     rc = lib.nestmc_rwmh_step(
         ptr(x), ptr(y), ptr(mask), ptr(beta), ptr(lik), ptr(log_scale),
         ptr(mu), ptr(log_tau), ptr(eps), ptr(logu), ptr(out_beta),
-        ptr(out_lik), ptr(out_alpha), C, G, n, k0, k1, stream, *offsets,
+        ptr(out_lik), ptr(out_alpha), C, G, n, ptr(key), stream, *offsets,
     )
     _build.check(rc, "rwmh_step")
     return out_beta, out_lik, out_alpha
@@ -100,7 +101,7 @@ def fused_rwmh_logistic_step(beta, lik, log_scale, mu, log_tau, x, y, mask,
             beta, lik, log_scale, mu, log_tau, x, y, mask, noise
         )
     lib = _build.library(beta.shape[-1])
-    key = None if noise is not None else rng.philox_key()
+    key = None if noise is not None else launch_key(rng, beta.device)
     with torch.cuda.device(beta.device):
         out = _launch(lib, beta, lik, log_scale.contiguous(), mu, log_tau,
                       x, y, mask, noise, key, stream_of(beta),

@@ -8,8 +8,10 @@ alpha (C, G); h (C, G, T) packed; mu, log_tau (C, p); fold accumulators
 
 Noise: ``noise=(eps (C, G, p), logu (C, G))`` feeds both versions the same
 numbers (the parity tests). Without it the kernel draws Philox noise keyed
-by two words from ``rng.philox_key()``, and the plain version draws eps and
-log u from ``rng``.
+by two words it reads from the device (common.launch_key: ``rng``'s next
+key), and the plain version draws eps and log u from ``rng``. The fold's
+scalars, too, reach the kernel through device memory, so a captured launch
+reads each replay's.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from nestmc_torch.ops.cuda.common import (
     cell_offsets,
     check_tensor,
     fold_scalars,
+    launch_key,
     on_cpu,
     ptr,
     step_noise,
@@ -115,7 +118,7 @@ def _launch(lib, beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau,
         fmean, fm2, _ = rhat_fold
         checks += [("fold mean", fmean, (2, G, p, C)),
                    ("fold m2", fm2, (2, G, p, C))]
-    fsc = fold_scalars(rhat_fold)
+    fsc = fold_scalars(rhat_fold, dev)
     for name, t, shape in checks:
         check_tensor(t, name, shape, dev)
     tile_plan("newton" if noise is None else "newton_noise", n, p)
@@ -130,14 +133,13 @@ def _launch(lib, beta, v_cache, g_cache, h_cache, log_scale, mu, log_tau,
     out_fmean = out_fm2 = None
     if rhat_fold is not None:
         out_fmean, out_fm2 = empty(2, G, p, C), empty(2, G, p, C)
-    k0, k1 = key if key is not None else (0, 0)
     rc = lib.nestmc_newton_step(
         ptr(x), ptr(y), ptr(mask), ptr(beta), ptr(v_cache), ptr(g_cache),
         ptr(h_cache), ptr(log_scale), ptr(mu), ptr(log_tau), ptr(eps),
         ptr(logu), ptr(fmean), ptr(fm2), ptr(out_beta), ptr(out_v),
         ptr(out_g), ptr(out_h), ptr(out_alpha), ptr(out_fmean),
-        ptr(out_fm2), fsc[0][0], fsc[0][1], fsc[1][0], fsc[1][1],
-        C, G, n, k0, k1, int(frozen), stream, *offsets,
+        ptr(out_fm2), ptr(fsc), C, G, n, ptr(key), int(frozen), stream,
+        *offsets,
     )
     _build.check(rc, "newton_step")
     out = (out_beta, out_v, out_g, h_cache if frozen else out_h, out_alpha)
@@ -174,7 +176,7 @@ def fused_newton_logistic_step(
             mask, noise, frozen=frozen, rhat_fold=rhat_fold,
         )
     lib = _build.library(beta.shape[-1])
-    key = None if noise is not None else rng.philox_key()
+    key = None if noise is not None else launch_key(rng, beta.device)
     with torch.cuda.device(beta.device):
         out = _launch(
             lib, beta, v_cache, g_cache, h_cache, log_scale.contiguous(),

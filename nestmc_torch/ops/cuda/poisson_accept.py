@@ -12,9 +12,10 @@ recomputing it), as the reference's cache convention does.
 
 Noise: ``noise=(eps (C, S, p), logu (C, S))`` feeds kernel, plain version
 and reference the same numbers (the parity tests). Without it the kernel
-draws Philox noise keyed by two words from ``rng.philox_key()``, and the
-plain version draws eps and then log u from ``rng``, as the unfused
-updates (kernels/rwmh.py, mala.py, newton.py) do.
+draws Philox noise keyed by two words it reads from the device
+(common.launch_key: ``rng``'s next key), and the plain version draws eps
+and then log u from ``rng``, as the unfused updates (kernels/rwmh.py,
+mala.py, newton.py) do.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from nestmc_torch.ops.cuda import LAUNCHES, _build, costed, step
 from nestmc_torch.ops.cuda.common import (
     cell_offsets,
     check_tensor,
+    launch_key,
     on_cpu,
     ptr,
     step_noise,
@@ -201,7 +203,7 @@ def fused_rwmh_poisson_step(beta, lik, log_scale, bg_s, log_tau_s, x, y,
             beta, lik, log_scale, bg_s, log_tau_s, x, y, mask, noise, const
         )
     lib = _build.library(p)
-    k0, k1 = (0, 0) if noise is not None else rng.philox_key()
+    key = None if noise is not None else launch_key(rng, beta.device)
     dev = beta.device
     with torch.cuda.device(dev):
         log_scale = log_scale.contiguous()
@@ -212,7 +214,7 @@ def fused_rwmh_poisson_step(beta, lik, log_scale, bg_s, log_tau_s, x, y,
         rc = lib.nestmc_pois_rwmh_step(
             ptr(x), ptr(y), ptr(mask), ptr(const), ptr(beta), ptr(lik),
             ptr(log_scale), ptr(bg_s), ptr(log_tau_s), ptr(eps), ptr(logu),
-            *map(ptr, out), C, S, x.shape[1], k0, k1, stream_of(beta),
+            *map(ptr, out), C, S, x.shape[1], ptr(key), stream_of(beta),
             *cell_offsets(rng, units, S),
         )
     _build.check(rc, "pois_rwmh_step")
@@ -238,7 +240,7 @@ def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
             noise, const,
         )
     lib = _build.library(p)
-    k0, k1 = (0, 0) if noise is not None else rng.philox_key()
+    key = None if noise is not None else launch_key(rng, beta.device)
     dev = beta.device
     with torch.cuda.device(dev):
         log_scale = log_scale.contiguous()
@@ -251,7 +253,7 @@ def fused_mala_poisson_step(beta, v_cache, g_cache, log_scale, bg_s,
         rc = lib.nestmc_pois_mala_step(
             ptr(x), ptr(y), ptr(mask), ptr(const), ptr(beta), ptr(v_cache),
             ptr(g_cache), ptr(log_scale), ptr(bg_s), ptr(log_tau_s),
-            ptr(eps), ptr(logu), *map(ptr, out), C, S, x.shape[1], k0, k1,
+            ptr(eps), ptr(logu), *map(ptr, out), C, S, x.shape[1], ptr(key),
             stream_of(beta), *cell_offsets(rng, units, S),
         )
     _build.check(rc, "pois_mala_step")
@@ -285,7 +287,7 @@ def fused_newton_poisson_step(beta, v_cache, g_cache, h_cache, log_scale,
             x, y, mask, noise, frozen=frozen, const=const,
         )
     lib = _build.library(p)
-    k0, k1 = (0, 0) if noise is not None else rng.philox_key()
+    key = None if noise is not None else launch_key(rng, beta.device)
     dev = beta.device
     with torch.cuda.device(dev):
         log_scale = log_scale.contiguous()
@@ -304,8 +306,9 @@ def fused_newton_poisson_step(beta, v_cache, g_cache, h_cache, log_scale,
             ptr(x), ptr(y), ptr(mask), ptr(const), ptr(beta), ptr(v_cache),
             ptr(g_cache), ptr(h_cache), ptr(log_scale), ptr(bg_s),
             ptr(log_tau_s), ptr(eps), ptr(logu), ptr(out_beta), ptr(out_v),
-            ptr(out_g), ptr(out_h), ptr(out_alpha), C, S, x.shape[1], k0,
-            k1, int(frozen), stream_of(beta), *cell_offsets(rng, units, S),
+            ptr(out_g), ptr(out_h), ptr(out_alpha), C, S, x.shape[1],
+            ptr(key), int(frozen), stream_of(beta),
+            *cell_offsets(rng, units, S),
         )
     kname = ("pois_newton_step_frozen" if frozen
              else "pois_newton_step_refresh")

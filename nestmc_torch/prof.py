@@ -5,19 +5,24 @@ Profiles a preset of :mod:`nestmc_torch.presets` (default the judged config:
 chains, G=100,000 x 20, p=3) on one CUDA device, sweep by sweep, in both
 phases: warmup (adapting; Newton's metric refreshed) and sampling (frozen,
 with the streamed R-hat updates the engine makes: the in-kernel fold, or
-the post-sweep update on every k-th draw at full_rhat_thin = k). For each
-phase it reports, per sweep:
+the post-sweep update on every k-th draw at full_rhat_thin = k), each
+through the engine's steps (segments.py), stepped eagerly and, on the
+card, captured and replayed as the engine runs them. For each phase it
+reports, per sweep:
 
-- ``wall_ms``: untraced wall time, each of ``--repeats`` runs of
-  ``--sweeps`` back-to-back sweeps synchronised only at its two ends;
+- ``wall_ms``: untraced wall time of the eager steps, each of
+  ``--repeats`` runs of ``--sweeps`` back-to-back sweeps synchronised only
+  at its two ends; ``graph_wall_ms`` the same of the replayed graph;
 - ``device_busy_ms``, ``device_kernels``, ``idle_share`` and ``ours_ms``
-  (the port's own kernels), from torch.profiler over ``--sweeps`` sweeps:
-  the sum and count of device kernel self-times, and 1 - busy / the
-  median untraced wall;
+  (the port's own kernels), from torch.profiler over ``--sweeps`` eager
+  sweeps: the sum and count of device kernel self-times, and 1 - busy /
+  the median untraced wall; ``graph_device_busy_ms``,
+  ``graph_device_kernels`` and ``graph_idle_share`` the same over
+  ``--sweeps`` replays;
 - ``block_ms``: each model hook's time (the fused beta step, each Gibbs
   draw, the unfused MH conditionals and the carried-cache obs passes of
   an unfused update, "lik NAME" and "prior NAME", the interweaving move)
-  with the device synchronised around every call;
+  with the device synchronised around every call, in eager steps;
 - ``host_top``: the port's functions with the most cumulative host time
   (cProfile), in ms per sweep;
 - ``peak_mem_gb`` (CUDA): the most device memory allocated at once over
@@ -46,16 +51,12 @@ import torch
 
 from nestmc_torch.bench import gpu_query
 from nestmc_torch.data import RaggedData
-from nestmc_torch.diagnostics import (
-    fold_rhat_init,
-    fold_rhat_scalars,
-    streaming_rhat_init,
-    streaming_rhat_update,
-)
+from nestmc_torch.diagnostics import fold_rhat_init, streaming_rhat_init
 from nestmc_torch.kernels.gibbs import make_sweep, rhat_fold_names
 from nestmc_torch.kernels.state import init_kernel_state
 from nestmc_torch.presets import PRESETS, get_preset
 from nestmc_torch.rng import SweepRNG
+from nestmc_torch.segments import DrawProgram, WarmupProgram
 
 
 def _sync(device) -> None:
@@ -64,43 +65,56 @@ def _sync(device) -> None:
 
 
 class _Phase:
-    """Runs sweeps of one phase from a state, making the streamed R-hat
-    updates of the engine's sampling loop: the fold the sweep carries, or
-    the post-sweep update of every rthin-th draw."""
+    """One phase's engine steps (segments.py) from a state: adapting
+    sweeps, or sampling draws with the engine's streamed R-hat updates
+    (the fold in the first half, as early in sampling, or the post-sweep
+    update of every rthin-th draw), collecting nothing; stepped eagerly or
+    captured and replayed (``graph``)."""
 
-    def __init__(self, model, cfg, data, rng, state, adapt: bool):
-        self.sweep = make_sweep(model, cfg)
-        self.data, self.rng, self.state, self.adapt = data, rng, state, adapt
-        self.names = () if adapt else rhat_fold_names(model, cfg)
-        self.acc = fold_rhat_init(state.position, self.names)
-        self.rthin = cfg.run.full_rhat_thin
-        self.std = {}
-        if not adapt and cfg.run.full_rhat:
-            self.std = streaming_rhat_init({
-                k: v for k, v in state.position.items()
-                if k not in self.names
-            })
+    def __init__(self, model, cfg, data, rng, state, adapt: bool,
+                 capacity: int, graph: bool = False):
+        sweep = make_sweep(model, cfg)
+        self.adapt = adapt
+        if adapt:
+            self.prog = WarmupProgram(sweep, state, data, rng, cfg, capacity,
+                                      graph, None)
+        else:
+            names = rhat_fold_names(model, cfg)
+            std = {}
+            if cfg.run.full_rhat:
+                std = streaming_rhat_init({
+                    k: v for k, v in state.position.items()
+                    if k not in names})
+            self.prog = DrawProgram(
+                sweep, state, data, rng, cfg, std,
+                fold_rhat_init(state.position, names), lambda pos: {}, 0, 0,
+                1 << 30, capacity, graph, None)
         self.j = 0
 
-    def step(self) -> None:
-        if not self.names:
-            self.state = self.sweep(self.state, self.data, self.adapt,
-                                    self.rng)
+    @property
+    def state(self):
+        return self.prog.state()
+
+    def run(self, n: int) -> None:
+        """n steps (sweeps; a draw of thin sweeps in sampling)."""
+        if self.adapt:
+            self.prog.run(n)
         else:
-            # an always-active fold in the first half, as early in sampling
-            scs = {k: fold_rhat_scalars(self.acc[k][0], self.j, 1 << 30)
-                   for k in self.names}
-            folds = {k: (self.acc[k][1], self.acc[k][2], scs[k])
-                     for k in self.names}
-            self.state, fout = self.sweep(self.state, self.data, False,
-                                          self.rng, folds)
-            self.acc = {k: (self.acc[k][0] + scs[k][:, 1], *fout[k])
-                        for k in self.names}
-        if self.std and self.j % self.rthin == 0:
-            self.std = streaming_rhat_update(
-                self.std, self.state.position, self.j // self.rthin, 1 << 30
-            )
-        self.j += 1
+            self.prog.run(n, self.j)
+        self.j += n
+
+
+def _walls(phase: _Phase, sweeps: int, repeats: int, device) -> list:
+    """ms a sweep of ``repeats`` runs of ``sweeps`` steps, each synced at
+    its ends only."""
+    walls = []
+    for _ in range(repeats):
+        _sync(device)
+        t0 = time.perf_counter()
+        phase.run(sweeps)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3 / sweeps)
+    return walls
 
 
 def _timed_hooks(model, device, totals: dict):
@@ -161,8 +175,7 @@ def _profile_phase(phase: _Phase, sweeps: int, device):
         acts.append(ProfilerActivity.CUDA)
     _sync(device)
     with profile(activities=acts) as prof:
-        for _ in range(sweeps):
-            phase.step()
+        phase.run(sweeps)
         _sync(device)
     avgs = prof.key_averages()
     if device.type != "cuda":
@@ -182,8 +195,7 @@ def _host_top(phase: _Phase, sweeps: int, device, top: int = 12) -> dict:
     prof = cProfile.Profile()
     _sync(device)
     prof.enable()
-    for _ in range(sweeps):
-        phase.step()
+    phase.run(sweeps)
     _sync(device)
     prof.disable()
     rows = []
@@ -211,11 +223,11 @@ def profile_sweeps(preset: str = "judged", chains: int | None = None,
         )
     rng = SweepRNG(0, device)
     state = init_kernel_state(model, cfg, rng, data)
-    warm = _Phase(model, cfg, data, rng, state, adapt=True)
-    for _ in range(settle):
-        warm.step()
-    samp = _Phase(model, cfg, data, rng, warm.state, adapt=False)
-    samp.step()
+    cap = max(sweeps, settle)
+    warm = _Phase(model, cfg, data, rng, state, True, cap)
+    warm.run(settle)
+    samp = _Phase(model, cfg, data, rng, warm.state, False, cap)
+    samp.run(1)
 
     report = {"preset": preset, "device": str(device),
               "loglik_impl": model.loglik_impls.get("selected"),
@@ -234,16 +246,21 @@ def profile_sweeps(preset: str = "judged", chains: int | None = None,
     for label, phase in (("warmup", warm), ("sampling", samp)):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        walls = []
-        for _ in range(repeats):
-            _sync(device)
-            t0 = time.perf_counter()
-            for _ in range(sweeps):
-                phase.step()
-            _sync(device)
-            walls.append((time.perf_counter() - t0) * 1e3 / sweeps)
+        walls = _walls(phase, sweeps, repeats, device)
         busy, count, ours, avgs = _profile_phase(phase, sweeps, device)
         wall = statistics.median(walls)
+        g_walls = g_busy = g_count = None
+        if device.type == "cuda":
+            # the engine's loop: the same step captured, then replayed
+            graph = _Phase(model, cfg, data, rng, phase.state, phase.adapt,
+                           sweeps, graph=True)
+            graph.j = phase.j
+            graph.run(sweeps)
+            g_walls = _walls(graph, sweeps, repeats, device)
+            g_busy, g_count, _, _ = _profile_phase(graph, sweeps, device)
+            phase.prog, phase.j = graph.prog, graph.j
+            phase.prog.graph = False    # the synced readings step eagerly
+            graph.prog.close()
         sort = "self_cpu_time_total"
         if device.type == "cuda":
             sort = ("self_device_time_total"
@@ -254,21 +271,25 @@ def profile_sweeps(preset: str = "judged", chains: int | None = None,
 
         totals = {}
         timed = _Phase(_timed_hooks(model, device, totals), cfg, data, rng,
-                       phase.state, adapt=phase.adapt)
+                       phase.state, phase.adapt, sweeps)
+        timed.j = phase.j
         _sync(device)
         t0 = time.perf_counter()
-        for _ in range(sweeps):
-            timed.step()
+        timed.run(sweeps)
         _sync(device)
         synced = (time.perf_counter() - t0) * 1e3 / sweeps
-        phase.state = timed.state
-        phase.acc, phase.std, phase.j = timed.acc, timed.std, timed.j
+        phase.prog, phase.j = timed.prog, timed.j
 
         report[label] = {
             "wall_ms": walls,
             "device_busy_ms": busy,
             "device_kernels": count,
             "idle_share": None if busy is None else 1.0 - busy / wall,
+            "graph_wall_ms": g_walls,
+            "graph_device_busy_ms": g_busy,
+            "graph_device_kernels": g_count,
+            "graph_idle_share": (None if g_busy is None else
+                                 1.0 - g_busy / statistics.median(g_walls)),
             "ours_ms": ours,
             "synced_sweep_ms": synced,
             "block_ms": {k: v * 1e3 / sweeps for k, v in totals.items()},

@@ -2,12 +2,17 @@
 
 The reference threads a JAX key through every draw. The port passes one
 :class:`SweepRNG` instead: a ``torch.Generator`` on the data's device for
-tensors, and a CPU generator for the two 32-bit Philox key words each
-kernel launch takes by value (drawing them needs no device sync). There is
-no global RNG anywhere in the port. A checkpoint carries both generators'
-states (:meth:`SweepRNG.get_state`), so a resumed run draws the same noise
-an uninterrupted one would. Tests replace it with an object of the
-same methods that replays the reference's noise.
+tensors, and a CPU generator for the two 32-bit Philox key words of each
+kernel launch (drawing them needs no device sync). A kernel reads its
+words from device memory (:meth:`SweepRNG.key_words`): either copied there
+at the launch, or, in a captured segment (nestmc_torch/segments.py), the
+sweep's row of a key table that holds every word the segment's launches
+take, drawn from the CPU generator in launch order before the segment
+(:meth:`SweepRNG.key_table`, the same words as that many philox_key()
+calls). There is no global RNG anywhere in the port. A checkpoint carries
+both generators' states (:meth:`SweepRNG.get_state`), so a resumed run
+draws the same noise an uninterrupted one would. Tests replace it with an
+object of the same methods that replays the reference's noise.
 
 A sharded run (nestmc_torch.parallel) keeps the unsharded run's draws:
 every rank seeds the same generators, and a rank that holds chains
@@ -20,6 +25,7 @@ every group shard of a chain shard.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -36,6 +42,8 @@ class SweepRNG:
         self.host = torch.Generator()
         self.host.manual_seed(seed + 0x5EED)
         self.chains = None
+        self._keys = None   # the sweep's (K, 2) key words (use_keys)
+        self._slot = 0
 
     def _sharded(self, draw, shape, units):
         """draw(shape) when this process holds the whole of it, else the
@@ -92,6 +100,52 @@ class SweepRNG:
         )
         return int(w[0]), int(w[1])
 
+    def key_table(self, launches: int) -> torch.Tensor:
+        """(launches, 2) int32 (the uint32 words' bits): the words of the
+        next ``launches`` philox_key() calls, in order, drawn at once; the
+        CPU generator is left where those calls would leave it (one
+        randint of 2 x launches words draws them in the same order)."""
+        w = torch.randint(0, 2**32, (launches, 2), generator=self.host,
+                          dtype=torch.int64)
+        return words_i32(w)
+
+    def use_keys(self, row) -> None:
+        """Hand the next launches the (K, 2) device words of ``row`` in
+        turn (a captured sweep's row of the segment's key table); None:
+        each launch draws its words when it asks."""
+        self._keys = row
+        self._slot = 0
+
+    @property
+    def keys_taken(self) -> int:
+        """Launches that took a word pair of the row since use_keys."""
+        return self._slot
+
+    def skip_key(self) -> None:
+        """Take the next launch's key words and use none of them (a launch
+        a group shard skips): the row's next pair, else philox_key()'s."""
+        if self._keys is None:
+            self.philox_key()
+        else:
+            self.key_words(self._keys.device)
+
+    def key_words(self, device) -> torch.Tensor:
+        """The next kernel launch's two Philox key words, a (2,) int32
+        tensor on ``device`` that the kernel reads: the next pair of the
+        row set by :meth:`use_keys`, else philox_key()'s words copied to
+        the device (from pinned memory, without a sync)."""
+        if self._keys is not None:
+            if self._slot >= self._keys.shape[0]:
+                raise RuntimeError(
+                    f"the sweep's key row holds {self._keys.shape[0]} "
+                    "launches' words; a launch asked for one more")
+            words = self._keys[self._slot]
+            self._slot += 1
+            return words
+        host = torch.tensor(self.philox_key(), dtype=torch.int64)
+        staged = words_i32(host).pin_memory()
+        return staged.to(device, non_blocking=True)
+
     def get_state(self) -> dict:
         """{'device': the tensor generator's state, 'host': the key-word
         generator's}, uint8 CPU tensors (torch.Generator.get_state)."""
@@ -102,6 +156,12 @@ class SweepRNG:
         """Restore both generators from :meth:`get_state`'s dict."""
         self.generator.set_state(state["device"].cpu())
         self.host.set_state(state["host"].cpu())
+
+
+def words_i32(words: torch.Tensor) -> torch.Tensor:
+    """uint32 words held in int64 as int32 tensors of the same bits."""
+    return torch.from_numpy(
+        words.numpy().astype(np.uint32).view(np.int32).copy())
 
 
 class ReplayRNG:

@@ -1388,3 +1388,76 @@ def test_plain_matmuls_on_a_chain_slice_are_bitwise(dev, C):
         assert torch.equal(xt_sum(r, x)[cs], xt_sum(r[cs], x))
         assert torch.equal(xxt_packed(x, r.abs())[cs],
                            xxt_packed(x, r[cs].abs()))
+
+
+def _graph_eager_pair(dev, make, algorithm, thin=1, rthin=1,
+                     precond="none"):
+    """(graph run, eager run, their launch counts, their RNGs) of one
+    model from the same seed: sample() on the card replays its captured
+    steps unless asked for the eager loop."""
+    from nestmc_torch import sample
+
+    out = []
+    for eager in (False, True):
+        model, data = make()
+        rng = SweepRNG(7, dev)
+        reset_launch_counts()
+        post = sample(model, data, SamplerConfig(
+            kernel=KernelConfig(algorithm=algorithm, precond=precond),
+            run=RunConfig(chains=64, warmup=60, draws=14, thin=thin,
+                          full_rhat=True, full_rhat_thin=rthin,
+                          segment_size=6, log_every_segment=False)),
+            rng=rng, _eager=eager)
+        out.append((post, dict(LAUNCHES), rng))
+    return out
+
+
+@pytest.mark.parametrize("algorithm,impl,thin,rthin,precond", [
+    ("newton", "auto", 1, 1, "none"), ("mala", "auto", 1, 1, "none"),
+    ("rwmh", "auto", 1, 1, "none"), ("newton", "auto", 2, 1, "none"),
+    ("mala", "auto", 1, 2, "none"), ("newton", "bucket", 1, 1, "none"),
+    ("mala", "pallas-segment", 1, 1, "none"),
+    ("rwmh", "auto", 1, 1, "full"), ("mala", "auto", 1, 1, "diag")])
+def test_graph_replay_is_the_eager_loop_bitwise(dev, algorithm, impl, thin,
+                                                 rthin, precond):
+    """The captured warmup sweep and sampling draw, replayed, give the
+    eager loop's draws, streamed R-hat, final carry, launch counts and
+    generator states bit for bit (with a preconditioner: the unfused
+    updates, the full one's Cholesky factor without a host check; 60
+    warmup sweeps, so it is in use after the 50 its EMA waits)."""
+    def make():
+        data, _ = synth_logistic(21, G=40, n=12, p=3, device=dev,
+                                 ragged=impl != "auto", min_obs=1)
+        return make_hier_logistic(data, tau_prior="invgamma",
+                                  loglik_impl=impl), data
+
+    (g, g_launch, g_rng), (e, e_launch, e_rng) = _graph_eager_pair(
+        dev, make, algorithm, thin, rthin, precond)
+    assert g.timings["sweep"] == "graph" and e.timings["sweep"] == "eager"
+    assert g_launch == e_launch
+    for k in e.draws:
+        assert torch.equal(g.draws[k], e.draws[k]), k
+    for k in e.full_rhat:
+        assert torch.equal(g.full_rhat[k], e.full_rhat[k]), k
+    for k, v in e.final_state.position.items():
+        assert torch.equal(g.final_state.position[k], v), k
+    for k, v in e.accept_rates.items():
+        assert torch.equal(g.accept_rates[k], v), k
+    for a, b in zip(g_rng.get_state().values(), e_rng.get_state().values()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algorithm", ["rwmh", "mala", "newton"])
+def test_graph_replay_of_nested_poisson_is_the_eager_loop(dev, algorithm):
+    def make():
+        data, _ = synth_poisson3(5, G=8, subjects_per_group=3, n=10, p=2,
+                                 device=dev)
+        return make_nested_poisson(data, tau_prior="invgamma"), data
+
+    (g, g_launch, g_rng), (e, e_launch, e_rng) = _graph_eager_pair(
+        dev, make, algorithm)
+    assert g.timings["sweep"] == "graph" and g_launch == e_launch
+    for k in e.draws:
+        assert torch.equal(g.draws[k], e.draws[k]), k
+    for a, b in zip(g_rng.get_state().values(), e_rng.get_state().values()):
+        assert torch.equal(a, b)
