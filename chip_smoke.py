@@ -64,7 +64,8 @@ Needs one CUDA card and this checkout (it builds the kernels from
 6. the end-to-end paths at full width, launch counters reset just before
    each and read just after: the RW-MH preset (hier-logistic-100-rw),
    config 2 (hier-logistic-100: frozen-metric Newton-MH), config 1
-   (eight-schools: plain PyTorch, no launch; its posterior mu, tau and
+   (eight-schools: plain PyTorch, two noise fills a sweep and no other
+   launch; its posterior mu, tau and
    theta against a dense float64 quadrature of the posterior within 6
    standard errors), the exactness tier (the conjugate normal model's
    posterior moments within 5 standard errors of the closed form, as
@@ -132,7 +133,8 @@ Needs one CUDA card and this checkout (it builds the kernels from
    proposal traps printed, not asserted) and MALA at 2000/16384 (exact
    counts, the gate over 12,006 parameters); (c)
    gaussian and negbin at config 2's width (plain PyTorch, Newton on the
-   zero-self split, 500/1024: no launch, the gate, mu and the aux block's
+   zero-self split, 500/1024: two noise fills a sweep and no other
+   launch, the gate, mu and the aux block's
    posterior means within 4 posterior sds of synth_glm's truth); (e) a CSV
    of ragged-10k's seed-0 data through load_csv, native parser and numpy
    path (both timed; the arrays equal from_numpy_ragged's), then 50
@@ -155,7 +157,8 @@ Needs one CUDA card and this checkout (it builds the kernels from
    a user's hierarchical logistic written for one chain with the port's
    distributions and log transform (make_hier_logistic's priors), lifted
    by vmap_chains, at config 2's width (64 chains, MALA through autograd
-   under vmap, 600/1200): no kernel launch, the posterior means of mu
+   under vmap, 600/1200): no kernel launch but two noise fills a sweep,
+   the posterior means of mu
    and tau within 5 combined MCSEs of phase 6's built-in RW run on the
    same data, its R-hat and ms a sweep printed; (c) config 2 (frozen
    Newton, the R-hat fold in the step kernel; 150/200) and config 4's
@@ -181,9 +184,12 @@ Needs one CUDA card and this checkout (it builds the kernels from
    the one card (``--phase10-rank``, NESTMC_* env, a file:// rendezvous;
    multihost.initialize picks gloo) run the judged preset at full width,
    40/40 (``python3 chip_smoke.py --phase10 4`` runs this phase alone on
-   four ranks, one a card, NCCL, (ii) then 2 x 2): (i) chain_shards=2,
-   every collected draw and the final carry
-   bitwise the unsharded in-process run's; (ii) one sampling sweep from
+   four ranks, one a card, NCCL, (ii) then 2 x 2): (i) the preset as the
+   ranks build it, with no shard flag (the reference's chain_shards = N,
+   1024 N chains: asserted), each rank's Posterior.final_state bitwise
+   its chains' rows of the unsharded in-process run's carry, and every
+   collected draw and the carry gathered on request
+   (parallel.gather_state) bitwise the whole; (ii) one sampling sweep from
    that carry with group_shards=2, every leaf within 1e-4 + 1e-4 |ref| of
    the unsharded sweep's and mu, log tau and their log scales bitwise
    equal on both ranks, then a group_shards=2 run whose acceptance is
@@ -223,9 +229,16 @@ Needs one CUDA card and this checkout (it builds the kernels from
    10b(i) against this process's judged run, 10c's two routes against the
    rank's own unsharded runs, and mala-100k-newton at full width (C=512,
    G=100,000, p=3) on P10D_SCHED, unsharded on rank 0 alone, then with
-   the groups split in two on every rank; 10b(i)'s streamed R-hat maps,
-   finalized on the rank's chains a slice of units at a time, within
-   1e-6 relative of the unsharded run's.
+   the groups split in two on every rank (the preset's own shards at two
+   ranks), where each rank's ``peak_mem_gb_gather`` is at most 1.05x its
+   ``peak_mem_gb`` (no rank gathers the carry); 10b(i)'s streamed R-hat
+   maps, finalized on the rank's chains a slice of units at a time,
+   within 1e-6 relative of the unsharded run's; (e) the unit-axis noise
+   fill (csrc/philox_fill.cu) at ragged-10k's (1024, 10000, 3) normal
+   draw against its plain version run on the card: words and uniforms
+   bitwise, log uniforms and normals within FILL_ULPS ulps (an ulp at
+   least 2^-23), a shard's block bitwise that block of the global fill,
+   timed beside its bound and torch.randn's time (a yardstick only).
 11. the compiled segments (nestmc_torch/segments.py), after phase 5 and
    before phase 6: (a) the streamed R-hat update's device-table form
    against its host-index form on the card, bitwise; (b) for judged,
@@ -277,6 +290,12 @@ M100K = (512, 100_000, 20, 3)
 RW = (64, 100, 50, 4)                # config 2 (both its presets)
 HL1K = (256, 1000, 50, 4)           # hier-logistic-1k (and -mala)
 POIS = (512, 4000, 10, 3)           # C, S (subjects), n, p: config 3
+FILL = (1024, 10_000, 3)            # ragged-10k's (C, G, p) normal draw
+# the fill's normals and log uniforms against the plain version's float64
+# conversions rounded once: within FILL_ULPS ulps, an ulp counted at least
+# 2^-23 (the ulp of 1): near a zero of the cosine the kernel's float32
+# cospif is good to about 4e-7 absolute, not to its tiny value's ulps
+FILL_ULPS = 8
 SLICE = 64                  # chains the plain versions run on at M100K
 SRC = {
     "loglik": ("nestmc_torch/csrc/loglik_logistic.cu",
@@ -311,6 +330,10 @@ SRC = {
                    "nestmc/ops/pallas/loglik_segment.py:244"),
     "seg_logp_grad": ("nestmc_torch/csrc/loglik_segment.cu",
                       "nestmc/ops/pallas/loglik_segment.py:244"),
+    # the unit-axis noise fill: no Pallas kernel of its own; the in-kernel
+    # Philox draws' conversions (mh_accept.py:48, 72, 80)
+    "philox_fill": ("nestmc_torch/csrc/philox_fill.cu",
+                    "nestmc/ops/pallas/mh_accept.py:48"),
 }
 
 
@@ -449,6 +472,7 @@ P10_SWEEP_SEED = 77         # the noise of 10b(ii)'s one sweep
 P10C_SCHED = (20, 20)       # phase 10c's warmup / draws at config 4's width
 P10D_SCHED = (5, 5)         # phase 10d's mala-100k-newton memory reading
 P10_MEM_RATIO = 0.6         # a rank's peak_mem_gb / the unsharded run's
+P10_GATHER_RATIO = 1.05     # a rank's peak_mem_gb_gather / its peak_mem_gb
 # 10c's routes: (tag, preset, loglik_impl): config 4's bucket route (frozen
 # Newton) and ragged-10k-mala's segment route (MALA)
 P10C_ROUTES = (("bucket", "ragged-10k", "bucket"),
@@ -686,7 +710,7 @@ def phase10_rank() -> int:
     from nestmc_torch.kernels.gibbs import make_sweep
     from nestmc_torch.ops.bucket import BucketLayout
     from nestmc_torch.ops.cuda import launch_counts, reset_launch_counts
-    from nestmc_torch.parallel import collectives, multihost
+    from nestmc_torch.parallel import collectives, gather_state, multihost
     from nestmc_torch.parallel.sharding import (
         make_mesh,
         make_shard,
@@ -734,18 +758,27 @@ def phase10_rank() -> int:
         res[f"{tag}_ms_sweep"] = 1e3 * (t["warmup_s"] + t["sample_s"]) / sum(
             P10_SCHED)
         res[f"{tag}_setup_s"] = t["setup_s"]
-        res[f"{tag}_accept"] = {k: float(v.mean())
-                                for k, v in post.accept_rates.items()}
+        res[f"{tag}_accept"] = {k: float(v)
+                                for k, v in post.accept_mean.items()}
         res[f"{tag}_peak"] = peaks(post)
         return post
 
-    post = run("i", ShardingConfig(chain_shards=world))
+    # (i) the preset as a launch of ``world`` ranks builds it: no shard
+    # flags, the reference's chain_shards = N and 1024 N chains
+    res["i_sharding"] = [cfg.sharding.chain_shards,
+                         cfg.sharding.group_shards]
+    res["i_chains"] = cfg.run.chains
+    post = run("i", cfg.sharding)
     for k, v in post.draws.items():
         arrays[f"i.draws.{k}"] = v.cpu().numpy()
     for k, v in post.full_rhat.items():
         arrays[f"r.i.rhat.{k}"] = v.cpu().numpy()
-    leaves("i.final", post.final_state)
-    carry = post.final_state
+    # the rank's part of the final carry, as the Posterior holds it, and
+    # its gather on request
+    leaves("i_part", post.final_state)
+    res["i_span"] = list(post.placement.shard.spans["chains"])
+    carry = gather_state(post)
+    leaves("i.final", carry)
 
     # (ii) one sampling sweep from (i)'s final carry, groups split
     split = ShardingConfig(chain_shards=world // 2, group_shards=2)
@@ -779,14 +812,12 @@ def phase10_rank() -> int:
     res["ii_finite"] = all(bool(torch.isfinite(v).all())
                            for v in post.draws.values())
     res["ii_gather_s"] = post.timings["gather_s"]
-    # the final carry cut and gathered again (collectives.gather) must
-    # give the carry back
-    final = post.final_state
-    part = map_specs(lambda t, sp: take(t, sp, shard.spans), specs, final)
-    back = map_specs(lambda t, sp: collectives.gather(t, sp, shard), specs,
-                     part)
-    res["ii_gather_back_ok"] = state_err(back, final) == 0.0
-    del post, carry, st, local, final, part, back
+    # the rank part of the final carry gathered (gather_state) and cut
+    # again must give the part back
+    back = gather_state(post)
+    part = map_specs(lambda t, sp: take(t, sp, shard.spans), specs, back)
+    res["ii_gather_back_ok"] = state_err(part, post.final_state) == 0.0
+    del post, carry, st, local, part, back
     torch.cuda.empty_cache()
 
     # 10c: config 4 at full width on each ragged route, P10C_SCHED from
@@ -794,8 +825,9 @@ def phase10_rank() -> int:
     # in two, compared here leaf by leaf
     for route, preset, impl in P10C_ROUTES:
         rm, rd, rcfg = get_preset(preset, device=dev, loglik_impl=impl)
-        rbase = override_run(rcfg, warmup=P10C_SCHED[0],
-                             draws=P10C_SCHED[1])
+        rbase = dataclasses.replace(
+            override_run(rcfg, warmup=P10C_SCHED[0], draws=P10C_SCHED[1]),
+            sharding=ShardingConfig())
         urng = SweepRNG(rbase.run.seed, dev)
         upost = sample(rm, rd, rbase, rng=urng)
         rsplit = dataclasses.replace(rbase, sharding=split)
@@ -820,7 +852,7 @@ def phase10_rank() -> int:
         res[f"{tag}_groups_sum_ms_sweep"] = (
             1e3 * collectives.STATS["groups_sum_s"] / sweeps)
         res[f"{tag}_accept_diff"] = max(
-            abs(float(post.accept_rates[k].mean()) - float(v.mean()))
+            abs(float(post.accept_mean[k]) - float(v.mean()))
             for k, v in upost.accept_rates.items())
         res[f"{tag}_finite"] = all(
             bool(torch.isfinite(v).all()) for v in
@@ -832,14 +864,15 @@ def phase10_rank() -> int:
         # of the chains' final mu and log_tau, its mean over the chains
         # within 5 combined standard errors), the chains that stayed
         # within 1e-4 are counted and printed
-        pairs = list(state_pairs(post.final_state, upost.final_state))
+        final = gather_state(post)
+        pairs = list(state_pairs(final, upost.final_state))
         pairs += [(post.draws[k], v) for k, v in upost.draws.items()]
         res[f"{tag}_run_err"] = max(
             float(((q - r).abs() / (1.0 + r.abs())).max()) for q, r in pairs)
         close = torch.ones(rbase.run.chains, dtype=torch.bool, device=dev)
         z = 0.0
         for k in ("mu", "log_tau"):
-            q, r = post.final_state.position[k], upost.final_state.position[k]
+            q, r = final.position[k], upost.final_state.position[k]
             close &= ((q - r).abs() <= 1e-4 * (1.0 + r.abs())).all(dim=1)
             se = ((q.var(dim=0) + r.var(dim=0)) / q.shape[0]).sqrt()
             z = max(z, float(((q.mean(dim=0) - r.mean(dim=0)).abs()
@@ -887,16 +920,21 @@ def phase10_rank() -> int:
                 BucketLayout.build(rd.segment_ids, rd.num_groups).shard(
                     g0, g0 + gl, shard.spans["obs"][0]).buckets]
         for k in ("mu", "log_tau"):
-            arrays[f"c.{route}.final.{k}"] = (
-                post.final_state.position[k].cpu().numpy())
-        del rm, rd, post, upost
+            arrays[f"c.{route}.final.{k}"] = final.position[k].cpu().numpy()
+        del rm, rd, post, upost, final
         torch.cuda.empty_cache()
 
     # 10d: mala-100k-newton at full width on P10D_SCHED, unsharded on rank
     # 0 alone (the others wait), then with the groups split on every rank
     t_d = time.perf_counter()
     mm, md, mcfg = get_preset("mala-100k-newton", device=dev)
-    mbase = override_run(mcfg, warmup=P10D_SCHED[0], draws=P10D_SCHED[1])
+    # the preset as N ranks build it (the groups split in two, as the
+    # reference's gsh rule gives), and unsharded
+    res["d_sharding"] = [mcfg.sharding.chain_shards,
+                         mcfg.sharding.group_shards]
+    mbase = dataclasses.replace(
+        override_run(mcfg, warmup=P10D_SCHED[0], draws=P10D_SCHED[1]),
+        sharding=ShardingConfig())
     sweeps = sum(P10D_SCHED)
     if rank == 0:
         upost = sample(mm, md, mbase)
@@ -927,6 +965,92 @@ def phase10_rank() -> int:
 
 
 
+def phase10_fill(dev, smi: str) -> dict:
+    """Phase 10e, the unit-axis noise fill (csrc/philox_fill.cu) at
+    ragged-10k's (1024, 10000, 3) normal draw: words and uniforms bitwise
+    the plain version's (integer Philox on int64 tensors, run here on the
+    card), log uniforms and normals within FILL_ULPS ulps of its float64
+    conversions rounded once (an ulp counted at least 2^-23, the ulp of
+    1); a shard's block (chains 512.., units
+    5000..7499) bitwise that block of the global fill. Returns the
+    kernel's record: {err, ms, plain_ms, shape, work}."""
+    import math
+
+    import torch
+
+    from nestmc_torch.ops.cuda.philox_fill import (
+        FLOAT_OPS,
+        philox_fill,
+        philox_fill_plain,
+    )
+    from nestmc_torch.utils.profiling import bound_ms, kernel_work
+
+    def timed(fn, batches=7, per=10):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(batches):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(per):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / per)
+        times.sort()
+        return times[len(times) // 2]
+
+    FC, FU, FK = FILL
+    fshape = (FC, FU, FK)
+    fkey = torch.tensor([0x2468ACE, -0x13579BD], dtype=torch.int32,
+                        device=dev)
+    res = {}
+    for mode in ("words", "uniform", "log_uniform", "normal"):
+        kern = philox_fill(fshape, fkey, 0, 0, FU, mode, dev)
+        ref = philox_fill_plain(fshape, fkey, 0, 0, FU, mode, device=dev)
+        torch.cuda.synchronize()
+        if mode in ("words", "uniform"):
+            res[mode] = (torch.equal(kern, ref), 0.0, 0.0)
+        else:
+            ulp = (torch.nextafter(ref.abs(), torch.full_like(
+                ref, math.inf)) - ref.abs()).clamp_min(2.0 ** -23)
+            d = (kern - ref).abs()
+            n_ulp = float((d / ulp).max())
+            res[mode] = (n_ulp <= FILL_ULPS, n_ulp, float(d.max()))
+        del kern, ref
+    whole = philox_fill(fshape, fkey, 0, 0, FU, "normal", dev)
+    part = philox_fill((FC - 512, 2500, FK), fkey, 512, 5000, FU, "normal",
+                       dev)
+    shard_same = torch.equal(part, whole[512:, 5000:7500])
+    del whole, part
+    ms = timed(lambda: philox_fill(fshape, fkey, 0, 0, FU, "normal", dev))
+    pms = timed(lambda: philox_fill_plain(fshape, fkey, 0, 0, FU, "normal",
+                                          device=dev), batches=3, per=2)
+    randn_ms = timed(lambda: torch.randn(fshape, device=dev))
+    torch.cuda.empty_cache()
+    w = kernel_work("philox_fill", FC, FU * FK, FLOAT_OPS["normal"], 1)
+    b_ms, by = bound_ms(*w)
+    ok = all(v[0] for v in res.values()) and shard_same
+    say(f"10e philox_fill at {fshape}: words bitwise {res['words'][0]}, "
+        f"uniforms bitwise {res['uniform'][0]}; log uniforms within "
+        f"{res['log_uniform'][1]:.2f} ulps, normals within "
+        f"{res['normal'][1]:.2f} ulps (max |diff| {res['normal'][2]:.3e}; "
+        f"bound {FILL_ULPS} ulps, an ulp at least 2^-23); a shard's block "
+        f"(chains 512.., units "
+        f"5000..7499) bitwise the global fill's: {shard_same}; normal "
+        f"{ms:.4f} ms (bound {b_ms:.4f} ms by {by}, {w[0] / 1e6:.1f} MB), "
+        f"plain version on the card {pms:.3f} ms, torch.randn of the shape "
+        f"(a yardstick only: other bits) {randn_ms:.4f} ms on '{smi}' "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"10e philox_fill against its plain version: {res}, shard "
+             f"{shard_same}")
+    return {"err": res["normal"][2], "ms": ms, "plain_ms": pms,
+            "shape": (FC, FU, 0, FK), "work": w}
+
+
 def phase10(dev, smi: str, ranks: int = 2) -> dict:
     """Phase 10: (a) the step kernels at shard offsets; (b) ``ranks``
     processes (two on the one card by default: gloo; one a card when the
@@ -934,7 +1058,8 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
     chain-sharded over all ranks, then with the groups split in two; (c)
     the same ranks run config 4 on both ragged routes with the groups
     split in two (:func:`phase10c`). Every failed check exits through
-    fail(). Returns 10c's group-sharded runs' launches."""
+    fail(). Then (10e) the unit-axis noise fill (:func:`phase10_fill`).
+    Returns (10c's group-sharded runs' launches, 10e's fill record)."""
     import os
     import shutil
     import subprocess
@@ -1141,8 +1266,10 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
                  f"{res['world_size']}, expected {backend} of {ranks}")
 
     # the unsharded run of the same schedule and seed, in this process
+    # (1024 a rank: the chains of the ranks' judged preset)
     jm, jd, jcfg = get_preset("judged", device=dev)
-    jbase = override_run(jcfg, warmup=P10_SCHED[0], draws=P10_SCHED[1])
+    jbase = override_run(jcfg, warmup=P10_SCHED[0], draws=P10_SCHED[1],
+                         chains=1024 * ranks)
     jpost = sample(jm, jd, jbase)
     ref_arrays = {f"i.draws.{k}": v.cpu().numpy()
                   for k, v in jpost.draws.items()}
@@ -1159,6 +1286,31 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
         return out
 
     ref_arrays.update(leaves10("i.final", jpost.final_state))
+    for res, _ in rk:
+        if res["i_sharding"] != [ranks, 1] or res["i_chains"] != 1024 * ranks:
+            fail(f"10b(i): the judged preset at {ranks} ranks built shards "
+                 f"{res['i_sharding']} and {res['i_chains']} chains, not the "
+                 f"reference's [{ranks}, 1] and {1024 * ranks}")
+    # each rank's Posterior holds its part of the final carry: the
+    # unsharded carry's rows of its chains, bitwise
+    part_bad = []
+    for res, arrs in rk:
+        c0, cl, _ = res["i_span"]
+        keys = [k for k in arrs if k.startswith("i_part.")]
+        if len(keys) != len([k for k in ref_arrays
+                             if k.startswith("i.final.")]):
+            fail(f"10b(i) rank {res['rank']}: {len(keys)} part leaves")
+        part_bad += [(res["rank"], k) for k in keys if not np.array_equal(
+            arrs[k], ref_arrays["i.final." + k[len("i_part."):]][
+                c0:c0 + cl])]
+    say(f"10b(i) the judged preset at {ranks} ranks, no shard flags: "
+        f"chain_shards {rk[0][0]['i_sharding'][0]}, {rk[0][0]['i_chains']} "
+        f"chains; each rank's final_state is its chains' part "
+        f"({', '.join(str(r['i_span'][:2]) for r, _ in rk)} of "
+        f"{rk[0][0]['i_span'][2]}): "
+        f"{'bitwise the unsharded carry' if not part_bad else part_bad}")
+    if part_bad:
+        fail(f"10b(i): rank parts differ from the unsharded carry's rows")
     got = rk[0][1]
     i_keys = sorted(k for k in got if k.startswith("i."))
     if i_keys != sorted(ref_arrays):
@@ -1179,8 +1331,8 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
     if not rhat_err <= 1e-6:
         fail(f"10b(i): the chain-sharded R-hat maps differ by {rhat_err}")
     say(f"10b(i) chain_shards={ranks} vs the unsharded run ({P10_SCHED[0]}/"
-        f"{P10_SCHED[1]}, every collected draw and the final carry, "
-        f"{len(i_keys)} arrays): "
+        f"{P10_SCHED[1]}, every collected draw and the final carry gathered "
+        f"on request by parallel.gather_state, {len(i_keys)} arrays): "
         f"{'bitwise equal' if not diff_i else 'DIFFER: ' + str(diff_i)}")
     if diff_i:
         fail("10b(i): chain-sharded draws differ from the unsharded run")
@@ -1215,10 +1367,10 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
     if not all(res["ii_finite"] for res, _ in rk):
         fail("10b(ii): NaN or inf in the group-sharded draws")
     for res, _ in rk:
-        say(f"10b(ii) rank {res['rank']}: the run's gather "
-            f"(timings.gather_s) {res['ii_gather_s']:.4f} s; the final "
-            f"carry cut and gathered again gives it back bitwise: "
-            f"{res['ii_gather_back_ok']} on '{smi}'")
+        say(f"10b(ii) rank {res['rank']}: the run's gather of its draws "
+            f"(timings.gather_s) {res['ii_gather_s']:.4f} s; its final "
+            f"carry's part gathered and cut again gives the part back "
+            f"bitwise: {res['ii_gather_back_ok']} on '{smi}'")
         if not res["ii_gather_back_ok"]:
             fail("10b(ii): a gather of the cut carry differs from it")
     del jpost, jm, jd
@@ -1226,10 +1378,11 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
     t10c = time.perf_counter()
     launches10 = phase10c(dev, smi, rk, ranks, shared)
     phase10d(smi, rk, judged_peak)
+    fill = phase10_fill(dev, smi)
     say(f"phase 10 (sharding) took {time.perf_counter() - t10:.1f} s: 10a "
         f"{t10a:.1f}, the ranks (10b and 10c) {t10b_ranks:.1f} from spawn "
         f"to exit, 10c in this process {time.perf_counter() - t10c:.1f}")
-    return launches10
+    return launches10, fill
 
 
 def phase10d(smi: str, rk: list, judged_peak: list) -> None:
@@ -1260,6 +1413,21 @@ def phase10d(smi: str, rk: list, judged_peak: list) -> None:
             if not ratio <= P10_MEM_RATIO:
                 fail(f"{what} rank {res['rank']}: peak memory {ratio:.3f}x "
                      "the unsharded run's")
+    # no rank gathers the final carry: each rank's peak through the
+    # gathers (the draws) within P10_GATHER_RATIO of its peak without
+    for res, _ in rk:
+        g = res["d_peak"][1] / res["d_peak"][0]
+        say(f"10d rank {res['rank']}: peak_mem_gb_gather "
+            f"{res['d_peak'][1]:.4f} against peak_mem_gb "
+            f"{res['d_peak'][0]:.4f}: {g:.4f}x (<= {P10_GATHER_RATIO}); "
+            f"shards {res['d_sharding']} (the preset at {len(rk)} ranks) "
+            f"on '{smi}'")
+        if not g <= P10_GATHER_RATIO:
+            fail(f"10d rank {res['rank']}: the gathers take the peak to "
+                 f"{g:.4f}x")
+        if res["d_sharding"] != [len(rk) // 2, 2]:
+            fail(f"10d: mala-100k-newton at {len(rk)} ranks sharded "
+                 f"{res['d_sharding']}, not [{len(rk) // 2}, 2]")
     for res, _ in rk:
         la = res["d_launches"]
         for k in ("newton_step_refresh", "newton_step_frozen",
@@ -1393,7 +1561,8 @@ def phase10c(dev, smi: str, rk: list, ranks: int, shared: bool) -> dict:
                         "newton_step_frozen": B * D,
                         "logp_grad_hess": B * (W + 1), "logp_grad": B * D}
             else:
-                want = {"seg_logp_grad": 1 + 2 * (W + D)}
+                want = {"seg_logp_grad": 1 + 2 * (W + D),
+                        "philox_fill": 2 * (W + D)}
             want = {k: want.get(k, 0) for k in la}
             if la != want:
                 fail(f"10c {route} rank {res['rank']}: launches {la} != "
@@ -2772,7 +2941,10 @@ def main() -> int:
         if not ok:
             fail("eight-schools disagrees with the quadrature")
 
-    run_path("eight-schools", {}, "z", (0.2, 0.7),
+    # its z block's proposal noise and accept uniforms: two unit-axis
+    # noise fills a sweep (ops/cuda/philox_fill)
+    run_path("eight-schools", {"philox_fill": lambda W, D: 2 * (W + D)},
+             "z", (0.2, 0.7),
              lambda D: {"z": (4, D, 8), "mu": (4, D), "log_tau": (4, D),
                         "theta": (4, D, 8)},
              check=check_eight_schools)
@@ -2789,8 +2961,13 @@ def main() -> int:
         edata, SamplerConfig(run=RunConfig(chains=32, warmup=1500,
                                            draws=2500, seed=2,
                                            log_every_segment=False)))
-    if any(launch_counts().values()):
-        fail(f"the conjugate model launched {launch_counts()}")
+    # theta's RW-MH noise: two unit-axis noise fills a sweep, nothing else
+    want = {k: 0 for k in launch_counts()}
+    want["philox_fill"] = 2 * (1500 + 2500)
+    if launch_counts() != want:
+        fail(f"the conjugate model launched {launch_counts()} != {want}")
+    launches_total["philox_fill"] = (launches_total.get("philox_fill", 0)
+                                     + want["philox_fill"])
     truth = analytic_hier_normal_posterior(edata, 1.0, 1.5, 0.0, 3.0)
     d = epost.diagnostics()
     e_mu = abs(float(d["mu"]["mean"]) - truth["mu_mean"]) / float(
@@ -2816,7 +2993,8 @@ def main() -> int:
 
     run_path("nested-poisson-1k",
              {"pois_rwmh_step": lambda W, D: W + D,
-              "pois_loglik": lambda W, D: 1 + 2 * (W + D)},
+              "pois_loglik": lambda W, D: 1 + 2 * (W + D),
+              "philox_fill": lambda W, D: W + D},
              "beta_s", (0.1, 0.5), poisson_shapes)
 
     # config 4: every bucket runs one fused Newton step a sweep, and one
@@ -3223,7 +3401,9 @@ def main() -> int:
             if not ok:
                 fail(f"hier_glm {family} misses the truth")
 
-        run_path(f"hier_glm {family}", {}, "beta", (0.5, 1.01),
+        run_path(f"hier_glm {family}",
+                 {"philox_fill": lambda W, D: 2 * (W + D)}, "beta",
+                 (0.5, 1.01),
                  lambda D, aux=aux: {"mu": (64, D, 4), "log_tau": (64, D, 4),
                                      aux: (64, D), "beta": (64, D, 8, 4)},
                  warmup=500, draws=1024, full_rhat=True,
@@ -3514,12 +3694,19 @@ def main() -> int:
     us = mu_tau_stats(upost)
     z = {k: float(((us[k][0] - rw_ref[k][0]).abs() / torch.sqrt(
         us[k][1] ** 2 + rw_ref[k][1] ** 2)).max()) for k in us}
-    ok = not any(ulaunch.values()) and max(z.values()) < 5.0
+    # beta's MALA noise on the lifted unit axis: two fills a sweep, no
+    # other kernel
+    uwant = {k: 0 for k in ulaunch}
+    uwant["philox_fill"] = 2 * (UW + UD)
+    ok = ulaunch == uwant and max(z.values()) < 5.0
+    launches_total["philox_fill"] = (launches_total.get("philox_fill", 0)
+                                     + ulaunch["philox_fill"])
     uacc = {k: round(float(v.mean()), 4)
             for k, v in upost.accept_rates.items()}
     say(f"9b user model (vmap_chains, MALA, 64 chains, {UW}/{UD}) at "
         f"config 2's width: {u_ms:.2f} ms a sweep on '{smi}'; launches "
-        f"{sum(ulaunch.values())} (must be 0); worst R-hat "
+        f"{ {k: n for k, n in ulaunch.items() if n} } (must be "
+        f"{2 * (UW + UD)} philox_fill alone); worst R-hat "
         f"{upost.worst_rhat():.5f} (printed, not asserted) at "
         f"{upost.worst_rhat_at()}; acceptance {uacc}")
     for k in us:
@@ -3527,8 +3714,8 @@ def main() -> int:
             f"built-in RW {[round(x, 4) for x in rw_ref[k][0].tolist()]}, "
             f"max |diff| / combined MCSE {z[k]:.2f} (< 5)")
     if not ok:
-        fail("the user model launched a kernel or disagrees with the "
-             "built-in model")
+        fail("the user model launched another kernel than the fill or "
+             "disagrees with the built-in model")
     del upost, udata
     t9b = time.perf_counter() - t9 - t9a
 
@@ -3576,7 +3763,8 @@ def main() -> int:
                 data, cfg)
 
     det_check("ragged-10k pallas-segment mala", seg_build, (80, 100),
-              {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D)})
+              {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D),
+               "philox_fill": lambda W, D: 2 * (W + D)})
 
     # the plain segment sum (the segment route's Hessian pass and every
     # segment kernel's plain version) at config 4's shape: the segmented
@@ -3655,8 +3843,11 @@ def main() -> int:
         f"9c {t9c:.1f}, 9d {t9d:.1f}")
 
     # ---- 10. sharding on the card ----
-    for k, nl in phase10(dev, smi).items():
+    launches10, fill = phase10(dev, smi)
+    for k, nl in launches10.items():
         launches_total[k] = launches_total.get(k, 0) + nl
+    record("philox_fill", fill["err"], fill["ms"], fill["plain_ms"],
+           fill["shape"], fill["work"])
 
     # ---- 6, continued: the paths cut to the time left ----
     full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)
@@ -3724,12 +3915,14 @@ def main() -> int:
             f"running warmup {sm_sched[0]}, draws {sm_sched[1]} at full "
             "width")
     run_path("ragged-10k pallas-segment mala",
-             {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D)},
+             {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D),
+              "philox_fill": lambda W, D: 2 * (W + D)},
              "beta", (0.3, 0.9), logistic_shapes(1024, 3, 8),
              warmup=sm_sched[0], draws=sm_sched[1], gate=sm_sched == s_full,
              runner=seg_mala)
     run_path("ragged-10k pallas-segment rwmh",
-             {"seg_loglik": lambda W, D: 1 + 2 * (W + D)},
+             {"seg_loglik": lambda W, D: 1 + 2 * (W + D),
+              "philox_fill": lambda W, D: 2 * (W + D)},
              "beta", (0.1, 0.5), logistic_shapes(1024, 3, 8),
              warmup=s_rw[0], draws=s_rw[1], gate=False,
              runner=segment_runner("rwmh"))
@@ -3749,14 +3942,16 @@ def main() -> int:
             f"warmup {v_sched[0]}, draws {v_sched[1]} at full width")
     run_path("nested-poisson-1k-mala",
              {"pois_mala_step": lambda W, D: W + D,
-              "pois_logp_grad": lambda W, D: 1 + 2 * (W + D)},
+              "pois_logp_grad": lambda W, D: 1 + 2 * (W + D),
+              "philox_fill": lambda W, D: W + D},
              "beta_s", (0.3, 0.9), poisson_shapes,
              warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
     run_path("nested-poisson-1k-newton",
              {"pois_newton_step_refresh": lambda W, D: W,
               "pois_newton_step_frozen": lambda W, D: D,
               "pois_logp_grad_hess": lambda W, D: 1 + 2 * W,
-              "pois_logp_grad": lambda W, D: 2 * D},
+              "pois_logp_grad": lambda W, D: 2 * D,
+              "philox_fill": lambda W, D: W + D},
              "beta_s", (0.5, 1.0), poisson_shapes,
              warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
 

@@ -47,6 +47,7 @@ import torch
 
 from nestmc_torch.data import data_device
 from nestmc_torch.engine import sample
+from nestmc_torch.parallel.sharding import gather_rates
 from nestmc_torch.presets import PRESETS, get_preset
 
 TITLES = {
@@ -91,7 +92,7 @@ def _unit_accept(post, at) -> dict | None:
     chains below 0.1 (a chain stuck there shows as a low min)."""
     if at is None or at["kind"] != "streamed":
         return None
-    rates = post.accept_rates.get(at["block"])
+    rates = gather_rates(post)[0].get(at["block"])
     if rates is None or rates.shape[1] == 1:
         return None
     a = rates[:, at["index"][0]].float().cpu()

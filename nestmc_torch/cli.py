@@ -45,6 +45,8 @@ import time
 import numpy as np
 import torch
 
+from nestmc_torch.utils.logging import get_logger
+
 
 def _build_parser():
     p = argparse.ArgumentParser(
@@ -214,16 +216,6 @@ def _load_resume(model, data, cfg) -> dict:
             "skip_warmup": phase == "sample", "draws_offset": done}
 
 
-def _log_to_stderr() -> None:
-    log = logging.getLogger("nestmc_torch")
-    if not log.handlers:
-        h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(logging.Formatter(
-            "%(asctime)s %(name)s %(levelname)s %(message)s", "%H:%M:%S"))
-        log.addHandler(h)
-    log.setLevel(logging.INFO)
-
-
 def cmd_run(args) -> int:
     if args.enable_checks:
         print("--enable-checks (JAX's internal checks) is not available in "
@@ -262,8 +254,7 @@ def cmd_run(args) -> int:
             {k: (round(v, 3) if isinstance(v, float) else v)
              for k, v in costs.items()}), file=sys.stderr)
 
-    if not args.quiet:
-        _log_to_stderr()
+    get_logger(level=logging.WARNING if args.quiet else logging.INFO)
     kw = {}
     if args.resume:
         t_r = time.perf_counter()

@@ -46,23 +46,29 @@ A sharded run (ShardingConfig; one process a rank, parallel/multihost)
 runs the same loop on this rank's part (parallel/sharding.py): each rank
 builds only its part of the carry (sharding.shard_state: the positions
 drawn at their global shapes and cut at once, the rest built from them on
-the rank's data; a resumed run's global carry is cut), the rng draws at
-the global shapes (rng.py), and the sums over a group-sharded unit axis
-are all_reduces (parallel/collectives.groups_sum). The streamed R-hat and
+the rank's data; a resumed run's global carry is cut, a rank part of the
+same mesh taken as it is), the rng fills only the rank's block of every
+unit-axis draw (rng.py), and the sums over a group-sharded unit axis are
+all_reduces (parallel/collectives.groups_sum). The streamed R-hat and
 ESS are finalized where the units live (:func:`_finalize`), and only
-their maps, which have no chain axis, are gathered. The draws, the
-acceptance rates and the final carry are gathered to the global layout
-at the end, so every rank's Posterior is the unsharded layout;
-checkpoints hold the gathered carry and are written by the primary rank,
-so a resume may use any topology. Per-rank logs come from the primary,
-over its own chains and units.
+their maps, which have no chain axis, are gathered. The rank keeps its
+part of the final carry and of the acceptance rates: its Posterior's
+``final_state``, ``accept_rates`` and ``warmup_accept_rates`` are the
+rank's parts, placed by ``Posterior.placement``
+(parallel.gather_state / gather_rates give the global layout on
+request), with the global mean acceptance of each block reduced where
+the rates live (``Posterior.accept_mean``). The collected draws are
+gathered to the global layout on every rank. A checkpoint's carry is
+gathered to the primary alone, which writes it
+(collectives.gather_to_primary), so a resume may use any topology.
+Per-rank logs come from the primary, over its own chains and units.
 
 On a card, ``timings`` holds two memory readings, each the peak of
 torch.cuda.max_memory_allocated since sample()'s entry less the memory
 allocated at that entry (the caller's own tensors), in GB:
 ``peak_mem_gb`` through the last sweep and the finalize, and
-``peak_mem_gb_gather`` through the final gathers too. Each segment runs
-under a profiler span, ``nestmc.warmup.seg{i}`` or
+``peak_mem_gb_gather`` through the final gathers (the draws) too. Each
+segment runs under a profiler span, ``nestmc.warmup.seg{i}`` or
 ``nestmc.sample.seg{i}`` (utils/profiling.annotate), as the reference's.
 
 Not ported: the reference's remote-backend warm-up and compile retries.
@@ -71,7 +77,6 @@ Not ported: the reference's remote-backend warm-up and compile retries.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
 
 import torch
@@ -93,9 +98,16 @@ from nestmc_torch.diagnostics import (
 from nestmc_torch.kernels.gibbs import make_sweep, rhat_fold_names
 from nestmc_torch.kernels.state import KernelState, init_kernel_state
 from nestmc_torch.model import ModelSpec
-from nestmc_torch.parallel.collectives import activate, any_rank, gather
+from nestmc_torch.parallel.collectives import (
+    activate,
+    any_rank,
+    gather,
+    gather_to_primary,
+    global_mean,
+)
 from nestmc_torch.parallel.multihost import is_primary
 from nestmc_torch.parallel.sharding import (
+    Placement,
     make_mesh,
     make_shard,
     map_specs,
@@ -106,9 +118,10 @@ from nestmc_torch.parallel.sharding import (
 from nestmc_torch.posterior import Posterior
 from nestmc_torch.rng import SweepRNG
 from nestmc_torch.segments import DrawProgram, WarmupProgram
+from nestmc_torch.utils.logging import get_logger
 from nestmc_torch.utils.profiling import annotate
 
-log = logging.getLogger("nestmc_torch")
+log = get_logger()
 
 
 def _collect(position, spec, derived, picks):
@@ -271,15 +284,12 @@ def _finalize(acc, shard, specs):
     return rhat, ess
 
 
-def _gather_out(model, draws, warm_rates, state, shard, specs, picks):
-    """The draws, the warmup acceptance rates and the final carry of a
-    sharded run, gathered to the global layout on every rank."""
-    draws = {k: gather(v, _draw_spec(model, k, shard, picks), shard)
-             for k, v in draws.items()}
-    warm_rates = {k: gather(v, specs.accept_sum[k], shard)
-                  for k, v in warm_rates.items()}
-    state = map_specs(lambda t, spec: gather(t, spec, shard), specs, state)
-    return draws, warm_rates, state
+def _gather_out(model, draws, shard, picks):
+    """The collected draws of a sharded run, gathered to the global layout
+    on every rank (the one leaf with a chain axis that every rank's
+    Posterior holds whole: a selection of the units, not the units)."""
+    return {k: gather(v, _draw_spec(model, k, shard, picks), shard)
+            for k, v in draws.items()}
 
 
 def _segments(total: int, segment: int):
@@ -330,7 +340,9 @@ def sample(
     draws only. debug_nans: raise FloatingPointError at the first segment
     whose position holds a NaN. A sharded config (cfg.sharding) runs as
     one rank of a multi-process run: every rank passes the same full
-    data, init_state and init_acc, in the global layout. _eager (private,
+    data, and init_state and init_acc either in the global layout (cut
+    here) or as this rank's part on the same mesh (a sharded run's
+    final_state, warmup_then_state's). _eager (private,
     for the card's A/B of the two loops): step an unsharded run on the card
     eagerly instead of replaying its captured steps.
     """
@@ -357,8 +369,8 @@ def sample(
         state = (init_state if resumed
                  else init_kernel_state(model, cfg, rng, data))
     else:
-        # this rank's part only: a resumed run's global carry is cut, a
-        # fresh one built per shard
+        # this rank's part only: a resumed run's global carry is cut (a
+        # rank part kept), a fresh one built per shard
         shard = make_shard(model, data, cfg, mesh)
         specs = state_shardings(model, cfg, mesh)
 
@@ -402,16 +414,8 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
     specs = (state_shardings(model, cfg, shard.mesh) if shard is not None
              else None)
 
-    def gather_state(st):
-        if shard is None:
-            return st
-        return map_specs(lambda t, spec: gather(t, spec, shard), specs, st)
-
-    def gather_acc(acc):
-        if shard is None:
-            return acc
-        return _map_acc(lambda t, spec: gather(t, spec, shard), acc,
-                        specs.position)
+    def to_primary(t, spec):
+        return gather_to_primary(t, spec, shard)
 
     def nan_check(st, phase, done):
         if shard is None:
@@ -419,7 +423,10 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
             return
         bad = any(bool(torch.isnan(v).any()) for v in st.position.values())
         if any_rank(bad, device):
-            _check_nans(gather_state(st), phase, done)
+            _check_nans(st, phase, done)
+            raise FloatingPointError(
+                f"NaN in another rank's position after the {phase} "
+                f"segment ending at {done}")
 
     def checkpoint(seg_idx, phase, count, carry, extra):
         if (not rc.checkpoint_dir or rc.checkpoint_every <= 0
@@ -427,10 +434,13 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
             return
         t_c = time.perf_counter()
         if shard is not None:
-            # every rank's generators are the same: the primary's suffice
-            carry = {**carry, "state": gather_state(carry["state"])}
+            # gathered to the primary alone, which writes it (every rank's
+            # generators are the same: the primary's suffice)
+            carry = {**carry, "state": map_specs(to_primary, specs,
+                                                 carry["state"])}
             if "acc" in carry:
-                carry["acc"] = gather_acc(carry["acc"])
+                carry["acc"] = _map_acc(to_primary, carry["acc"],
+                                        specs.position)
         tag = checkpoint_tag(phase, count)
         if primary:
             save_checkpoint(rc.checkpoint_dir, tag, carry,
@@ -559,22 +569,28 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
         full_rhat, full_ess = _finalize((std_acc, fold_acc), shard, specs)
     _mem_peak(timings, "peak_mem_gb", device, mem0)
 
+    rates = {k: v / max(remaining * rc.thin, 1)
+             for k, v in state.accept_sum.items()}
+    placement = accept_mean = None
     if shard is not None:
         t_g = time.perf_counter()
-        draws, warm_rates, state = _gather_out(model, draws, warm_rates,
-                                               state, shard, specs, picks)
+        draws = _gather_out(model, draws, shard, picks)
+        accept_mean = {k: global_mean(v, specs.accept_sum[k], shard)
+                       for k, v in rates.items()}
+        placement = Placement(shard, specs)
         _sync(device)
         timings["gather_s"] = time.perf_counter() - t_g
     _mem_peak(timings, "peak_mem_gb_gather", device, mem0)
     post = Posterior(
         draws=draws,
-        accept_rates={k: v / max(remaining * rc.thin, 1)
-                      for k, v in state.accept_sum.items()},
+        accept_rates=rates,
         warmup_accept_rates=warm_rates,
         config=cfg.to_dict(),
         timings=timings,
         full_rhat=full_rhat,
         full_ess=full_ess,
+        placement=placement,
+        accept_mean=accept_mean,
     )
     post.final_state = state
     return post
@@ -582,7 +598,9 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
 
 def warmup_then_state(model, data, cfg: SamplerConfig,
                       rng: SweepRNG | None = None) -> KernelState:
-    """Run only the warmup phase and return the adapted carry."""
+    """Run only the warmup phase and return the adapted carry: in a
+    sharded run this rank's part of it, which ``sample(init_state=...)``
+    takes on the same mesh."""
     cfg2 = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run,
                                                             draws=0))
     return sample(model, data, cfg2, rng).final_state

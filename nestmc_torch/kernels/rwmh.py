@@ -72,8 +72,8 @@ def rwmh_update(rng, block: Block, model: ModelSpec, position, log_scale,
     self part of the conditional at the current value
     (ModelSpec.cond_cached), so only the proposal's self part is
     evaluated. Noise: eps = rng.normal,
-    then log u = rng.log_uniform, in that order (at the global shape in a
-    sharded run: the block's unit axis is dim 1).
+    then log u = rng.log_uniform, in that order (on a unit axis the model
+    names, fills of this rank's block: rng.py; the unit axis is dim 1).
     Returns (new_value, alpha (C, U), new_cache).
     """
     value = position[block.name]

@@ -32,6 +32,7 @@ LAUNCHES = {
     "pois_newton_step_frozen": 0,
     "seg_loglik": 0,
     "seg_logp_grad": 0,
+    "philox_fill": 0,
 }
 
 

@@ -36,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "nestmc_logp_grad": [_P] * 7 + [_I] * 3 + [_P],
     "nestmc_loglik": [_P] * 5 + [_I] * 3 + [_P],
@@ -43,6 +44,7 @@ _SIGNATURES = {
     "nestmc_mala_step": [_P] * 20 + [_I] * 3 + [_P, _P] + [_I] * 3,
     "nestmc_rwmh_step": [_P] * 13 + [_I] * 3 + [_P, _P] + [_I] * 3,
     "nestmc_philox_probe": [_P, _P, _I, _U, _U, _P],
+    "nestmc_philox_fill": [_P] + [_L] * 4 + [_P, _I, _P],
     "nestmc_pois_loglik": [_P] * 6 + [_I] * 3 + [_P],
     "nestmc_pois_logp_grad": [_P] * 8 + [_I] * 3 + [_P],
     "nestmc_pois_rwmh_step": [_P] * 14 + [_I] * 3 + [_P, _P] + [_I] * 3,
@@ -151,6 +153,16 @@ def library(p: int) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     _libs[(p, SRC_DIR)] = lib
     return lib
+
+
+def shared_library() -> ctypes.CDLL:
+    """A library for the kernels that take no p (the noise fill): the
+    first one this process loaded from ``SRC_DIR``, else p=4's (every
+    library holds them)."""
+    for (_, src), lib in _libs.items():
+        if src == SRC_DIR:
+            return lib
+    return library(4)
 
 
 def check(rc: int, what: str) -> None:

@@ -33,8 +33,9 @@ def check_tensor(t, name: str, shape: tuple, device) -> None:
 
 def step_noise(rng, shape, units=None):
     """(eps, log u) of a step's plain version from ``rng``: eps of ``shape``
-    (C, U, p), then log u (C, U); ``units`` as in :func:`cell_offsets`."""
-    u = None if units is None else (1, *units)
+    (C, U, p), then log u (C, U), each a unit-axis draw (the fill: one key
+    pair each); ``units`` as in :func:`cell_offsets`."""
+    u = (1, 0, None) if units is None else (1, *units)
     return (rng.normal(shape, units=u),
             rng.log_uniform(tuple(shape[:2]), units=u))
 
@@ -43,7 +44,8 @@ def skip_step(rng, device, shape, units) -> None:
     """Draw the noise of a step launch that a group shard skips because it
     holds none of the launch's units (an empty size bucket on this shard,
     ops/bucket.py): the Philox key on the card (SweepRNG.skip_key), the
-    plain version's step_noise at the global shape on the CPU. Every rank
+    plain version's step_noise on the CPU (two fills of no element, which
+    take their key pairs and write nothing). Every rank
     then draws the same a sweep, and the generators, and with them the
     replicated blocks, stay equal across ranks. ``shape`` (C, 0, p)."""
     if torch.device(device).type == "cuda":

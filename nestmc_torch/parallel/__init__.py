@@ -7,11 +7,18 @@ carry (sharding.shard_state) and finalizes its streamed R-hat where its
 units live, and the hot-loop collectives are written out: the sum
 over groups of a population conditional (collectives.groups_sum) and, for
 a vmap_chains user model, the gather of the unit axis its hooks run on
-(collectives.groups_gather).
+(collectives.groups_gather). A rank keeps its part of every tensor with
+a chain or unit axis from sample()'s entry to the Posterior
+(Posterior.final_state, accept_rates); :func:`gather_state` and
+:func:`gather_rates` give the global layout to a caller who asks, and a
+checkpoint's carry is gathered to the primary alone
+(collectives.gather_to_primary).
 """
 
 from nestmc_torch.parallel.sharding import (
     data_shardings,
+    gather_rates,
+    gather_state,
     make_mesh,
     shard_inputs,
     shard_state,
@@ -20,6 +27,8 @@ from nestmc_torch.parallel.sharding import (
 
 __all__ = [
     "data_shardings",
+    "gather_rates",
+    "gather_state",
     "make_mesh",
     "shard_inputs",
     "shard_state",

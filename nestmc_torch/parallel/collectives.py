@@ -4,9 +4,12 @@ PyTorch inserts no collective by itself: every sum over the unit axis of
 a group-sharded block goes through :func:`groups_sum` (an ``all_reduce``),
 a model whose sums over units it cannot split (a ``vmap_chains`` lift)
 gathers the unit axis with :func:`groups_gather`, and the engine gathers
-what a run returns (draws, accumulators, the final carry) with
-:func:`gather`. The last two use ``all_gather``; NCCL and gloo (also on
-CUDA tensors) serve both.
+what a sharded run gathers for every rank (the collected draws, the
+R-hat maps) with :func:`gather`. The last two use ``all_gather``; NCCL
+and gloo (also on CUDA tensors) serve both. A checkpoint's carry goes to
+the primary alone (:func:`gather_to_primary`, one ``gather``), and the
+mean acceptance a Posterior reports is reduced where the rates live
+(:func:`global_mean`).
 
 :func:`activate` makes a :class:`Shard` the one these functions read
 while a sharded ``sample`` runs; with none active (every unsharded run)
@@ -222,9 +225,13 @@ def local_count(axis: str | None, total: int) -> int:
 
 def unit_draw(axis: str | None, dim: int = 1):
     """The ``units`` argument of an rng draw whose tensor's ``dim`` is
-    the unit axis of data axis ``axis`` (None: no unit axis)."""
-    span = None if axis is None else unit_span(axis)
-    return None if span is None else (dim, *span)
+    the unit axis of data axis ``axis``: (dim, u0, U) when this rank holds
+    units u0.. of U, (dim, 0, None) when it holds them all; None when
+    ``axis`` is None (no unit axis: a draw from the device generator)."""
+    if axis is None:
+        return None
+    span = unit_span(axis)
+    return (dim, 0, None) if span is None else (dim, *span)
 
 
 def local_units(t, dim: int, axis: str = "groups"):
@@ -298,6 +305,72 @@ def gather(x, spec, shard=None):
         else:
             view.copy_(part)
     return out
+
+
+def gather_to_primary(x, spec, shard):
+    """The global tensor of which ``x`` is this rank's part, as a CPU
+    tensor on the primary (rank 0), None on every other rank: each rank
+    sends its part, padded to the longest along the split dims, with one
+    ``gather`` over every rank, and only the primary allocates the global
+    extents (a checkpoint's carry, which only the primary writes). gloo
+    gathers host tensors only, so there the parts travel as CPU copies;
+    NCCL gathers them on the card. spec: one axis name or None a leading
+    dim of ``x``."""
+    s = shard
+    mesh = s.mesh
+    primary = dist.get_rank() == 0
+    split = [(dim, item) for dim, item in enumerate(spec)
+             if item is not None and s.split(item)]
+    if not split:
+        return x.cpu() if primary else None
+    world = mesh.chain_shards * mesh.group_shards
+    # (start, length) along each split dim of rank r = (i, j)'s part
+    places = [[s.parts[item][i if item == "chains" else j]
+               for _, item in split]
+              for i, j in (divmod(r, mesh.group_shards)
+                           for r in range(world))]
+    part = x
+    for k, (dim, _) in enumerate(split):
+        longest = max(pl[k][1] for pl in places)
+        if part.shape[dim] < longest:
+            pad = list(part.shape)
+            pad[dim] = longest - part.shape[dim]
+            part = torch.cat([part, part.new_zeros(pad)], dim=dim)
+    part = part.cpu() if dist.get_backend() == "gloo" else part
+    part = part.contiguous()
+    bufs = [torch.empty_like(part) for _ in range(world)] if primary else None
+    dist.gather(part, bufs, dst=0)
+    if not primary:
+        return None
+    shape = list(x.shape)
+    for dim, item in split:
+        shape[dim] = s.spans[item][2]
+    out = torch.empty(shape, dtype=x.dtype)
+    for buf, pl in zip(bufs, places):
+        view = out
+        for (dim, _), (start, n) in zip(split, pl):
+            view, buf = view.narrow(dim, start, n), buf.narrow(dim, 0, n)
+        view.copy_(buf)
+    return out
+
+
+def global_mean(x, spec, shard):
+    """The mean of the global tensor of which ``x`` is this rank's part,
+    on every rank (a 0-d float32 tensor): the part's float64 sum, summed
+    over the ranks that hold the other parts (all_reduce over the chain
+    shards, then the group shards, where the spec splits each), over the
+    global element count."""
+    total = x.double().sum()
+    count = x.numel()
+    for axis in spec:
+        if axis is None or not shard.split(axis):
+            continue
+        _, length, full = shard.spans[axis]
+        count = count // length * full
+        dist.all_reduce(total, group=(shard.mesh.chains_group
+                                      if axis == "chains"
+                                      else shard.mesh.groups_group))
+    return (total / max(count, 1)).float()
 
 
 def any_rank(flag: bool, device) -> bool:

@@ -49,7 +49,7 @@ import torch.distributed as dist
 
 from nestmc_torch.config import SamplerConfig
 from nestmc_torch.data import NestedData, NestedData3, RaggedData
-from nestmc_torch.parallel.collectives import Shard, activate
+from nestmc_torch.parallel.collectives import Shard, activate, gather
 from nestmc_torch.parallel.multihost import world_size
 
 
@@ -230,11 +230,21 @@ def map_specs(fn, spec, tree):
 
 
 def take(t, spec, spans: dict):
-    """This rank's part of the global tensor ``t``."""
+    """This rank's part of ``t``: the global tensor cut, or ``t`` itself
+    when it already is this rank's part (its extent along every split
+    axis the rank's span, as in a rank part a sharded run returned on the
+    same mesh); any other extent raises."""
     for dim, axis in enumerate(spec):
         span = spans.get(axis)
-        if span is not None and span[1] != span[2] and dim < t.ndim:
+        if span is None or span[1] == span[2] or dim >= t.ndim:
+            continue
+        if t.shape[dim] == span[2]:
             t = t.narrow(dim, span[0], span[1])
+        elif t.shape[dim] != span[1]:
+            raise ValueError(
+                f"a tensor of extent {t.shape[dim]} along {axis!r} is "
+                f"neither the global one ({span[2]}) nor this rank's "
+                f"part ({span[1]})")
     return t.contiguous()
 
 
@@ -297,3 +307,36 @@ def make_shard(model, data, cfg: SamplerConfig, mesh: Mesh) -> Shard:
                   for axis in spans if axis != "chains"})
     return Shard(mesh=mesh, spans=spans, parts=parts, data=data,
                  local=_local_data(data, cfg, mesh, spans))
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a sharded run's rank parts sit (Posterior.placement): the
+    rank's collectives.Shard and the run's state_shardings."""
+
+    shard: Shard
+    specs: object
+
+
+def gather_state(post):
+    """The global layout of ``post.final_state``, on every rank of a
+    sharded run (a collective: every rank calls it); the state itself for
+    an unsharded run. A sharded run's Posterior holds only the rank's part
+    of its final carry, as the reference's holds a sharded array."""
+    pl = getattr(post, "placement", None)
+    if pl is None:
+        return post.final_state
+    return map_specs(lambda t, sp: gather(t, sp, pl.shard), pl.specs,
+                     post.final_state)
+
+
+def gather_rates(post) -> tuple:
+    """(accept_rates, warmup_accept_rates) of ``post`` in the global
+    layout, on every rank of a sharded run (a collective, as
+    :func:`gather_state`); the Posterior's own dicts unsharded."""
+    pl = getattr(post, "placement", None)
+    if pl is None:
+        return post.accept_rates, getattr(post, "warmup_accept_rates", None)
+    return tuple({k: gather(v, pl.specs.accept_sum[k], pl.shard)
+                  for k, v in rates.items()}
+                 for rates in (post.accept_rates, post.warmup_accept_rates))

@@ -21,6 +21,15 @@ class Posterior:
     full_rhat: {block: classic split R-hat over every unit} and full_ess:
       {block: {"ess", "ess_lb"}} cross-chain ESS with its one-sided 95%
       lower bound, both from the streamed accumulators (RunConfig.full_rhat).
+    final_state (set by the engine): the carry at the end of the run.
+
+    Of a sharded run (one rank of it): draws and the R-hat and ESS maps
+    are the global layout, as unsharded; final_state, accept_rates and
+    warmup_accept_rates are this rank's parts, placed by ``placement``
+    (parallel.sharding.Placement; parallel.gather_state and gather_rates
+    give the global layout, a collective every rank calls), and
+    accept_mean holds each block's global mean acceptance, which the
+    summaries report. Both are None unsharded.
     """
 
     draws: dict
@@ -30,7 +39,16 @@ class Posterior:
     timings: dict = field(default_factory=dict)
     full_rhat: dict | None = None
     full_ess: dict | None = None
+    placement: object | None = None
+    accept_mean: dict | None = None
     _diag_cache: dict | None = None
+
+    def _mean_accept(self, name: str):
+        """The mean sampling acceptance of block ``name`` over every chain
+        and unit (a 0-d tensor)."""
+        if self.accept_mean is not None:
+            return self.accept_mean[name]
+        return self.accept_rates[name].mean()
 
     def diagnostics(self) -> dict:
         if self._diag_cache is None:
@@ -144,8 +162,8 @@ class Posterior:
         for name, stats in self.diagnostics().items():
             out[name] = {k: v.cpu().numpy() for k, v in stats.items()}
             if name in self.accept_rates:
-                out[name]["accept_rate"] = self.accept_rates[name].mean(
-                ).cpu().numpy()
+                out[name]["accept_rate"] = self._mean_accept(
+                    name).cpu().numpy()
         return out
 
     def summary_table(self) -> str:
@@ -156,7 +174,7 @@ class Posterior:
         ]
         for name, s in self.diagnostics().items():
             acc = (
-                f"{float(self.accept_rates[name].mean()):>7.2f}"
+                f"{float(self._mean_accept(name)):>7.2f}"
                 if name in self.accept_rates else f"{'-':>7}"
             )
             lines.append(

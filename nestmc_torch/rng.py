@@ -14,13 +14,21 @@ both generators' states (:meth:`SweepRNG.get_state`), so a resumed run
 draws the same noise an uninterrupted one would. Tests replace it with an
 object of the same methods that replays the reference's noise.
 
-A sharded run (nestmc_torch.parallel) keeps the unsharded run's draws:
-every rank seeds the same generators, and a rank that holds chains
-c0.. of C (:attr:`SweepRNG.chains`) draws every tensor at its global
-shape and keeps its slice. A draw whose tensor has a unit axis split over
-group shards says so with ``units=(axis, u0, U)``: that axis holds units
-u0.. of U. A draw without it (a population block's (C, p)) is the same on
-every group shard of a chain shard.
+A draw whose tensor has a unit axis (dim 1 of (C, U, ...): a block's
+proposal noise and accept uniforms, a per-unit conjugate draw) says so
+with ``units=(1, u0, U)``: the tensor holds units u0.. of U (U None: all
+of them). It is a counter-indexed fill (ops/cuda/philox_fill: the
+hand-written kernel on the card, its plain version on the CPU): one pair
+of Philox key words taken like a kernel launch's (:meth:`key_words`, so a
+captured step reads it from the key table), and element g of the
+unsharded tensor keyed by g. A sharded run (nestmc_torch.parallel) keeps
+the unsharded run's draws: every rank seeds the same generators, and a
+rank that holds chains c0.. of C (:attr:`SweepRNG.chains`) and units
+u0.. fills only its own (chain span x unit span) block. A draw without a
+unit axis (a population block's (C, p)) and every gamma draw come from
+the device generator, drawn at the global shape and sliced to the
+rank's chains; such a draw is the same on every group shard of a chain
+shard.
 """
 
 from __future__ import annotations
@@ -60,14 +68,36 @@ class SweepRNG:
             idx[axis] = slice(u0, u0 + shape[axis])
         return draw(tuple(full))[tuple(idx)].contiguous()
 
+    def _fill(self, mode, shape, units):
+        """The counter-indexed fill of this process's block of a draw
+        with a unit axis (see the module)."""
+        from nestmc_torch.ops.cuda.philox_fill import philox_fill
+
+        dim, u0, total = units
+        if dim != 1:
+            raise ValueError(f"a unit-axis draw has its units at dim 1, "
+                             f"not {dim}")
+        shape = tuple(shape)
+        c0 = 0 if self.chains is None else int(self.chains[0])
+        U = shape[1] if total is None else int(total)
+        return philox_fill(shape, self.key_words(self.device), c0, int(u0),
+                           U, mode, self.device)
+
     def normal(self, shape, units=None) -> torch.Tensor:
+        """Standard normals; ``units`` (1, u0, U) for a draw with a unit
+        axis (the fill), None for one without."""
+        if units is not None:
+            return self._fill("normal", shape, units)
         return self._sharded(lambda s: torch.randn(
-            s, generator=self.generator, device=self.device), shape, units)
+            s, generator=self.generator, device=self.device), shape, None)
 
     def log_uniform(self, shape, units=None) -> torch.Tensor:
-        """log u, u uniform on [tiny, 1) as the reference draws it."""
+        """log u, u uniform on (0, 1) as the reference draws it (24-bit
+        uniforms offset off zero in the fill; else on [tiny, 1))."""
+        if units is not None:
+            return self._fill("log_uniform", shape, units)
         u = self._sharded(lambda s: torch.rand(
-            s, generator=self.generator, device=self.device), shape, units)
+            s, generator=self.generator, device=self.device), shape, None)
         return torch.log(u.clamp_min(_TINY))
 
     def gamma(self, a, shape, units=None) -> torch.Tensor:
@@ -142,9 +172,11 @@ class SweepRNG:
             words = self._keys[self._slot]
             self._slot += 1
             return words
-        host = torch.tensor(self.philox_key(), dtype=torch.int64)
-        staged = words_i32(host).pin_memory()
-        return staged.to(device, non_blocking=True)
+        words = words_i32(torch.tensor(self.philox_key(),
+                                       dtype=torch.int64))
+        if torch.device(device).type != "cuda":
+            return words
+        return words.pin_memory().to(device, non_blocking=True)
 
     def get_state(self) -> dict:
         """{'device': the tensor generator's state, 'host': the key-word

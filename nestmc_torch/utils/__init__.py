@@ -1,1 +1,6 @@
-"""Utilities: the cost model of one sweep (profiling.py)."""
+"""Utilities: the logger (logging.py) and the cost model of one sweep
+(profiling.py)."""
+
+from nestmc_torch.utils.logging import get_logger
+
+__all__ = ["get_logger"]

@@ -88,7 +88,14 @@ def kernel_work(kernel: str, C: int, G: int, n: int, p: int,
     observations N: they read x (N, p), y (N,) and the (G+1) row pointer,
     and evaluate C x N obs-cells. noise: the step reads external noise
     (eps, log u) instead of drawing Philox noise; fold: it folds the
-    R-hat accumulators (2, G, p, C)."""
+    R-hat accumulators (2, G, p, C). For the noise fill (philox_fill)
+    C x G is the block's rows x their elements and ``n`` the float32
+    operations of an element's conversion (ops/cuda/philox_fill.FLOAT_OPS);
+    it writes 4 bytes an element and reads two key words. Its Philox
+    rounds are integer instructions, which the float32 rate does not
+    bound."""
+    if kernel == "philox_fill":
+        return 4 * C * G + 8, C * G * n
     if kernel.startswith("seg_"):
         val_ops = 2 * p + 9
         data = 4 * n * (p + 1) + 4 * (G + 1)

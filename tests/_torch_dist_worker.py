@@ -1,6 +1,7 @@
 """One rank of a 2-process gloo run of the port (spawned by the
-test_torch_sharding, test_torch_multihost and test_torch_determinism
-files through :func:`spawn`; the 'mesh22' mode runs four).
+test_torch_sharding, test_torch_multihost, test_torch_determinism and
+test_torch_shard_share files through :func:`spawn`; the 'mesh22' mode
+runs four).
 
 Each rank calls nestmc_torch.parallel.multihost.initialize(device="cpu")
 with the NESTMC_* env (a ``file://`` rendezvous in the test's tmp dir, so
@@ -97,6 +98,7 @@ def mode_sharding(inp, arrays, scalars):
     )
     from nestmc_torch.parallel import (
         data_shardings,
+        gather_state,
         make_mesh,
         shard_inputs,
         state_shardings,
@@ -170,7 +172,7 @@ def mode_sharding(inp, arrays, scalars):
                                   "beta_s": 3}))
     arrays["np_mu"] = _np(post.draws["mu"])
     arrays["np_beta_s"] = _np(post.draws["beta_s"])
-    scalars["np_final_beta_s"] = list(post.final_state.position[
+    scalars["np_final_beta_s"] = list(gather_state(post).position[
         "beta_s"].shape)
 
     # ragged data: a chain-sharded run
@@ -208,7 +210,8 @@ def mode_sharding(inp, arrays, scalars):
                                   "group_loglik": 30}))
     for k, v in post.draws.items():
         arrays[f"ragged_run_{k}"] = _np(v)
-    arrays["ragged_run_final_beta"] = _np(post.final_state.position["beta"])
+    arrays["ragged_run_final_beta"] = _np(
+        gather_state(post).position["beta"])
 
     # each rank's setup carry against the cut of the global one
     for split, cs, gs in (("groups", 1, 2), ("chains", 2, 1)):
@@ -624,10 +627,115 @@ def mode_mesh22(inp, arrays, scalars):
             rhat_pair(m, d, alg, 2, 2, f"rhat_mesh22_{name}", arrays)
 
 
+SHARE_C = 12       # the share mode's chains: no other extent of its runs
+SHARE_G = 14       # its groups
+
+
+def share_case():
+    """(model, data) of the share mode: hier_logistic at SHARE_G groups."""
+    from nestmc_torch.models import make_hier_logistic, synth_logistic
+
+    data, _ = synth_logistic(5, G=SHARE_G, n=6, p=3, device="cpu")
+    return make_hier_logistic(data), data
+
+
+def share_cfg(cs, gs, ckdir=None):
+    """The share mode's run: newton, 4 warmup sweeps and 9 draws in
+    segments of 3, the streamed R-hat, mu collected; with ``ckdir`` a
+    checkpoint after every segment."""
+    run = {"full_rhat": True, "segment_size": 3, "collect": {"mu": None}}
+    if ckdir is not None:
+        run.update(checkpoint_dir=ckdir, checkpoint_every=1)
+    return _kcfg("newton", SHARE_C, 4, 9, cs, gs, **run)
+
+
+def mode_share(inp, arrays, scalars):
+    """What a rank holds of a sharded run: (i) a chain-sharded run with a
+    checkpoint after every segment under :class:`_Audit` (the tensors
+    with both the global chain and group extents that the rank made, and
+    which of them inside the gather of a checkpoint to the primary), its
+    final_state's shapes and the carry gather_state gives back; (ii) the
+    final_state shapes of a group-sharded run; (iii) a sampling run from
+    the rank part that warmup_then_state returns, against the same run
+    from its gathered global carry."""
+    import dataclasses
+
+    import torch
+
+    from nestmc_torch import engine, sample
+    from nestmc_torch.engine import warmup_then_state
+    from nestmc_torch.parallel import gather_state
+    from nestmc_torch.parallel.collectives import gather
+    from nestmc_torch.parallel.sharding import (
+        make_mesh,
+        make_shard,
+        map_specs,
+        state_shardings,
+    )
+    from nestmc_torch.rng import SweepRNG
+
+    model, data = share_case()
+    audit = _Audit(SHARE_C, (SHARE_G,))
+    amodel = dataclasses.replace(model,
+                                 init_state=audit.outside(model.init_state))
+    inner = []
+    saved = {"g": engine.gather_to_primary, "rng": SweepRNG._sharded}
+
+    def tagged(*a, **kw):
+        n = len(audit.hits)
+        try:
+            return saved["g"](*a, **kw)
+        finally:
+            inner.extend(range(n, len(audit.hits)))
+
+    engine.gather_to_primary = tagged
+    SweepRNG._sharded = audit.outside(saved["rng"])
+    try:
+        with audit:
+            post = sample(amodel, data, share_cfg(2, 1, inp["dir"] + "/ck"))
+    finally:
+        engine.gather_to_primary = saved["g"]
+        SweepRNG._sharded = saved["rng"]
+    scalars["audit"] = {
+        "ops": audit.ops, "n_global": len(audit.hits),
+        "n_inside": len(inner),
+        "outside": [h for i, h in enumerate(audit.hits)
+                    if i not in set(inner)][:10]}
+    for k, v in post.final_state.position.items():
+        scalars[f"chains_final_shape_{k}"] = list(v.shape)
+    for k, v in post.accept_rates.items():
+        scalars[f"chains_accept_shape_{k}"] = list(v.shape)
+        scalars[f"chains_accept_mean_{k}"] = float(post.accept_mean[k])
+    for k, v in post.draws.items():
+        arrays[f"chains_draws_{k}"] = _np(v)
+    for path, t in _leaves(gather_state(post)):
+        arrays[f"chains_final{path}"] = _np(t)
+
+    post = sample(model, data, share_cfg(1, 2))
+    for k, v in post.final_state.position.items():
+        scalars[f"groups_final_shape_{k}"] = list(v.shape)
+    for path, t in _leaves(gather_state(post)):
+        arrays[f"groups_final{path}"] = _np(t)
+
+    # (iii) warmup_then_state's rank part into sample()
+    cfg = share_cfg(2, 1)
+    part = warmup_then_state(model, data, cfg)
+    mesh = make_mesh(cfg)
+    shard = make_shard(model, data, cfg, mesh)
+    whole = map_specs(lambda t, sp: gather(t, sp, shard),
+                      state_shardings(model, cfg, mesh), part)
+    for tag, init in (("part", part), ("whole", whole)):
+        post = sample(model, data, cfg, rng=SweepRNG(3, "cpu"),
+                      init_state=init, skip_warmup=True)
+        arrays[f"resume_{tag}_mu"] = _np(post.draws["mu"])
+    scalars["part_beta_shape"] = list(part.position["beta"].shape)
+
+
 MESH22_CASES = ("logistic_newton", "poisson3_mala", "glm_gaussian_mala")
 MESH22_RUNS = ("logistic_newton", "poisson3_newton", "ragged_bucket_newton")
 MODES = {"sharding": mode_sharding, "multihost": mode_multihost,
-         "determinism": mode_determinism, "mesh22": mode_mesh22}
+         "determinism": mode_determinism, "mesh22": mode_mesh22,
+         "share": mode_share}
 
 
 def main() -> int:

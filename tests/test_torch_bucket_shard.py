@@ -128,9 +128,11 @@ def test_skip_step_on_the_card_draws_one_key():
     rng = _KeyCounter()
     skip_step(rng, "cuda", (4, 0, 3), (0, 6))
     assert rng.keys == 1
-    # on the CPU: the plain version's noise at the global shape
+    # on the CPU: the plain version's noise, two unit-axis fills, each
+    # taking its key pair whatever its extent
     a, b = SweepRNG(2, "cpu"), SweepRNG(2, "cpu")
     skip_step(a, "cpu", (4, 0, 3), (0, 6))
-    b.normal((4, 6, 3))
-    b.log_uniform((4, 6))
-    assert torch.equal(a.get_state()["device"], b.get_state()["device"])
+    b.normal((4, 6, 3), units=(1, 0, 6))
+    b.log_uniform((4, 6), units=(1, 0, 6))
+    for k, st in b.get_state().items():
+        assert torch.equal(a.get_state()[k], st), k

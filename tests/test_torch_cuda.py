@@ -435,8 +435,9 @@ def test_poisson_step_kernels_philox_path(dev):
 @pytest.mark.parametrize("algorithm", ["rwmh", "mala", "newton"])
 def test_default_config_poisson_sweeps_launch_kernels(dev, algorithm):
     """A default-config nested Poisson sweep (invgamma) runs its fused
-    subject step and its obs-pass kernel on the card in both phases, and
-    no logistic kernel."""
+    subject step and its obs-pass kernel on the card in both phases, the
+    noise fill of its conjugate beta_g draw once a sweep, and no logistic
+    kernel."""
     data, _ = synth_poisson3(4, G=7, subjects_per_group=3, n=9, p=3,
                              device=dev)
     model = make_nested_poisson(data, tau_prior="invgamma")
@@ -455,7 +456,7 @@ def test_default_config_poisson_sweeps_launch_kernels(dev, algorithm):
         "newton": {"pois_newton_step_refresh": 1,
                    "pois_newton_step_frozen": 1,
                    "pois_logp_grad_hess": 3, "pois_logp_grad": 2},
-    }[algorithm]
+    }[algorithm] | {"philox_fill": 2}
     assert {k: v for k, v in LAUNCHES.items() if v} == want
     assert all(bool(torch.isfinite(v).all()) for v in state.position.values())
 
@@ -568,7 +569,8 @@ def test_bucketed_steps_match_plain(dev, algorithm):
 def test_ragged_sweeps_launch_their_kernels(dev):
     """One warmup and one sampling sweep of config 4's two routes: the
     bucket route runs B Newton launches and B Hessian or gradient passes a
-    sweep; the segment route's MALA runs only the segment kernel."""
+    sweep; the segment route's MALA and RW-MH run the segment kernel and
+    the noise fill of beta's unfused update (proposal and accept draws)."""
     data, _ = synth_logistic(4, G=90, n=32, p=3, ragged=True, min_obs=1,
                              device=dev)
     for impl, algorithm, tau in (("auto", "newton", "invgamma"),
@@ -591,7 +593,7 @@ def test_ragged_sweeps_launch_their_kernels(dev):
                     "logp_grad_hess": 2 * B, "logp_grad": B}
         else:
             want = {"seg_logp_grad" if algorithm == "mala"
-                    else "seg_loglik": 5}
+                    else "seg_loglik": 5, "philox_fill": 4}
         assert {k: n for k, n in LAUNCHES.items() if n} == want
         assert all(bool(torch.isfinite(t).all())
                    for t in state.position.values())
@@ -1461,3 +1463,33 @@ def test_graph_replay_of_nested_poisson_is_the_eager_loop(dev, algorithm):
         assert torch.equal(g.draws[k], e.draws[k]), k
     for a, b in zip(g_rng.get_state().values(), e_rng.get_state().values()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["words", "uniform", "log_uniform",
+                                  "normal"])
+def test_philox_fill_matches_plain(dev, mode):
+    """The unit-axis noise fill (csrc/philox_fill.cu) against its plain
+    version run on the card: words and uniforms bitwise, log uniforms and
+    normals within 8 ulps, an ulp counted at least 2^-23 (float32 logf,
+    sqrtf, cospif against float64 rounded once; cospif is good to about
+    4e-7 absolute near its zeros); a block of chains 5.. and units 40..69
+    bitwise that block of the whole fill; one launch counted a call."""
+    from nestmc_torch.ops.cuda.philox_fill import (
+        philox_fill,
+        philox_fill_plain,
+    )
+
+    key = torch.tensor([12345, -678], dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    out = philox_fill((33, 100, 3), key, 0, 0, 100, mode, dev)
+    part = philox_fill((28, 30, 3), key, 5, 40, 100, mode, dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES["philox_fill"] == 2
+    assert torch.equal(part, out[5:, 40:70])
+    ref = philox_fill_plain((33, 100, 3), key, 0, 0, 100, mode, device=dev)
+    if mode in ("words", "uniform"):
+        assert torch.equal(out, ref)
+    else:
+        ulp = (torch.nextafter(ref.abs(), torch.full_like(
+            ref, float("inf"))) - ref.abs()).clamp_min(2.0 ** -23)
+        assert bool(((out - ref).abs() <= 8 * ulp).all())

@@ -174,9 +174,14 @@ def test_thin_keeps_every_thin_th_sweep(algorithm):
 
 
 def test_log_rhat_flag_runs(es, caplog):
-    with caplog.at_level(logging.INFO, logger="nestmc_torch"):
-        _run(*es, chains=4, warmup=10, draws=20, segment_size=10, log=True,
-             log_rhat=True, collect={"mu": None})
+    logger = logging.getLogger("nestmc_torch")
+    logger.propagate = True  # get_logger's logger does not propagate
+    try:
+        with caplog.at_level(logging.INFO, logger="nestmc_torch"):
+            _run(*es, chains=4, warmup=10, draws=20, segment_size=10,
+                 log=True, log_rhat=True, collect={"mu": None})
+    finally:
+        logger.propagate = False
     msgs = [r.getMessage() for r in caplog.records]
     assert any("worst split-rhat so far" in m for m in msgs)
     assert sum("sample:" in m for m in msgs) == 2

@@ -63,3 +63,77 @@ def test_preset_runs_through_bench(name, groups, n_params):
     assert covered == n_params
     for v in post.draws.values():
         assert v.shape[1] == 80 and bool(torch.isfinite(v).all())
+
+
+SHARDED = ("judged", "ragged-10k", "ragged-10k-newton", "ragged-10k-mala",
+           "mala-100k", "mala-100k-newton")
+
+
+def _world(monkeypatch, n):
+    """N ranks for both packages: the reference's jax.devices() has N
+    entries, the port's parallel.multihost.world_size() is N."""
+    import nestmc_torch.presets as tpresets
+
+    one = jax.devices()[0]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [one] * n)
+    monkeypatch.setattr(tpresets, "world_size", lambda: n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_presets_shard_as_the_reference(name, n, monkeypatch):
+    """At N ranks each sharded preset's shards and chains are the
+    reference's at N devices, at the small scale (the scale < 1 chain
+    rule, 8 x max(N, 1), and gsh's rule on the reference's G)."""
+    _world(monkeypatch, n)
+    _, _, jcfg = jpresets.get_preset(name, scale=0.01)
+    _, _, cfg = get_preset(name, device="cpu", scale=0.01)
+    assert (cfg.sharding.chain_shards, cfg.sharding.group_shards) == (
+        jcfg.sharding.chain_shards, jcfg.sharding.group_shards)
+    assert cfg.run.chains == jcfg.run.chains
+    assert cfg.sharding.chain_shards * cfg.sharding.group_shards == n
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", SHARDED)
+def test_full_scale_chain_rule(name, n, monkeypatch):
+    """At scale 1 (built at G=8 here): the reference's formulas,
+    nestmc/presets.py: judged 1024 x N chains over N chain shards, the
+    ragged presets 1024 over N, mala-100k's 512 over N / gsh chain shards
+    and gsh = 2 group shards on an even N > 1 (G even)."""
+    _world(monkeypatch, n)
+    _, _, cfg = get_preset(name, device="cpu", groups=8)
+    if name == "judged":
+        want = (1024 * n, n, 1)
+    elif name.startswith("ragged"):
+        want = (1024, n, 1)
+    else:
+        gsh = 2 if n % 2 == 0 and n > 1 else 1
+        want = (512, n // gsh, gsh)
+    assert (cfg.run.chains, cfg.sharding.chain_shards,
+            cfg.sharding.group_shards) == want
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_one_rank_presets_are_unsharded(name, monkeypatch):
+    """At N = 1 (a single process) every preset is unsharded, with the
+    chain counts it had before the presets sharded, and its data do not
+    depend on N."""
+    from nestmc_torch.config import ShardingConfig
+
+    _world(monkeypatch, 1)
+    _, data, cfg = get_preset(name, device="cpu", groups=8)
+    assert cfg.sharding == ShardingConfig()
+    before = {"judged": 1024, "ragged-10k": 1024, "ragged-10k-newton": 1024,
+              "ragged-10k-mala": 1024, "mala-100k": 512,
+              "mala-100k-newton": 512}
+    if name in before:
+        assert cfg.run.chains == before[name]
+    _world(monkeypatch, 4)
+    _, data4, cfg4 = get_preset(name, device="cpu", groups=8)
+    a = data if isinstance(data, dict) else vars(data)
+    b = data4 if isinstance(data4, dict) else vars(data4)
+    for k, v in a.items():
+        if torch.is_tensor(v):
+            assert torch.equal(v, b[k]), k
+    assert cfg4.run.warmup == cfg.run.warmup
