@@ -88,9 +88,10 @@ Needs one CUDA card and this checkout (it builds the kernels from
    acceptance of its MH-updated block and no NaN. When the time budget
    requires, depth is cut (never width), and the R-hat line is then
    printed, not asserted: first config 3's variants, then the segment
-   MALA path (each runs its full schedule only if the script would still
-   end within 60% of its budget), then the judged run; mala-100k's
-   warmup and draws only if even minimal other runs would not fit (each
+   MALA path, then the judged run, and mala-100k's warmup and draws
+   first of all if even minimal other runs would not fit: each runs its
+   full schedule only if the script would still end within 60% of its
+   budget (TARGET_S, 720 s) with the others at their least (each
    cut path has a least schedule: mala-100k 300/256, config 3's variants
    300/256, the segment MALA path 100/256, judged 150/256). The script
    says so. Phases 7 to 10 run after the fixed paths (the five configs and
@@ -186,17 +187,30 @@ Needs one CUDA card and this checkout (it builds the kernels from
    40/40 (``python3 chip_smoke.py --phase10 4`` runs this phase alone on
    four ranks, one a card, NCCL, (ii) then 2 x 2): (i) the preset as the
    ranks build it, with no shard flag (the reference's chain_shards = N,
-   1024 N chains: asserted), each rank's Posterior.final_state bitwise
-   its chains' rows of the unsharded in-process run's carry, and every
-   collected draw and the carry gathered on request
-   (parallel.gather_state) bitwise the whole; (ii) one sampling sweep from
-   that carry with group_shards=2, every leaf within 1e-4 + 1e-4 |ref| of
-   the unsharded sweep's and mu, log tau and their log scales bitwise
-   equal on both ranks, then a group_shards=2 run whose acceptance is
-   within 0.05 of the unsharded run's (worst R-hat printed). The path's
-   Newton launches are asserted in both ranks' runs; each rank's ms a
-   sweep and groups_sum's calls and ms a sweep are printed (both ranks
-   time-share one card: not a scaling result); (c) config 4's ragged
+   1024 N chains: asserted), replayed from each rank's captured graphs
+   (``timings["sweep"] == "graph"`` asserted on every rank: the step
+   issues no collective) and stepped eagerly (sample's ``_eager``) from
+   the same seed, bitwise (draws, R-hat maps, the rank's final part, both
+   generators, launches, groups_sum calls), the graph's peak_mem_gb
+   within P10_GRAPH_MEM of the eager run's, each rank's ms a sweep of
+   both and the capture's seconds printed; each rank's
+   Posterior.final_state bitwise its chains' rows of the unsharded
+   in-process run's carry, and every collected draw and the carry
+   gathered on request (parallel.gather_state) bitwise the whole; (ii)
+   one sampling sweep from that carry with group_shards=2, every leaf
+   within 1e-4 + 1e-4 |ref| of the unsharded sweep's and mu, log tau and
+   their log scales bitwise equal on both ranks, then a group_shards=2
+   run whose acceptance is within 0.05 of the unsharded run's (worst
+   R-hat printed): over gloo (ranks sharing a card) it steps eagerly
+   (asserted: gloo's collectives go through the host), over NCCL it
+   replays its graphs, with the all_reduces inside them, and runs again
+   eagerly, the two bitwise or within P10_NCCL_TOL (the same checks and
+   prints as (i)); groups_sum's calls a sweep (counted per replay under
+   a graph) printed, and its ms a sweep timed in a short eager run
+   (P10T_SCHED, ``_eager=True``: collectives.TIMING synchronises around
+   each call, which a capture cannot hold). The path's Newton launches
+   are asserted in both ranks' runs (both ranks time-share one card over
+   gloo: not a scaling result); (c) config 4's ragged
    paths group-sharded: in this process, config 4's bucket-route obs
    passes and Philox-mode MALA and Newton steps (refresh, frozen) at
    C=1024 on each half of its 10,000 groups, through the half's bucket
@@ -210,7 +224,8 @@ Needs one CUDA card and this checkout (it builds the kernels from
    states equal the unsharded run's from the same seed, acceptance
    within 0.01 of it, each component of the chains' final mu and log tau
    with its mean over the chains within 5 combined standard errors of
-   the unsharded run's, mu and log tau bitwise equal on both ranks, and
+   the unsharded run's, mu and log tau bitwise equal on both ranks, the
+   loop asserted (eager over gloo, graph over NCCL), and
    one sampling sweep from the unsharded run's final carry with every
    position leaf within 1e-4 + 1e-4 |ref| of the unsharded sweep on at
    least 99% of the chains; the chains whose final mu and log tau are
@@ -218,7 +233,8 @@ Needs one CUDA card and this checkout (it builds the kernels from
    differ from the unsharded ones in their last bits, an accept decision
    may flip on that, and the chain then moves on its own); each rank's
    ms a sweep,
-   groups_sum calls and ms a sweep and gather seconds printed; then the
+   groups_sum calls a sweep (ms a sweep from a short eager run) and
+   gather seconds printed; then the
    cost model (utils/profiling.count_sweep) of config 2 and of config 4
    at 8 chains counted on the card and on the CPU, which must be equal,
    and the judged preset's ``--cost-analysis`` line; (d) memory: each
@@ -238,7 +254,14 @@ Needs one CUDA card and this checkout (it builds the kernels from
    draw against its plain version run on the card: words and uniforms
    bitwise, log uniforms and normals within FILL_ULPS ulps (an ulp at
    least 2^-23), a shard's block bitwise that block of the global fill,
-   timed beside its bound and torch.randn's time (a yardstick only).
+   timed beside its bound and torch.randn's time (a yardstick only); (f)
+   with one card a rank (NCCL, ``--phase10 4``) only: P10F_PRESETS
+   (judged and ragged-10k with the chains split over every rank,
+   mala-100k and -newton at two group shards x N/2, as N ranks build
+   them) each replayed from its graphs and stepped eagerly from one seed
+   on every rank, with (i)'s checks and prints, each loop run again at
+   twice the schedule for its steady ms a sweep (the extra time over the
+   extra sweeps) and its fixed cost, and a JSON line of the ranks' table.
 11. the compiled segments (nestmc_torch/segments.py), after phase 5 and
    before phase 6: (a) the streamed R-hat update's device-table form
    against its host-index form on the card, bitwise; (b) for judged,
@@ -285,6 +308,7 @@ import time
 
 T_START = time.perf_counter()
 BUDGET_S = 1200.0           # the whole script, build included
+TARGET_S = 0.6 * BUDGET_S   # where the cut paths aim to end on one card
 JUDGED = (1024, 1000, 50, 4)        # C, G, n, p
 M100K = (512, 100_000, 20, 3)
 RW = (64, 100, 50, 4)                # config 2 (both its presets)
@@ -477,6 +501,17 @@ P10_GATHER_RATIO = 1.05     # a rank's peak_mem_gb_gather / its peak_mem_gb
 # Newton) and ragged-10k-mala's segment route (MALA)
 P10C_ROUTES = (("bucket", "ragged-10k", "bucket"),
                ("segment", "ragged-10k-mala", "pallas-segment"))
+P10T_SCHED = (3, 3)         # the timed (synced) groups_sum runs, eager
+P10_GRAPH_MEM = 1.05        # a rank's graph / eager peak_mem_gb
+# NCCL's all_reduce of two group shards' partials, captured against eager:
+# bitwise expected (a sum of two does not depend on order); else within
+# 3.38e-06, the largest one-sweep difference measured of a group-sharded
+# sweep against the unsharded one
+P10_NCCL_TOL = 3.38e-06
+# 10f, one card a rank (NCCL) only: the presets as N ranks build them, each
+# stepped eagerly and replayed from its graphs: (preset, warmup, draws)
+P10F_PRESETS = (("judged", 100, 100), ("mala-100k", 50, 50),
+                ("mala-100k-newton", 50, 50), ("ragged-10k", 100, 100))
 
 
 # phase 11's paths: (label, preset, loglik_impl, warmup, draws)
@@ -692,13 +727,37 @@ def state_err(got, ref) -> float:
                for q, r in state_pairs(got, ref))
 
 
+def run_pair(got, ref) -> tuple:
+    """(what differs, worst |a - b|) between two runs' records, each
+    (Posterior, SweepRNG): the collected draws, the streamed R-hat maps,
+    every leaf of the rank's final carry and both generators' states."""
+    import torch
+
+    (a, ra), (b, rb) = got, ref
+    pairs = [(f"draws.{k}", a.draws[k], v) for k, v in b.draws.items()]
+    pairs += [(f"rhat.{k}", a.full_rhat[k], v)
+              for k, v in (b.full_rhat or {}).items()]
+    pairs += [(f"final.{i}", q, r) for i, (q, r) in enumerate(
+        state_pairs(a.final_state, b.final_state))]
+    pairs += [(f"rng.{k}", ra.get_state()[k], v)
+              for k, v in rb.get_state().items()]
+    bad = [name for name, q, r in pairs if not torch.equal(q, r)]
+    worst = max([float((q.float() - r.float()).abs().max())
+                 for name, q, r in pairs
+                 if name in bad and not name.startswith("rng.")] or [0.0])
+    return bad, worst
+
+
 def phase10_rank() -> int:
     """One rank of phase 10b: ``python3 chip_smoke.py --phase10-rank``
     under the NESTMC_* env the phase sets (multihost.initialize picks gloo
     when ranks share a card, NCCL when each has its own). The judged
     preset at full width on P10_SCHED: (i) the chains split over every
-    rank, (ii) one sweep from (i)'s final carry with the groups split in
-    two (and the chains over the rest), then a run so split. Writes
+    rank, replayed from its graphs and stepped eagerly; (ii) one sweep
+    from (i)'s final carry with the groups split in two (and the chains
+    over the rest), then a run so split (graph on NCCL, eager on gloo;
+    on NCCL also eagerly), and a short eagerly timed one; then 10c's
+    ragged runs, 10d's memory runs and, on NCCL, 10f's presets. Writes
     rank<r>.json (scalars) and rank<r>.npz (what the phase compares) to
     NESTMC_PHASE10_DIR."""
     import os
@@ -728,6 +787,7 @@ def phase10_rank() -> int:
     model, data, cfg = get_preset("judged", device=dev)
     base = override_run(cfg, warmup=P10_SCHED[0], draws=P10_SCHED[1])
     world = multihost.world_size()
+    nccl = multihost.backend() == "nccl"
     res = {"rank": rank, "backend": multihost.backend(), "device": str(dev),
            "world_size": world, "ready_s": ready_s}
     arrays = {}
@@ -735,6 +795,12 @@ def phase10_rank() -> int:
     # kept: made here, it is not a run's memory
     torch.ones(64, 64, device=dev) @ torch.ones(64, 64, device=dev)
     torch.cuda.synchronize(dev)
+    # the default group's communicator (NCCL makes it at the group's first
+    # collective: a sharded graph run's first lockstep check) made here,
+    # so that (i)'s first run is not charged for it
+    t0 = time.perf_counter()
+    torch.distributed.barrier()
+    res["comm_s"] = time.perf_counter() - t0
 
     def peaks(post):
         return [post.timings["peak_mem_gb"],
@@ -749,26 +815,51 @@ def phase10_rank() -> int:
                     for kk, vv in v.items():
                         arrays[f"{prefix}.{part}.{k}.{kk}"] = vv.cpu().numpy()
 
-    def run(tag, sharding):
+    def run(tag, m, d, c, sched, eager=False):
+        """sample() on schedule ``sched``, from ``c``'s seed: its record
+        (ms a sweep, the loop, capture s, peaks, launches, groups_sum calls
+        a sweep, counted per replay under a graph); returns (Posterior,
+        its SweepRNG)."""
+        c = override_run(c, warmup=sched[0], draws=sched[1])
+        rng = SweepRNG(c.run.seed, dev)
         reset_launch_counts()
-        post = sample(model, data, dataclasses.replace(base,
-                                                       sharding=sharding))
-        res[f"{tag}_launches"] = launch_counts()
+        collectives.STATS.update(groups_sum_calls=0, groups_sum_s=0.0)
+        post = sample(m, d, c, rng=rng, _eager=eager)
+        sweeps = sum(sched)
         t = post.timings
-        res[f"{tag}_ms_sweep"] = 1e3 * (t["warmup_s"] + t["sample_s"]) / sum(
-            P10_SCHED)
+        res[f"{tag}_launches"] = launch_counts()
+        res[f"{tag}_sweep"] = t["sweep"]
+        res[f"{tag}_ms_sweep"] = 1e3 * (t["warmup_s"] + t["sample_s"]) / sweeps
+        res[f"{tag}_capture_s"] = t["capture_s"]
         res[f"{tag}_setup_s"] = t["setup_s"]
-        res[f"{tag}_accept"] = {k: float(v)
-                                for k, v in post.accept_mean.items()}
         res[f"{tag}_peak"] = peaks(post)
-        return post
+        res[f"{tag}_groups_sum_calls_sweep"] = (
+            collectives.STATS["groups_sum_calls"] / sweeps)
+        res[f"{tag}_groups_sum_ms_sweep"] = (
+            1e3 * collectives.STATS["groups_sum_s"] / sweeps)
+        if post.accept_mean is not None:
+            res[f"{tag}_accept"] = {k: float(v)
+                                    for k, v in post.accept_mean.items()}
+        return post, rng
+
+    def pair(tag, m, d, c, sched):
+        """The run replayed from its graphs (``tag``) and stepped eagerly
+        (``tag``_eager) from one seed, compared: what differs and the
+        worst difference. Returns the graph run's record."""
+        got = run(tag, m, d, c, sched)
+        ref = run(f"{tag}_eager", m, d, c, sched, eager=True)
+        res[f"{tag}_vs_eager"] = run_pair(got, ref)
+        del ref
+        return got
 
     # (i) the preset as a launch of ``world`` ranks builds it: no shard
-    # flags, the reference's chain_shards = N and 1024 N chains
+    # flags, the reference's chain_shards = N and 1024 N chains; the
+    # chains split, so the step issues no collective: replayed from its
+    # graphs on any backend, and stepped eagerly to compare
     res["i_sharding"] = [cfg.sharding.chain_shards,
                          cfg.sharding.group_shards]
     res["i_chains"] = cfg.run.chains
-    post = run("i", cfg.sharding)
+    post, _ = pair("i", model, data, base, P10_SCHED)
     for k, v in post.draws.items():
         arrays[f"i.draws.{k}"] = v.cpu().numpy()
     for k, v in post.full_rhat.items():
@@ -800,14 +891,13 @@ def phase10_rank() -> int:
                        specs, st)
     leaves("ii.sweep", st)
 
+    # then a run so split: replayed from its graphs on NCCL (and stepped
+    # eagerly to compare), eager on gloo; its groups_sum timed in a short
+    # eager run (TIMING synchronises around each call)
+    post, _ = (pair if nccl else run)("ii", model, data, cfg_g, P10_SCHED)
     collectives.TIMING = True
-    collectives.STATS.update(groups_sum_calls=0, groups_sum_s=0.0)
-    post = run("ii", split)
-    sweeps = sum(P10_SCHED)
-    res["ii_groups_sum_calls_sweep"] = (
-        collectives.STATS["groups_sum_calls"] / sweeps)
-    res["ii_groups_sum_ms_sweep"] = (
-        1e3 * collectives.STATS["groups_sum_s"] / sweeps)
+    run("ii_timed", model, data, cfg_g, P10T_SCHED, eager=True)
+    collectives.TIMING = False
     res["ii_worst_rhat"] = post.worst_rhat()
     res["ii_finite"] = all(bool(torch.isfinite(v).all())
                            for v in post.draws.values())
@@ -822,35 +912,19 @@ def phase10_rank() -> int:
 
     # 10c: config 4 at full width on each ragged route, P10C_SCHED from
     # the same seed unsharded (in this process) and with the groups split
-    # in two, compared here leaf by leaf
+    # in two (graph on NCCL, eager on gloo), compared here leaf by leaf;
+    # their groups_sum timed in a short eager run
     for route, preset, impl in P10C_ROUTES:
         rm, rd, rcfg = get_preset(preset, device=dev, loglik_impl=impl)
-        rbase = dataclasses.replace(
-            override_run(rcfg, warmup=P10C_SCHED[0], draws=P10C_SCHED[1]),
-            sharding=ShardingConfig())
-        urng = SweepRNG(rbase.run.seed, dev)
-        upost = sample(rm, rd, rbase, rng=urng)
-        rsplit = dataclasses.replace(rbase, sharding=split)
-        rrng = SweepRNG(rbase.run.seed, dev)
-        collectives.STATS.update(groups_sum_calls=0, groups_sum_s=0.0)
-        reset_launch_counts()
-        post = sample(rm, rd, rsplit, rng=rrng)
+        rbase = dataclasses.replace(rcfg, sharding=ShardingConfig())
         tag = f"c_{route}"
-        res[f"{tag}_launches"] = launch_counts()
-        t = post.timings
-        sweeps = sum(P10C_SCHED)
-        res[f"{tag}_ms_sweep"] = (1e3 * (t["warmup_s"] + t["sample_s"])
-                                  / sweeps)
-        t = upost.timings
-        res[f"{tag}_unsharded_ms_sweep"] = (
-            1e3 * (t["warmup_s"] + t["sample_s"]) / sweeps)
-        res[f"{tag}_peak"] = peaks(post)
-        res[f"{tag}_unsharded_peak"] = peaks(upost)
+        upost, urng = run(f"{tag}_unsharded", rm, rd, rbase, P10C_SCHED)
+        rsplit = dataclasses.replace(rbase, sharding=split)
+        post, rrng = run(tag, rm, rd, rsplit, P10C_SCHED)
+        collectives.TIMING = True
+        run(f"{tag}_timed", rm, rd, rsplit, P10T_SCHED, eager=True)
+        collectives.TIMING = False
         res[f"{tag}_gather_s"] = post.timings["gather_s"]
-        res[f"{tag}_groups_sum_calls_sweep"] = (
-            collectives.STATS["groups_sum_calls"] / sweeps)
-        res[f"{tag}_groups_sum_ms_sweep"] = (
-            1e3 * collectives.STATS["groups_sum_s"] / sweeps)
         res[f"{tag}_accept_diff"] = max(
             abs(float(post.accept_mean[k]) - float(v.mean()))
             for k, v in upost.accept_rates.items())
@@ -932,37 +1006,94 @@ def phase10_rank() -> int:
     # reference's gsh rule gives), and unsharded
     res["d_sharding"] = [mcfg.sharding.chain_shards,
                          mcfg.sharding.group_shards]
-    mbase = dataclasses.replace(
-        override_run(mcfg, warmup=P10D_SCHED[0], draws=P10D_SCHED[1]),
-        sharding=ShardingConfig())
-    sweeps = sum(P10D_SCHED)
+    mbase = dataclasses.replace(mcfg, sharding=ShardingConfig())
     if rank == 0:
-        upost = sample(mm, md, mbase)
-        res["d_unsharded_peak"] = peaks(upost)
-        t = upost.timings
-        res["d_unsharded_ms_sweep"] = (1e3 * (t["warmup_s"] + t["sample_s"])
-                                       / sweeps)
+        upost, _ = run("d_unsharded", mm, md, mbase, P10D_SCHED)
         del upost
         torch.cuda.empty_cache()
     torch.distributed.barrier()
-    reset_launch_counts()
-    post = sample(mm, md, dataclasses.replace(mbase, sharding=split))
-    res["d_launches"] = launch_counts()
-    res["d_peak"] = peaks(post)
-    t = post.timings
-    res["d_ms_sweep"] = 1e3 * (t["warmup_s"] + t["sample_s"]) / sweeps
-    res["d_setup_s"] = t["setup_s"]
+    post, _ = run("d", mm, md, dataclasses.replace(mbase, sharding=split),
+                  P10D_SCHED)
     res["d_finite"] = all(bool(torch.isfinite(v).all())
                           for v in post.draws.values())
     del post, mm, md
     torch.cuda.empty_cache()
     res["d_s"] = time.perf_counter() - t_d
+
+    # 10f, one card a rank (NCCL): the presets as N ranks build them,
+    # replayed from their graphs and stepped eagerly
+    if nccl:
+        t_f = time.perf_counter()
+        for preset, w, d in P10F_PRESETS:
+            fm, fd, fcfg = get_preset(preset, device=dev)
+            tag = f"f_{preset}"
+            res[f"{tag}_sharding"] = [fcfg.sharding.chain_shards,
+                                      fcfg.sharding.group_shards]
+            res[f"{tag}_chains"] = fcfg.run.chains
+            pair(tag, fm, fd, fcfg, (w, d))
+            # each loop again at twice the schedule: the extra time over
+            # the extra sweeps is the steady ms a sweep, the rest the
+            # run's fixed cost (a communicator's first use, a graph's first
+            # replays)
+            for loop in (tag, f"{tag}_eager"):
+                run(f"{loop}_x2", fm, fd, fcfg, (2 * w, 2 * d),
+                    eager=loop != tag)
+                t1 = res[f"{loop}_ms_sweep"] * (w + d)
+                t2 = res[f"{loop}_x2_ms_sweep"] * 2 * (w + d)
+                res[f"{loop}_steady_ms"] = (t2 - t1) / (w + d)
+                res[f"{loop}_fixed_s"] = (2 * t1 - t2) / 1e3
+            del fm, fd
+            torch.cuda.empty_cache()
+        res["f_s"] = time.perf_counter() - t_f
     np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
     return 0
 
+
+def graph_checks(res: dict, tag: str, what: str, want: str, smi: str,
+                 bitwise: bool) -> None:
+    """A rank's run ``tag`` replayed from its graphs against the same run
+    stepped eagerly (``tag``_eager), as phase10_rank's pair records them:
+    the loops recorded, the launches and groups_sum calls a sweep equal
+    (a replay counts what its capture counted), the graph's peak memory
+    within P10_GRAPH_MEM of the eager run's, and every draw, R-hat map,
+    leaf of the final part and generator bitwise (``bitwise``), or, for a
+    group-sharded run over NCCL, within P10_NCCL_TOL where they differ.
+    Prints the rank's ms a sweep of both, the capture seconds, the calls
+    and the peaks."""
+    e = f"{tag}_eager"
+    bad, worst = res[f"{tag}_vs_eager"]
+    ratio = res[f"{tag}_peak"][0] / max(res[f"{e}_peak"][0], 1e-12)
+    same = res[f"{tag}_launches"] == res[f"{e}_launches"]
+    say(f"{what} rank {res['rank']}: '{res[f'{tag}_sweep']}' "
+        f"{res[f'{tag}_ms_sweep']:.3f} ms a sweep (capture "
+        f"{res[f'{tag}_capture_s']:.3f} s apart), '{res[f'{e}_sweep']}' "
+        f"{res[f'{e}_ms_sweep']:.3f} ms; groups_sum calls a sweep "
+        f"{res[f'{tag}_groups_sum_calls_sweep']:.2f} (counted per replay) "
+        f"and {res[f'{e}_groups_sum_calls_sweep']:.2f}; launches "
+        f"{'equal' if same else 'DIFFER'}; peak_mem_gb "
+        f"{res[f'{tag}_peak'][0]:.4f} and {res[f'{e}_peak'][0]:.4f} ({ratio:.3f}x, <= {P10_GRAPH_MEM}); "
+        f"graph against eager: "
+        + ("bitwise" if not bad else f"{len(bad)} arrays differ, worst "
+           f"|a-b| {worst:.3e} (<= {P10_NCCL_TOL}): {bad[:6]}")
+        + f" on '{smi}'")
+    if (res[f"{tag}_sweep"], res[f"{e}_sweep"]) != (want, "eager"):
+        fail(f"{what} rank {res['rank']}: loops {res[f'{tag}_sweep']!r}, "
+             f"{res[f'{e}_sweep']!r}, not {want!r}, 'eager'")
+    if not same:
+        fail(f"{what} rank {res['rank']}: launches {res[f'{tag}_launches']}"
+             f" != {res[f'{e}_launches']}")
+    if (res[f"{tag}_groups_sum_calls_sweep"]
+            != res[f"{e}_groups_sum_calls_sweep"]):
+        fail(f"{what} rank {res['rank']}: groups_sum calls differ")
+    if not ratio <= P10_GRAPH_MEM:
+        fail(f"{what} rank {res['rank']}: graph peak {ratio:.3f}x eager")
+    if bad and (bitwise or any(b.startswith("rng.") for b in bad)
+                or not worst <= P10_NCCL_TOL):
+        fail(f"{what} rank {res['rank']}: graph and eager differ: {bad}, "
+             f"worst {worst}")
 
 
 def phase10_fill(dev, smi: str) -> dict:
@@ -1243,17 +1374,19 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
             rk.append((res, {k: z[k] for k in z.files}))
     shutil.rmtree(d10, ignore_errors=True)
     t10b_ranks = time.time() - t_spawn
+    graph_ii = "eager" if shared else "graph"
     for res, _ in rk:
         say(f"10b rank {res['rank']} of {res['world_size']}: backend "
             f"{res['backend']} on {res['device']}; ready "
-            f"{res['ready_s']:.1f} s after the spawn, first sweep after "
-            f"{res['ready_s'] + res['i_setup_s']:.1f} s; (i) "
-            f"{res['i_ms_sweep']:.2f} ms a sweep, (ii) "
-            f"{res['ii_ms_sweep']:.2f} ms a sweep (groups_sum timed: "
-            f"{res['ii_groups_sum_calls_sweep']:.1f} calls, "
-            f"{res['ii_groups_sum_ms_sweep']:.3f} ms a sweep) on '{smi}'"
+            f"{res['ready_s']:.1f} s after the spawn (the default "
+            f"group's first collective {res['comm_s']:.3f} s), first sweep "
+            f"after {res['ready_s'] + res['comm_s'] + res['i_setup_s']:.1f}"
+            f" s on '{smi}'"
             + ("; the ranks time-share one card: not a scaling result"
                if shared else ""))
+        if res["backend"] != backend or res["world_size"] != ranks:
+            fail(f"10b: rank {res['rank']} ran {res['backend']} of "
+                 f"{res['world_size']}, expected {backend} of {ranks}")
         for tag in ("i", "ii"):
             la = res[f"{tag}_launches"]
             for k in ("newton_step_refresh", "newton_step_frozen",
@@ -1261,9 +1394,31 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
                 if not la.get(k):
                     fail(f"10b ({tag}) rank {res['rank']}: {k} launched "
                          f"no time on the path ({la})")
-        if res["backend"] != backend or res["world_size"] != ranks:
-            fail(f"10b: rank {res['rank']} ran {res['backend']} of "
-                 f"{res['world_size']}, expected {backend} of {ranks}")
+        # (i) the chains split: replayed from graphs on every backend
+        graph_checks(res, "i", f"10b(i) judged chains split, "
+                     f"{P10_SCHED[0]}/{P10_SCHED[1]}", "graph", smi,
+                     bitwise=True)
+        # (ii) the groups split: graphs on NCCL, eager over gloo
+        if res["ii_sweep"] != graph_ii:
+            fail(f"10b(ii) rank {res['rank']}: the group-sharded run over "
+                 f"{res['backend']} recorded {res['ii_sweep']!r}, not "
+                 f"{graph_ii!r}")
+        if not shared:
+            graph_checks(res, "ii", f"10b(ii) judged groups split, "
+                         f"{P10_SCHED[0]}/{P10_SCHED[1]}", "graph", smi,
+                         bitwise=False)
+        else:
+            say(f"10b(ii) rank {res['rank']}: groups split over gloo: "
+                f"'{res['ii_sweep']}' (its all_reduces go through the "
+                f"host), {res['ii_ms_sweep']:.2f} ms a sweep, groups_sum "
+                f"{res['ii_groups_sum_calls_sweep']:.1f} calls a sweep")
+        say(f"10b(ii) rank {res['rank']}: groups_sum timed in an eager run "
+            f"({P10T_SCHED[0]}/{P10T_SCHED[1]}, synced around each call): "
+            f"{res['ii_timed_groups_sum_calls_sweep']:.1f} calls, "
+            f"{res['ii_timed_groups_sum_ms_sweep']:.3f} ms a sweep of "
+            f"{res['ii_timed_ms_sweep']:.2f}")
+        if res["ii_timed_sweep"] != "eager":
+            fail("10b(ii): the timed run did not step eagerly")
 
     # the unsharded run of the same schedule and seed, in this process
     # (1024 a rank: the chains of the ranks' judged preset)
@@ -1378,11 +1533,67 @@ def phase10(dev, smi: str, ranks: int = 2) -> dict:
     t10c = time.perf_counter()
     launches10 = phase10c(dev, smi, rk, ranks, shared)
     phase10d(smi, rk, judged_peak)
+    if not shared:
+        phase10f(smi, rk)
     fill = phase10_fill(dev, smi)
     say(f"phase 10 (sharding) took {time.perf_counter() - t10:.1f} s: 10a "
         f"{t10a:.1f}, the ranks (10b and 10c) {t10b_ranks:.1f} from spawn "
         f"to exit, 10c in this process {time.perf_counter() - t10c:.1f}")
     return launches10, fill
+
+
+def phase10f(smi: str, rk: list) -> None:
+    """Phase 10f, one card a rank (NCCL): the presets of P10F_PRESETS as
+    the N ranks build them (judged and ragged-10k: the chains split over
+    every rank; mala-100k and -newton: two group shards x N/2), each rank
+    replaying its captured steps and stepping eagerly from one seed
+    (graph_checks: bitwise with the chains split, within P10_NCCL_TOL
+    with the groups split), with each rank's ms a sweep of both; a JSON
+    line of the table."""
+    n = len(rk)
+    table = []
+    for preset, w, d in P10F_PRESETS:
+        tag = f"f_{preset}"
+        want = [n // 2, 2] if preset.startswith("mala-100k") else [n, 1]
+        for res, _ in rk:
+            if res[f"{tag}_sharding"] != want:
+                fail(f"10f {preset} at {n} ranks sharded "
+                     f"{res[f'{tag}_sharding']}, not {want}")
+            graph_checks(res, tag, f"10f {preset} ({w}/{d}, "
+                         f"{res[f'{tag}_chains']} chains, shards {want})",
+                         "graph", smi, bitwise=want[1] == 1)
+            e = f"{tag}_eager"
+            same = res[f"{tag}_x2_launches"] == res[f"{e}_x2_launches"]
+            say(f"10f {preset} rank {res['rank']}: steady ms a sweep (the "
+                f"runs at {w}/{d} and {2 * w}/{2 * d}) graph "
+                f"{res[f'{tag}_steady_ms']:.3f}, eager "
+                f"{res[f'{e}_steady_ms']:.3f}; fixed cost of a run (the "
+                f"capture apart) graph {res[f'{tag}_fixed_s']:.3f} s, eager "
+                f"{res[f'{e}_fixed_s']:.3f} s; the graph run at "
+                f"{2 * w}/{2 * d}: '{res[f'{tag}_x2_sweep']}', launches "
+                f"{'equal' if same else 'DIFFER'}")
+            if res[f"{tag}_x2_sweep"] != "graph" or not same:
+                fail(f"10f {preset} rank {res['rank']}: the runs at twice "
+                     "the schedule differ in loop or launches")
+            table.append({
+                "preset": preset, "rank": res["rank"], "shards": want,
+                "schedule": [w, d], "chains": res[f"{tag}_chains"],
+                "graph_ms": res[f"{tag}_ms_sweep"],
+                "eager_ms": res[f"{e}_ms_sweep"],
+                "graph_steady_ms": res[f"{tag}_steady_ms"],
+                "eager_steady_ms": res[f"{e}_steady_ms"],
+                "graph_fixed_s": res[f"{tag}_fixed_s"],
+                "eager_fixed_s": res[f"{e}_fixed_s"],
+                "capture_s": res[f"{tag}_capture_s"],
+                "groups_sum_calls_sweep": res[
+                    f"{tag}_groups_sum_calls_sweep"],
+                "peak_graph_gb": res[f"{tag}_peak"][0],
+                "peak_eager_gb": res[f"{e}_peak"][0],
+                "bitwise": not res[f"{tag}_vs_eager"][0],
+                "worst_diff": res[f"{tag}_vs_eager"][1]})
+    say("10f table: " + json.dumps({"card": smi, "ranks": table}))
+    say(f"10f took {max(res['f_s'] for res, _ in rk):.1f} s on the "
+        "slowest rank")
 
 
 def phase10d(smi: str, rk: list, judged_peak: list) -> None:
@@ -1575,12 +1786,15 @@ def phase10c(dev, smi: str, rk: list, ranks: int, shared: bool) -> dict:
                 f"groups {spans['groups']}, obs rows {spans['obs']}"
                 + (f", buckets cap/groups/units {res[f'{tag}_buckets']}"
                    if route == "bucket" else "")
-                + f"; {W}/{D} at {C10C} chains): {res[f'{tag}_ms_sweep']:.2f}"
-                f" ms a sweep (unsharded in the same process "
-                f"{res[f'{tag}_unsharded_ms_sweep']:.2f}), groups_sum "
-                f"{res[f'{tag}_groups_sum_calls_sweep']:.1f} calls and "
-                f"{res[f'{tag}_groups_sum_ms_sweep']:.3f} ms a sweep "
-                f"(timed), gather {res[f'{tag}_gather_s']:.3f} s; launches "
+                + f"; {W}/{D} at {C10C} chains): '{res[f'{tag}_sweep']}' "
+                f"{res[f'{tag}_ms_sweep']:.2f} ms a sweep (unsharded in the "
+                f"same process {res[f'{tag}_unsharded_ms_sweep']:.2f}), "
+                f"groups_sum {res[f'{tag}_groups_sum_calls_sweep']:.1f} "
+                f"calls a sweep (timed in an eager {P10T_SCHED[0]}/"
+                f"{P10T_SCHED[1]} run: "
+                f"{res[f'{tag}_timed_groups_sum_calls_sweep']:.1f} calls, "
+                f"{res[f'{tag}_timed_groups_sum_ms_sweep']:.3f} ms a sweep)"
+                f", gather {res[f'{tag}_gather_s']:.3f} s; launches "
                 f"{ {k: n for k, n in la.items() if n} }; against the "
                 f"unsharded run from the same seed: the chains' final mu "
                 f"and log_tau means within {res[f'{tag}_mean_z']:.2f} "
@@ -1595,6 +1809,11 @@ def phase10c(dev, smi: str, rk: list, ranks: int, shared: bool) -> dict:
                 f" of {C10C} chains with every position leaf within 1e-4 "
                 f"(>= {C10C - C10C // 100}); on '{smi}'"
                 + ("; the ranks time-share one card" if shared else ""))
+            want_loop = "eager" if shared else "graph"
+            if res[f"{tag}_sweep"] != want_loop:
+                fail(f"10c {route} rank {res['rank']}: the group-sharded "
+                     f"run recorded {res[f'{tag}_sweep']!r}, not "
+                     f"{want_loop!r} over {res['backend']}")
             if not res[f"{tag}_mean_z"] <= 5.0:
                 fail(f"10c {route}: the group-sharded run's chain means are "
                      f"{res[f'{tag}_mean_z']} standard errors off the "
@@ -3876,7 +4095,7 @@ def main() -> int:
                     for k, v in est.items()))
 
     need_m = need_s(est["mala-100k"], full)
-    spare = (left_s() - 60.0 - need_m
+    spare = (left_s() - (BUDGET_S - TARGET_S) - 15.0 - need_m
              - need_s(est["judged"], j_min)
              - sum(need_s(est[v], p_min) for v in variants)
              - need_seg(s_min))
@@ -3899,7 +4118,7 @@ def main() -> int:
     # within 60% of its budget with the variants at their least and the
     # full judged run (its draws shrink then, to s_min at the least)
     need_v_min = sum(need_s(est[v], p_min) for v in variants)
-    room = (left_s() - 0.4 * BUDGET_S - need_s(est["judged"], full)
+    room = (left_s() - (BUDGET_S - TARGET_S) - need_s(est["judged"], full)
             - need_v_min)
     sm_sched = s_full
     if need_seg(s_full) > room:
@@ -3931,7 +4150,7 @@ def main() -> int:
     # still end within 60% of its budget after them and the full judged
     # run; otherwise their draws shrink first (to p_min at the least)
     need_v = sum(need_s(est[v], p_full) for v in variants)
-    room = left_s() - 0.4 * BUDGET_S - need_s(est["judged"], full)
+    room = left_s() - (BUDGET_S - TARGET_S) - need_s(est["judged"], full)
     v_sched = p_full
     if need_v > room:
         scale = max(room, 0.0) / need_v
@@ -3956,7 +4175,7 @@ def main() -> int:
              warmup=v_sched[0], draws=v_sched[1], gate=v_sched == p_full)
 
     need_j = need_s(est["judged"], full)
-    avail = left_s() - 60.0
+    avail = left_s() - (BUDGET_S - TARGET_S) - 5.0
     j_sched = full
     if need_j > avail:
         scale = avail / need_j

@@ -6,13 +6,18 @@ two compiled hot programs, the port has two steps (segments.py): a warmup
 sweep and a sampling draw, each reading and writing a carry held in fixed
 buffers, with what changes between sweeps (the kernels' Philox key words,
 the Robbins-Monro gain, the R-hat fold's scalars) read from device tables
-filled before each segment. The loop is chosen before the run, by the
-config alone, and ``timings["sweep"]`` records it: an unsharded run on the
-card captures each step once as a CUDA graph and replays it (``"graph"``:
-between the draws of a segment the host only launches); a sharded run
-steps eagerly (``"eager"``: its collectives cannot be captured), as does a
-run on the CPU. A capture that fails raises: there is no fallback. The
-two phases stay separate and the metric freezes at warmup end
+filled before each segment. The loop is chosen before the run, from
+the device, the mesh and the backend alone (segments.capturable), and
+``timings["sweep"]`` records it: on the card each step is captured once
+as a CUDA graph and replayed (``"graph"``: between the draws of a segment
+the host only launches) when the run is unsharded, when it is sharded but
+its step issues no collective (chains split, one group shard), and when
+the backend is NCCL (one card a rank), whose all_reduces over groups the
+graphs hold, as the reference's compiled segments hold XLA's psums; a
+step with collectives over gloo (ranks sharing a card) and every run on
+the CPU step eagerly (``"eager"``). A capture that fails raises on its
+rank, and every other rank of the run raises too: there is no
+fallback. The two phases stay separate and the metric freezes at warmup end
 (KernelConfig.newton_freeze). Each retained draw takes RunConfig.thin
 sweeps. Retained draws (RunConfig.collect: blocks, and the model's
 derived quantities computed from the position) go into buffers of shape
@@ -77,6 +82,7 @@ Not ported: the reference's remote-backend warm-up and compile retries.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import torch
@@ -104,8 +110,9 @@ from nestmc_torch.parallel.collectives import (
     gather,
     gather_to_primary,
     global_mean,
+    lockstep,
 )
-from nestmc_torch.parallel.multihost import is_primary
+from nestmc_torch.parallel.multihost import backend, is_primary
 from nestmc_torch.parallel.sharding import (
     Placement,
     make_mesh,
@@ -117,32 +124,43 @@ from nestmc_torch.parallel.sharding import (
 )
 from nestmc_torch.posterior import Posterior
 from nestmc_torch.rng import SweepRNG
-from nestmc_torch.segments import DrawProgram, WarmupProgram
+from nestmc_torch.segments import DrawProgram, WarmupProgram, capturable
 from nestmc_torch.utils.logging import get_logger
 from nestmc_torch.utils.profiling import annotate
 
 log = get_logger()
 
 
-def _collect(position, spec, derived, picks):
+def _collect(position, spec, derived, index):
     """{name: (C, *shape)} of what RunConfig.collect retains: block names
     and the model's derived quantities (computed from the position), all
-    of both when ``spec`` is None. picks: {name: (local index, ...)} of a
-    selection on a group-sharded unit axis (:func:`_unit_picks`)."""
+    of both when ``spec`` is None. index: {name: long device tensor} of
+    each selection taken by index (:func:`_collect_index`)."""
     if spec is None:
         return {**position, **{k: fn(position) for k, fn in derived.items()}}
     out = {}
     for name, k in spec.items():
         v = derived[name](position) if name in derived else position[name]
-        if name in picks:
-            out[name] = v.index_select(1, picks[name][0].to(v.device))
+        if name in index:
+            out[name] = v.index_select(1, index[name])
         elif k is None:
             out[name] = v
-        elif isinstance(k, int):
-            out[name] = v[:, :k]
         else:
-            idx = torch.as_tensor(k, dtype=torch.long, device=v.device)
-            out[name] = v.index_select(1, idx)
+            out[name] = v[:, :k]
+    return out
+
+
+def _collect_index(spec, picks, device) -> dict:
+    """{name: long tensor on ``device``} of each collected selection taken
+    by index: the rank's picks on a group-sharded unit axis
+    (:func:`_unit_picks`), or a list of indices. Made once before the
+    steps, so that a captured step copies nothing from the host."""
+    out = {}
+    for name, k in (spec or {}).items():
+        if name in picks:
+            out[name] = picks[name][0].to(device)
+        elif k is not None and not isinstance(k, int):
+            out[name] = torch.as_tensor(k, dtype=torch.long, device=device)
     return out
 
 
@@ -343,8 +361,9 @@ def sample(
     data, and init_state and init_acc either in the global layout (cut
     here) or as this rank's part on the same mesh (a sharded run's
     final_state, warmup_then_state's). _eager (private,
-    for the card's A/B of the two loops): step an unsharded run on the card
-    eagerly instead of replaying its captured steps.
+    for the card's A/B of the two loops and for timed collectives,
+    collectives.TIMING): step a run on the card eagerly instead of
+    replaying its captured steps.
     """
     cfg = cfg or SamplerConfig()
     validate(cfg)
@@ -385,7 +404,7 @@ def sample(
         c0, cl, C = shard.spans["chains"]
         rng.chains = (c0, C) if cl != C else None
     sweep = make_sweep(model, cfg)
-    graph = device.type == "cuda" and mesh is None and not _eager
+    graph = capturable(device, mesh, backend(), _eager)
     _sync(device)
     timings = {"setup_s": time.perf_counter() - t_setup,
                "checkpoint_s": 0.0, "checkpoints": 0,
@@ -452,6 +471,10 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
 
     # both phases' graphs share one memory pool
     pool = torch.cuda.graph_pool_handle() if graph else None
+    # a sharded run's ranks check before each segment's replays that every
+    # capture succeeded and that they replay the same graphs
+    agree = (functools.partial(lockstep, device=device)
+             if graph and shard is not None else None)
 
     # ---- warmup: refreshed metric ----
     warm_rates = {k: torch.zeros_like(v) for k, v in state.accept_sum.items()}
@@ -460,7 +483,7 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
     if not skip_warmup and rc.warmup > 0:
         segs = list(_segments(rc.warmup, rc.segment_size))
         prog = WarmupProgram(sweep, state, data, rng, cfg,
-                             max(n for _, n in segs), graph, pool)
+                             max(n for _, n in segs), graph, pool, agree)
         state = prog.state()
         for i, (start, n) in enumerate(segs):
             with annotate(f"nestmc.warmup.seg{i}"):
@@ -503,6 +526,7 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
             fold_acc = fold_rhat_init(state.position, folds)
     fold_names = tuple(fold_acc)
     picks = _unit_picks(model, rc.collect, shard)
+    index = _collect_index(rc.collect, picks, device)
     draws = {}
 
     _sync(device)
@@ -512,9 +536,9 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
         segs = list(_segments(remaining, rc.segment_size))
         prog = DrawProgram(
             sweep, state, data, rng, cfg, std_acc, fold_acc,
-            lambda pos: _collect(pos, rc.collect, model.derived, picks),
+            lambda pos: _collect(pos, rc.collect, model.derived, index),
             remaining, draws_offset, half_len, max(n for _, n in segs),
-            graph, pool)
+            graph, pool, agree)
         # the program's copies from here: the engine's first accumulators
         # and carry are let go
         state = prog.state()

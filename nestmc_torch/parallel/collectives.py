@@ -15,6 +15,18 @@ mean acceptance a Posterior reports is reduced where the rates live
 while a sharded ``sample`` runs; with none active (every unsharded run)
 :func:`groups_sum` is a plain sum and the models' shard helpers return
 what they are given.
+
+Under a captured step (segments.py: a run on the card whose collectives
+the backend can capture, NCCL) the all_reduces and all_gathers of
+:func:`groups_sum`, :func:`groups_mean` and :func:`groups_gather` are
+recorded into the CUDA graph and run at each replay, on the mesh's own
+process groups (sharding.make_mesh), never on the default group that
+the eager collectives between segments use (:func:`any_rank`,
+:func:`lockstep`, :func:`gather_to_primary`). ``STATS``'s call counts
+are host counts: segments.py adds a captured step's counts at each
+replay, as it does the kernel launches. ``TIMING`` synchronises the
+device around every reduction, which a capture cannot hold: set it only
+for an eager run (``sample(..., _eager=True)``).
 """
 
 from __future__ import annotations
@@ -75,9 +87,19 @@ def _sync(x) -> None:
         torch.cuda.synchronize(x.device)
 
 
+def _capturing(t) -> bool:
+    """Whether ``t``'s stream is being captured into a CUDA graph."""
+    return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def _all_reduce_groups(t, group):
     STATS["groups_sum_calls"] += 1
     if TIMING:
+        if _capturing(t):
+            raise RuntimeError(
+                "collectives.TIMING synchronises the device around each "
+                "groups_sum, which a CUDA graph capture cannot hold: time "
+                "the collectives in an eager run, sample(..., _eager=True)")
         _sync(t)
         t0 = time.perf_counter()
     dist.all_reduce(t, group=group)
@@ -378,3 +400,16 @@ def any_rank(flag: bool, device) -> bool:
     t = torch.tensor([1.0 if flag else 0.0], device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+def lockstep(failed: bool, digest: int, device) -> tuple:
+    """(some rank failed, every rank gave the same ``digest``) on every
+    rank: one all_reduce(MAX) of (failed, digest, -digest) over the
+    default group (segments.py's check, before a segment's replays, that
+    no rank's capture failed and that every rank replays the same
+    graphs in the same order)."""
+    t = torch.tensor([int(failed), digest, -digest], dtype=torch.int64,
+                     device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    bad, hi, neg_lo = t.tolist()
+    return bool(bad), hi == -neg_lo

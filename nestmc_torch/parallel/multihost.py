@@ -128,7 +128,10 @@ def world_size() -> int:
 
 
 def backend() -> str | None:
-    """The backend :func:`initialize` chose (None before it ran one)."""
+    """The backend :func:`initialize` chose, else that of a process group
+    made another way; None in a process that is not part of a group."""
+    if _CHOICE["backend"] is None and _initialized():
+        return dist.get_backend()
     return _CHOICE["backend"]
 
 

@@ -5,7 +5,8 @@ as a CUDA graph and replayed.
 Port of the reference's execution model (nestmc/engine.py, build_step_fns:
 two compiled hot programs, the adapting warmup segment and the frozen
 sampling segment with the in-sweep R-hat fold, each a lax.scan over
-sweeps with no host round trip between draws):
+sweeps with no host round trip between draws; sharded, the same programs
+with XLA's psums over groups inside them):
 
 - The carry lives in fixed buffers (the counterpart of the reference's
   donated carry): a step reads them and copies its result back into them.
@@ -22,24 +23,42 @@ sweeps with no host round trip between draws):
   (diagnostics.streaming_rhat_table) and draws column. The host keeps the
   sweep count, the draw count and the accumulators' counts, and advances
   them by the segment's length.
-- Eagerly (the CPU; a sharded run, whose collectives a graph cannot hold;
-  the card when the engine is asked for it) each step runs as written and
-  each kernel launch draws its key words when it asks. Captured (an
-  unsharded run on the card), the step first runs once eagerly on a side
-  stream with its results discarded (so that every kernel's attributes,
-  the libraries' workspaces and the draws buffers exist, and to count the
-  key words a sweep takes), the device generator put back; then it is
-  captured with the run's device generator registered, so that each
-  replay advances the generator as the eager step would, and each segment
-  replays it. Both phases' graphs draw on one memory pool, and the warmup
-  graph is released before the sampling graph is captured. The kernel
-  launches counted at the capture (ops/cuda.LAUNCHES) are counted again
-  at each replay. A capture that fails raises.
+- Which loop runs is decided before the run, by :func:`capturable`, from
+  the device, the mesh and the backend alone, never by catching a
+  failure: captured on the card unless the caller asks for the eager loop
+  (``sample(..., _eager=True)``), when the run is unsharded, when its step
+  issues no collective (one group shard: a chain shard's step is the
+  unsharded step on its chains), or when the backend is NCCL, whose
+  collectives a graph records; eager on the CPU, and for a step with
+  collectives over gloo (ranks sharing a card), which goes through the
+  host. Eagerly each step runs as written and each kernel launch draws
+  its key words when it asks.
+- Captured, the step first runs once eagerly on a side stream with its
+  results discarded (so that every kernel's attributes, the libraries'
+  workspaces, the draws buffers and the NCCL communicators of the mesh's
+  process groups exist, and to count the key words a sweep takes), the
+  device generator and the counts put back; then it is captured on that
+  stream with the run's device generator registered, so that each replay
+  advances the generator as the eager step would, and each segment
+  replays it. Every rank of a sharded run takes the same key words a
+  sweep (a launch a group shard skips still takes its pair:
+  SweepRNG.skip_key), captures the same variants in the same order and
+  replays them in lockstep; before a segment's replays the ranks check
+  over the default group that every capture succeeded and that the
+  variants agree (collectives.lockstep), and all of them raise if not,
+  so no rank waits in a replayed collective for a rank that stopped.
+  Both phases' graphs draw on one memory pool (the clones and gathers of
+  the captured collectives too), and the warmup graph is released before
+  the sampling graph is captured. The host counts made at the capture,
+  kernel launches (ops/cuda.LAUNCHES) and collective calls
+  (collectives.STATS), are counted again at each replay. A capture that
+  fails raises; there is no eager retry.
 """
 
 from __future__ import annotations
 
 import time
+import zlib
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
@@ -52,10 +71,37 @@ from nestmc_torch.diagnostics import (
 )
 from nestmc_torch.kernels.state import KernelState
 from nestmc_torch.ops.cuda import LAUNCHES
+from nestmc_torch.parallel.collectives import STATS
 
 # key word pairs the probe step offers one sweep (a sweep of a built-in
 # model takes one a fused step, a few with size buckets)
 _PROBE_KEYS = 4096
+
+
+def capturable(device, mesh, backend, eager: bool) -> bool:
+    """Whether a run replays its steps as captured CUDA graphs (True:
+    ``timings["sweep"] == "graph"``) or steps eagerly: on the card, not
+    asked for the eager loop, and unsharded (``mesh`` None), or sharded
+    with a step that issues no collective (one group shard: every rank's
+    step is the unsharded step on its chains; with two or more, every
+    rank's unit axis is split and its sums over units are all_reduces),
+    or on a backend whose collectives a graph records (NCCL; gloo's go
+    through the host). The same answer on every rank of a run."""
+    if torch.device(device).type != "cuda" or eager:
+        return False
+    return mesh is None or mesh.group_shards == 1 or backend == "nccl"
+
+
+def _counts() -> dict:
+    """The host counts a replay repeats: kernel launches and collective
+    calls."""
+    return {**{("launch", k): v for k, v in LAUNCHES.items()},
+            **{("stat", k): v for k, v in STATS.items()}}
+
+
+def _restore(saved: dict) -> None:
+    for (kind, k), v in saved.items():
+        (LAUNCHES if kind == "launch" else STATS)[k] = v
 
 
 def _state_tree(state: KernelState) -> dict:
@@ -72,10 +118,12 @@ class _Program:
     whose work the host knows to differ from draw to draw (the thinned
     streamed update) has a variant for each, each captured as a graph of
     its own, all sharing the pool (replayed one at a time on one stream,
-    and no graph's memory holds a value past its replay)."""
+    and no graph's memory holds a value past its replay). agree: in a
+    sharded run that captures, collectives.lockstep on the run's device
+    (failed, digest) -> (some rank failed, all digests equal)."""
 
     def __init__(self, carry, device, capacity: int, sweeps: int, rng,
-                 graph: bool, pool):
+                 graph: bool, pool, agree=None):
         self.device = torch.device(device)
         leaves, self._spec = tree_flatten(carry)
         # the step's buffers: copies, so a caller's carry is never written
@@ -86,6 +134,7 @@ class _Program:
         self.rng = rng
         self.graph = graph
         self.pool = pool
+        self.agree = agree
         self._tab = {}                  # {name: (capacity, ...) device}
         self.step_i = torch.zeros(1, dtype=torch.long, device=self.device)
         self.sweep_i = torch.zeros(1, dtype=torch.long, device=self.device)
@@ -94,7 +143,7 @@ class _Program:
         self._mode = "eager"
         self._taken = []                # key words taken a sweep
         self._graphs = {}               # {variant: captured CUDA graph}
-        self._replay_launches = {}      # {variant: launches a replay}
+        self._replay_counts = {}        # {variant: host counts a replay}
         self.capture_s = 0.0
 
     # ---- the carry ----
@@ -170,16 +219,22 @@ class _Program:
     def run(self, n: int, *table_args) -> None:
         """Run the next n steps: fill the tables for them, then step
         eagerly or replay each step's captured variant (capturing it at
-        its first use)."""
+        its first use; sharded, after the ranks' lockstep check)."""
         variants = self._variants(n, *table_args)
         self._fill(self._tables(n, *table_args))
         if not self.graph:
             for v in variants:
                 self._step(v)
             return
-        for v in dict.fromkeys(variants):
-            if v not in self._graphs:
-                self._capture(v)
+        failed = True
+        try:
+            for v in dict.fromkeys(variants):
+                if v not in self._graphs:
+                    self._capture(v)
+            failed = False
+        finally:
+            if self.agree is not None:
+                self._lockstep(failed, variants)
         K = self.keys_per_sweep
         if K:
             words = self.rng.key_table(n * self.sweeps * K)
@@ -188,20 +243,41 @@ class _Program:
         for v in variants:
             self._graphs[v].replay()
         for v in variants:
-            for k, c in self._replay_launches[v].items():
-                LAUNCHES[k] += c
+            for (kind, k), c in self._replay_counts[v].items():
+                (LAUNCHES if kind == "launch" else STATS)[k] += c
+
+    def _lockstep(self, failed: bool, variants) -> None:
+        """A sharded run's check before a segment's replays: every rank
+        captured what it had to, and every rank replays the same variants
+        in the same order (they follow from host counters that are equal
+        on every rank: checked, not assumed). Otherwise every rank raises,
+        a rank whose own capture failed with its own error, and none goes
+        on (eagerly or to a replayed collective that would wait for the
+        others)."""
+        others, same = self.agree(
+            failed, zlib.crc32(repr(variants).encode()))
+        if failed:
+            return
+        if others:
+            raise RuntimeError("the capture of a step failed on another "
+                               "rank: every rank stops")
+        if not same:
+            raise RuntimeError(f"the ranks would replay different step "
+                               f"variants ({variants} on this rank)")
 
     def _capture(self, variant) -> None:
         """Probe the step once eagerly on a side stream (results discarded:
-        the buffers are not written, the device generator and the launch
+        the buffers are not written, the device generator and the host
         counts are put back, and the CPU generator is not drawn from, the
         probe's key words being zeros), then capture it on that stream, so
-        that what a library makes once a stream (cuBLAS's workspace) exists
-        before the capture and is not left in the graphs' pool."""
+        that what a library makes once a stream (cuBLAS's workspace) or
+        once a process group (an NCCL communicator, made at the group's
+        first collective) exists before the capture and is not left in
+        the graphs' pool."""
         t0 = time.perf_counter()
         rng = self.rng
         gen = rng.generator.get_state()
-        counts = dict(LAUNCHES)
+        counts = _counts()
         self._probe_row = torch.zeros(_PROBE_KEYS, 2, dtype=torch.int32,
                                       device=self.device)
         side = torch.cuda.Stream(self.device)
@@ -218,7 +294,7 @@ class _Program:
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         rng.generator.set_state(gen)
-        LAUNCHES.update(counts)
+        _restore(counts)
         taken = self._taken[1:]
         K = taken[0]
         if len(set(taken)) != 1 or self.keys_per_sweep not in (None, K):
@@ -235,19 +311,24 @@ class _Program:
         g.register_generator_state(rng.generator)
         self._mode, self._taken = "capture", []
         try:
+            # the default capture mode ("global": an unsafe CUDA call of
+            # any thread fails the capture) holds the mesh's NCCL
+            # collectives too, since ProcessGroupNCCL's watchdog thread
+            # does not track captured work (checked on four H100s, torch
+            # 2.11, NCCL 2.28)
             with torch.cuda.graph(g, pool=self.pool, stream=side):
                 self._step(variant)
             self._taken.append(rng.keys_taken)
         finally:
             rng.use_keys(None)
             self._mode = "eager"
-            captured = {k: LAUNCHES[k] - counts[k] for k in LAUNCHES}
-            LAUNCHES.update(counts)
+            captured = {k: v - counts[k] for k, v in _counts().items()}
+            _restore(counts)
         if self._taken[1:] != [K] * self.sweeps:
             raise RuntimeError(f"the captured sweeps took {self._taken[1:]} "
                                f"key word pairs, the probe's {K} a sweep")
-        self._replay_launches[variant] = {k: c for k, c in captured.items()
-                                          if c}
+        self._replay_counts[variant] = {k: c for k, c in captured.items()
+                                        if c}
         self._graphs[variant] = g
         self.capture_s += time.perf_counter() - t0
 
@@ -264,9 +345,9 @@ class WarmupProgram(_Program):
     segment's table."""
 
     def __init__(self, sweep, state: KernelState, data, rng, cfg,
-                 capacity: int, graph: bool, pool):
+                 capacity: int, graph: bool, pool, agree=None):
         super().__init__({"state": _state_tree(state)}, state_device(state),
-                         capacity, 1, rng, graph, pool)
+                         capacity, 1, rng, graph, pool, agree)
         self.sweep = sweep
         self.data = data
         self.kcfg = cfg.kernel
@@ -303,14 +384,15 @@ class DrawProgram(_Program):
 
     def __init__(self, sweep, state: KernelState, data, rng, cfg, std_acc,
                  fold_acc, collect, draws_len: int, draws_offset: int,
-                 half_len: int, capacity: int, graph: bool, pool):
+                 half_len: int, capacity: int, graph: bool, pool,
+                 agree=None):
         carry = {
             "state": _state_tree(state),
             "fold": {k: (m, m2) for k, (_, m, m2) in fold_acc.items()},
             "std": {k: (m, m2) for k, (_, m, m2) in std_acc.items()},
         }
         super().__init__(carry, state_device(state), capacity,
-                         cfg.run.thin, rng, graph, pool)
+                         cfg.run.thin, rng, graph, pool, agree)
         self.sweep = sweep
         self.data = data
         self.thin = cfg.run.thin

@@ -1,14 +1,16 @@
 """One rank of a 2-process gloo run of the port (spawned by the
 test_torch_sharding, test_torch_multihost, test_torch_determinism and
 test_torch_shard_share files through :func:`spawn`; the 'mesh22' mode
-runs four).
+runs four, and tests/test_torch_cuda.py's 'graph' mode runs two on the
+card).
 
 Each rank calls nestmc_torch.parallel.multihost.initialize(device="cpu")
 with the NESTMC_* env (a ``file://`` rendezvous in the test's tmp dir, so
 parallel test workers never race for a port), runs every case of its mode
 on the CPU with one torch thread, and writes ``rank<r>.npz`` (arrays) and
 ``rank<r>.json`` (scalars) into the tmp dir. Inputs the test made come in
-``in.npz`` there.
+``in.npz`` there. ``spawn(..., device="cuda")`` puts the ranks on the
+card instead (two ranks share it: gloo).
 """
 
 import json
@@ -22,7 +24,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def spawn(mode: str, tmp, timeout: float = 120.0, nproc: int = 2):
+def spawn(mode: str, tmp, timeout: float = 120.0, nproc: int = 2,
+          device: str = "cpu"):
     """Run ``mode`` on ``nproc`` ranks; returns [(arrays, scalars)] by rank.
     Every rank has ``timeout`` seconds: a hung rendezvous fails the test
     instead of the whole run."""
@@ -40,6 +43,7 @@ def spawn(mode: str, tmp, timeout: float = 120.0, nproc: int = 2):
             "NESTMC_PROCESS_ID": str(rank),
             "NESTMC_WORKER_DIR": tmp,
             "NESTMC_WORKER_MODE": mode,
+            "NESTMC_WORKER_DEVICE": device,
             "OMP_NUM_THREADS": "1",
         }
         procs.append(subprocess.Popen(
@@ -554,13 +558,17 @@ def mode_multihost(inp, arrays, scalars):
             scalars[f"{tag}_{k}_var"] = float(v.var(unbiased=False))
 
     model, data = make_eight_schools(device="cpu")
-    moments(sample(model, data, _cfg(
+    post = sample(model, data, _cfg(
         8, 40, 80, cs=2, seed=7, segment_size=80,
-        collect={"mu": None, "log_tau": None})), "chains")
+        collect={"mu": None, "log_tau": None}))
+    moments(post, "chains")
+    scalars["chains_sweep"] = post.timings["sweep"]
     data, _ = synth_logistic(9, G=64, n=12, p=3, device="cpu")
-    moments(sample(make_hier_logistic(data), data, _cfg(
+    post = sample(make_hier_logistic(data), data, _cfg(
         8, 30, 50, gs=2, seed=7, segment_size=50,
-        collect={"mu": None, "log_tau": None})), "groups")
+        collect={"mu": None, "log_tau": None}))
+    moments(post, "groups")
+    scalars["groups_sweep"] = post.timings["sweep"]
     # the command line under the same launch: the primary saves the draws
     from nestmc_torch import cli
 
@@ -731,11 +739,59 @@ def mode_share(inp, arrays, scalars):
     scalars["part_beta_shape"] = list(part.position["beta"].shape)
 
 
+GRAPH_ALGS = ("newton", "mala", "rwmh")
+
+
+def mode_graph(inp, arrays, scalars):
+    """On the card (two ranks share it: gloo): for each of GRAPH_ALGS, a
+    chain-sharded run of a small hier_logistic model replayed from its
+    captured steps and the same run stepped eagerly (sample's _eager),
+    from one seed: the rank's final part, draws, R-hat maps, both
+    generators' states, launches and groups_sum calls of each; then a
+    group-sharded run's loop (eager: gloo's collectives go through the
+    host)."""
+    import torch
+
+    from nestmc_torch import sample
+    from nestmc_torch.models import make_hier_logistic, synth_logistic
+    from nestmc_torch.ops.cuda import launch_counts, reset_launch_counts
+    from nestmc_torch.parallel import collectives, multihost
+    from nestmc_torch.rng import SweepRNG
+
+    dev = multihost.device()
+    data, _ = synth_logistic(21, G=40, n=12, p=3, device=dev)
+    model = make_hier_logistic(data, tau_prior="invgamma")
+    for alg in GRAPH_ALGS:
+        for tag, eager in (("graph", False), ("eager", True)):
+            cfg = _kcfg(alg, 64, 30, 20, 2, 1, seed=7, segment_size=7,
+                        full_rhat=True)
+            rng = SweepRNG(7, dev)
+            reset_launch_counts()
+            collectives.STATS["groups_sum_calls"] = 0
+            post = sample(model, data, cfg, rng=rng, _eager=eager)
+            key = f"{alg}_{tag}"
+            scalars[f"{key}_sweep"] = post.timings["sweep"]
+            scalars[f"{key}_launches"] = launch_counts()
+            scalars[f"{key}_groups_sum_calls"] = (
+                collectives.STATS["groups_sum_calls"])
+            for k, v in post.draws.items():
+                arrays[f"{key}.draws.{k}"] = _np(v)
+            for k, v in post.full_rhat.items():
+                arrays[f"{key}.rhat.{k}"] = _np(v)
+            for path, t in _leaves(post.final_state):
+                arrays[f"{key}.final{path}"] = _np(t)
+            for k, v in rng.get_state().items():
+                arrays[f"{key}.rng.{k}"] = _np(v)
+            torch.cuda.synchronize(dev)
+    post = sample(model, data, _cfg(64, 4, 4, gs=2, seed=7))
+    scalars["groups_sweep"] = post.timings["sweep"]
+
+
 MESH22_CASES = ("logistic_newton", "poisson3_mala", "glm_gaussian_mala")
 MESH22_RUNS = ("logistic_newton", "poisson3_newton", "ragged_bucket_newton")
 MODES = {"sharding": mode_sharding, "multihost": mode_multihost,
          "determinism": mode_determinism, "mesh22": mode_mesh22,
-         "share": mode_share}
+         "share": mode_share, "graph": mode_graph}
 
 
 def main() -> int:
@@ -745,7 +801,8 @@ def main() -> int:
     torch.set_num_threads(1)
     from nestmc_torch.parallel import multihost
 
-    multihost.initialize(device="cpu")
+    device = os.environ.get("NESTMC_WORKER_DEVICE", "cpu")
+    multihost.initialize(device=None if device == "cuda" else device)
     tmp = os.environ["NESTMC_WORKER_DIR"]
     path = os.path.join(tmp, "in.npz")
     inp = {"dir": tmp}

@@ -1449,6 +1449,28 @@ def test_graph_replay_is_the_eager_loop_bitwise(dev, algorithm, impl, thin,
         assert torch.equal(a, b)
 
 
+def test_graph_replay_collects_a_selection_by_index(dev):
+    """A collected selection by indices (RunConfig.collect {'beta': [..]})
+    is made on the card before the steps, so the captured draw copies
+    nothing from the host: graph and eager draws bitwise."""
+    from nestmc_torch import sample
+
+    data, _ = synth_logistic(21, G=40, n=12, p=3, device=dev)
+    out = []
+    for eager in (False, True):
+        post = sample(make_hier_logistic(data, tau_prior="invgamma"), data,
+                      SamplerConfig(run=RunConfig(
+                          chains=64, warmup=10, draws=8, segment_size=4,
+                          collect={"beta": [3, 0, 17], "mu": None},
+                          log_every_segment=False)),
+                      rng=SweepRNG(7, dev), _eager=eager)
+        out.append(post)
+    assert out[0].timings["sweep"] == "graph"
+    assert out[0].draws["beta"].shape == (64, 8, 3, 3)
+    for k, v in out[1].draws.items():
+        assert torch.equal(out[0].draws[k], v), k
+
+
 @pytest.mark.parametrize("algorithm", ["rwmh", "mala", "newton"])
 def test_graph_replay_of_nested_poisson_is_the_eager_loop(dev, algorithm):
     def make():
@@ -1463,6 +1485,47 @@ def test_graph_replay_of_nested_poisson_is_the_eager_loop(dev, algorithm):
         assert torch.equal(g.draws[k], e.draws[k]), k
     for a, b in zip(g_rng.get_state().values(), e_rng.get_state().values()):
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def graph_ranks(tmp_path_factory):
+    """Two gloo ranks spawned on the one card (tests/_torch_dist_worker.py,
+    mode 'graph'): their arrays and scalars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from _torch_dist_worker import spawn
+
+    return spawn("graph", tmp_path_factory.mktemp("graph"), timeout=300,
+                 device="cuda")
+
+
+@pytest.mark.parametrize("algorithm", ["newton", "mala", "rwmh"])
+def test_chain_sharded_graph_is_the_eager_loop_on_two_ranks(graph_ranks,
+                                                           algorithm):
+    """Chains split over two gloo ranks on the one card: the step issues
+    no collective, so each rank replays its captured steps, and the
+    replay gives the eager loop's bits on every rank: the rank's final
+    part, the gathered draws, the R-hat maps, both generators, the
+    launches and the groups_sum calls (none)."""
+    import numpy as np
+
+    for arrays, s in graph_ranks:
+        g, e = f"{algorithm}_graph", f"{algorithm}_eager"
+        assert s[f"{g}_sweep"] == "graph" and s[f"{e}_sweep"] == "eager"
+        assert s[f"{g}_launches"] == s[f"{e}_launches"]
+        assert s[f"{g}_groups_sum_calls"] == s[f"{e}_groups_sum_calls"] == 0
+        keys = [k for k in arrays if k.startswith(e + ".")]
+        assert any(".final." in k for k in keys)
+        assert any(".rng." in k for k in keys)
+        for k in keys:
+            np.testing.assert_array_equal(arrays[g + k[len(e):]], arrays[k],
+                                          err_msg=k)
+
+
+def test_group_sharded_gloo_run_on_the_card_steps_eagerly(graph_ranks):
+    """Groups split over gloo ranks sharing a card: the all_reduces go
+    through the host, which a graph cannot hold: the eager loop."""
+    assert [s["groups_sweep"] for _, s in graph_ranks] == ["eager", "eager"]
 
 
 @pytest.mark.parametrize("mode", ["words", "uniform", "log_uniform",

@@ -164,6 +164,13 @@ def test_two_process_group_axis_psum(ranks):
     _check(ranks, "groups", _moments(post))
 
 
+def test_two_process_cpu_runs_step_eagerly(ranks):
+    """On the CPU a sharded run steps eagerly (segments.capturable), the
+    chains split or the groups."""
+    for _, s in ranks[0]:
+        assert (s["chains_sweep"], s["groups_sweep"]) == ("eager", "eager")
+
+
 def test_two_process_command_line(ranks, tmp_path, capsys):
     """python -m nestmc_torch run --chain-shards 2 under the 2-process
     launch: both ranks exit 0, the primary's saved draws are those of the
