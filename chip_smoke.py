@@ -250,11 +250,13 @@ Needs one CUDA card and this checkout (it builds the kernels from
    ``peak_mem_gb`` (no rank gathers the carry); 10b(i)'s streamed R-hat
    maps, finalized on the rank's chains a slice of units at a time,
    within 1e-6 relative of the unsharded run's; (e) the unit-axis noise
-   fill (csrc/philox_fill.cu) at ragged-10k's (1024, 10000, 3) normal
-   draw against its plain version run on the card: words and uniforms
-   bitwise, log uniforms and normals within FILL_ULPS ulps (an ulp at
-   least 2^-23), a shard's block bitwise that block of the global fill,
-   timed beside its bound and torch.randn's time (a yardstick only); (f)
+   fill (csrc/philox_fill.cu, one Philox call a quad of elements) in every
+   mode at ragged-10k's (1024, 10000, 3) draw and on FILL_BLOCKS against
+   its plain version run on the card: words and uniforms bitwise, log
+   uniforms and normals within FILL_ULPS ulps (an ulp at least 2^-23), a
+   shard's block and blocks that straddle quads bitwise that block of
+   their whole fill, each mode timed beside its bound and torch.randn's
+   time (a yardstick only); (f)
    with one card a rank (NCCL, ``--phase10 4``) only: P10F_PRESETS
    (judged and ragged-10k with the chains split over every rank,
    mala-100k and -newton at two group shards x N/2, as N ranks build
@@ -292,7 +294,9 @@ bound_ms, the cost model behind ``--cost-analysis``. The Poisson terms take one 
 division, and the Poisson steps read a per-unit prior mean (C, S, p)
 where the logistic ones read mu (C, p). The segment kernels count config
 4's observations (N, not G x n) and read the (G+1) row pointer. No single
-PyTorch call computes any of these functions, so library_ms is null.
+PyTorch call computes any of these functions, so library_ms is null, but
+for the noise fill's: torch.randn of its normal draw's shape (the same
+distribution, other bits).
 
 Any failed check exits non-zero. The last lines are a JSON object of the
 kernels, the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -320,6 +324,12 @@ FILL = (1024, 10_000, 3)            # ragged-10k's (C, G, p) normal draw
 # 2^-23 (the ulp of 1): near a zero of the cosine the kernel's float32
 # cospif is good to about 4e-7 absolute, not to its tiny value's ulps
 FILL_ULPS = 8
+# blocks of the fill whose rows straddle quads (whole shape, U, block shape,
+# c0, u0): K=1 (9, 11), the block from chains 1.. and units 6.. (element
+# 17, a quad's lane 1); K=3 over an odd unit count, rows 39 elements
+# apart, the block from element 87 (lane 3)
+FILL_BLOCKS = [((9, 11), 11, (8, 5), 1, 6),
+               ((7, 13, 3), 13, (5, 7, 3), 2, 3)]
 SLICE = 64                  # chains the plain versions run on at M100K
 SRC = {
     "loglik": ("nestmc_torch/csrc/loglik_logistic.cu",
@@ -1097,14 +1107,16 @@ def graph_checks(res: dict, tag: str, what: str, want: str, smi: str,
 
 
 def phase10_fill(dev, smi: str) -> dict:
-    """Phase 10e, the unit-axis noise fill (csrc/philox_fill.cu) at
-    ragged-10k's (1024, 10000, 3) normal draw: words and uniforms bitwise
-    the plain version's (integer Philox on int64 tensors, run here on the
-    card), log uniforms and normals within FILL_ULPS ulps of its float64
-    conversions rounded once (an ulp counted at least 2^-23, the ulp of
-    1); a shard's block (chains 512.., units
-    5000..7499) bitwise that block of the global fill. Returns the
-    kernel's record: {err, ms, plain_ms, shape, work}."""
+    """Phase 10e, the unit-axis noise fill (csrc/philox_fill.cu), in every
+    mode: at ragged-10k's (1024, 10000, 3) draw and on FILL_BLOCKS (rows
+    that straddle quads, blocks that start off a quad), words and uniforms
+    bitwise the plain version's (integer Philox on int64 tensors, run here
+    on the card), log uniforms and normals within FILL_ULPS ulps of its
+    float64 conversions rounded once (an ulp counted at least 2^-23, the
+    ulp of 1); every block bitwise that block of its whole fill. Each
+    mode timed at (1024, 10000, 3) beside its bound and torch.randn's time
+    (torch.rand's for the uniforms). Returns the normal fill's record:
+    {err, ms, plain_ms, library_ms, shape, work}."""
     import math
 
     import torch
@@ -1133,53 +1145,75 @@ def phase10_fill(dev, smi: str) -> dict:
         times.sort()
         return times[len(times) // 2]
 
+    def agree(mode, kern, ref):
+        """(ok, ulps, max |diff|) of the kernel's fill against the plain
+        version's."""
+        if mode in ("words", "uniform"):
+            return torch.equal(kern, ref), 0.0, 0.0
+        ulp = (torch.nextafter(ref.abs(), torch.full_like(
+            ref, math.inf)) - ref.abs()).clamp_min(2.0 ** -23)
+        d = (kern - ref).abs()
+        n_ulp = float((d / ulp).max())
+        return n_ulp <= FILL_ULPS, n_ulp, float(d.max())
+
     FC, FU, FK = FILL
     fshape = (FC, FU, FK)
     fkey = torch.tensor([0x2468ACE, -0x13579BD], dtype=torch.int32,
                         device=dev)
-    res = {}
-    for mode in ("words", "uniform", "log_uniform", "normal"):
+    # (whole shape, U, block shape, c0, u0): a shard's block of the full
+    # draw (chains 512.., units 5000..7499); FILL_BLOCKS' straddling ones
+    blocks = [(fshape, FU, (FC - 512, 2500, FK), 512, 5000)] + FILL_BLOCKS
+    modes = ("words", "uniform", "log_uniform", "normal")
+    res, blocks_ok = {}, {}
+    for mode in modes:
         kern = philox_fill(fshape, fkey, 0, 0, FU, mode, dev)
         ref = philox_fill_plain(fshape, fkey, 0, 0, FU, mode, device=dev)
         torch.cuda.synchronize()
-        if mode in ("words", "uniform"):
-            res[mode] = (torch.equal(kern, ref), 0.0, 0.0)
-        else:
-            ulp = (torch.nextafter(ref.abs(), torch.full_like(
-                ref, math.inf)) - ref.abs()).clamp_min(2.0 ** -23)
-            d = (kern - ref).abs()
-            n_ulp = float((d / ulp).max())
-            res[mode] = (n_ulp <= FILL_ULPS, n_ulp, float(d.max()))
+        res[mode] = agree(mode, kern, ref)
         del kern, ref
-    whole = philox_fill(fshape, fkey, 0, 0, FU, "normal", dev)
-    part = philox_fill((FC - 512, 2500, FK), fkey, 512, 5000, FU, "normal",
-                       dev)
-    shard_same = torch.equal(part, whole[512:, 5000:7500])
-    del whole, part
-    ms = timed(lambda: philox_fill(fshape, fkey, 0, 0, FU, "normal", dev))
+        ok = True
+        for shape, U, bshape, c0, u0 in blocks:
+            whole = philox_fill(shape, fkey, 0, 0, U, mode, dev)
+            part = philox_fill(bshape, fkey, c0, u0, U, mode, dev)
+            ok &= torch.equal(part, whole[c0:, u0:u0 + bshape[1]])
+            for got, args in ((whole, (shape, fkey, 0, 0, U)),
+                              (part, (bshape, fkey, c0, u0, U))):
+                ok &= agree(mode, got, philox_fill_plain(
+                    *args, mode, device=dev))[0]
+            del whole, part
+        blocks_ok[mode] = bool(ok)
+    times = {m: timed(lambda m=m: philox_fill(fshape, fkey, 0, 0, FU, m,
+                                              dev)) for m in modes}
     pms = timed(lambda: philox_fill_plain(fshape, fkey, 0, 0, FU, "normal",
                                           device=dev), batches=3, per=2)
     randn_ms = timed(lambda: torch.randn(fshape, device=dev))
+    rand_ms = timed(lambda: torch.rand(fshape, device=dev))
     torch.cuda.empty_cache()
+    for m in modes:
+        w = kernel_work("philox_fill", FC, FU * FK, FLOAT_OPS[m], 1)
+        b_ms, by = bound_ms(*w)
+        say(f"10e philox_fill {m} at {fshape}: {times[m]:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {by} ({w[0] / 1e6:.1f} MB), "
+            f"{b_ms / times[m]:.3f} of the bound; torch.randn of the shape "
+            f"{randn_ms:.4f} ms, torch.rand {rand_ms:.4f} ms (yardsticks "
+            f"only: other bits) on '{smi}'")
     w = kernel_work("philox_fill", FC, FU * FK, FLOAT_OPS["normal"], 1)
-    b_ms, by = bound_ms(*w)
-    ok = all(v[0] for v in res.values()) and shard_same
+    ok = all(v[0] for v in res.values()) and all(blocks_ok.values())
     say(f"10e philox_fill at {fshape}: words bitwise {res['words'][0]}, "
         f"uniforms bitwise {res['uniform'][0]}; log uniforms within "
         f"{res['log_uniform'][1]:.2f} ulps, normals within "
         f"{res['normal'][1]:.2f} ulps (max |diff| {res['normal'][2]:.3e}; "
-        f"bound {FILL_ULPS} ulps, an ulp at least 2^-23); a shard's block "
-        f"(chains 512.., units "
-        f"5000..7499) bitwise the global fill's: {shard_same}; normal "
-        f"{ms:.4f} ms (bound {b_ms:.4f} ms by {by}, {w[0] / 1e6:.1f} MB), "
-        f"plain version on the card {pms:.3f} ms, torch.randn of the shape "
-        f"(a yardstick only: other bits) {randn_ms:.4f} ms on '{smi}' "
-        f"{'ok' if ok else 'FAIL'}")
+        f"bound {FILL_ULPS} ulps, an ulp at least 2^-23); blocks (a "
+        f"shard's, chains 512.., units 5000..7499, and {len(FILL_BLOCKS)} "
+        f"that straddle quads) against the plain version and bitwise their "
+        f"whole fill's, by mode: {blocks_ok}; normal {times['normal']:.4f} "
+        f"ms against torch.randn {randn_ms:.4f} ms, plain version on the "
+        f"card {pms:.3f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"10e philox_fill against its plain version: {res}, shard "
-             f"{shard_same}")
-    return {"err": res["normal"][2], "ms": ms, "plain_ms": pms,
-            "shape": (FC, FU, 0, FK), "work": w}
+        fail(f"10e philox_fill against its plain version: {res}, blocks "
+             f"{blocks_ok}")
+    return {"err": res["normal"][2], "ms": times["normal"], "plain_ms": pms,
+            "library_ms": randn_ms, "shape": (FC, FU, 0, FK), "work": w}
 
 
 def phase10(dev, smi: str, ranks: int = 2) -> dict:
@@ -4067,6 +4101,7 @@ def main() -> int:
         launches_total[k] = launches_total.get(k, 0) + nl
     record("philox_fill", fill["err"], fill["ms"], fill["plain_ms"],
            fill["shape"], fill["work"])
+    kernels["philox_fill"]["library_ms"] = fill["library_ms"]
 
     # ---- 6, continued: the paths cut to the time left ----
     full, p_full, s_full = (1500, 4096), (1000, 16384), (800, 2048)
@@ -4194,7 +4229,8 @@ def main() -> int:
          "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
          "plain_ms": kernels[k]["plain_ms"],
          "bound_ms": kernels[k]["bound_ms"],
-         "bound_by": kernels[k]["bound_by"], "library_ms": None,
+         "bound_by": kernels[k]["bound_by"],
+         "library_ms": kernels[k].get("library_ms"),
          "shape_C_G_n_p": list(kernels[k]["shape"]),
          **{key: kernels[k][key] for key in ("ms_external_noise", "cells")
             if key in kernels[k]}}

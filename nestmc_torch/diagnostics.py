@@ -75,14 +75,21 @@ def _rank_normalize(x):
 
 
 def _quantile(pooled, q: float):
-    """Linear-interpolation quantile over axis 0 (numpy's default)."""
+    """Linear-interpolation quantile over axis 0 (numpy's default), with
+    jnp.quantile's arithmetic on the CPU: the position q (n - 1) and both
+    weights in the draws' dtype, the low term rounded, the high term
+    added to it as by a fused multiply-add (float32 draws: the product
+    exact in float64, one rounding). A tail indicator x <= q then counts
+    tied draws at the quantile as the reference's does."""
     n = pooled.shape[0]
     s = torch.sort(pooled, dim=0).values
-    pos = q * (n - 1)
-    lo = int(math.floor(pos))
+    pos = torch.tensor(q, dtype=pooled.dtype) * (n - 1)
+    lo = int(torch.floor(pos))
     hi = min(lo + 1, n - 1)
-    w = pos - lo
-    return s[lo] * (1.0 - w) + s[hi] * w
+    w_hi = (pos - lo).to(s.device)
+    w_lo = 1 - w_hi
+    return ((s[lo] * w_lo).double()
+            + s[hi].double() * w_hi.double()).to(s.dtype)
 
 
 def rhat(draws, rank_normalized: bool = True):

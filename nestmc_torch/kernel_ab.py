@@ -7,10 +7,10 @@
 DIR is another ``csrc`` tree, for example an earlier commit's
 ``nestmc_torch/csrc`` unpacked with ``git archive`` into a git-ignored
 directory. Both trees are built for p=3 and p=4, and ptxas's registers and
-spills of every instantiation of the tiled kernel templates are printed
-for each tree (one JSON line a kernel); then every launch mode of the
-tiled templates runs on both builds with the same inputs and the same
-Philox key, at the shapes the main paths give it:
+spills of every instantiation of the tiled kernel templates and of the
+noise fill are printed for each tree (one JSON line a kernel); then every
+launch mode of those templates runs on both builds with the same inputs
+and the same Philox key, at the shapes the main paths give it:
 
 - ``logp_grad_kernel``: logp_grad and logp_grad_hess, Logit and Poisson;
 - ``loglik_kernel``: the value-only loglik, Logit (at ``mala-100k`` and
@@ -23,7 +23,9 @@ Philox key, at the shapes the main paths give it:
   each with external and with Philox noise (at ``judged`` and
   ``bucket``), Poisson refresh and frozen, external and Philox (at
   ``config3``);
-- ``segment_kernel``: seg_loglik and seg_logp_grad (at ``segment``).
+- ``segment_kernel``: seg_loglik and seg_logp_grad (at ``segment``);
+- ``philox_fill_kernel``: the unit-axis noise fill in each mode (at
+  ``fill``).
 
 The shapes:
 
@@ -39,7 +41,13 @@ The shapes:
   sizes and the tile plan, no timing);
 - ``rw``: hier-logistic-100-rw's shape, C=64, G=100, n=50, p=4 (the
   value-only loglik and the RW-MH step only; a few blocks, so the times
-  are mostly the wrapper's).
+  are mostly the wrapper's);
+- ``fill``: ragged-10k's (1024, 10000, 3) unit-axis draw, the noise fill
+  in words, uniform, log-uniform and normal mode. Its lines say whether
+  the two trees map elements to Philox words alike (``same_mapping``: the
+  words modes equal); a base with another mapping (one Philox call an
+  element, before the four-a-call fill) gives other bits, so its lines
+  report the outputs' difference and ``bitwise_equal`` null.
 
 The step kernels read their Philox key words and the fold's scalars from
 device memory (nestmc_scalar_abi 2); a base tree built before that takes
@@ -56,9 +64,9 @@ tuning A/B of one kernel).
 
 ``--sass`` builds the checkout's kernels (and DIR's, with ``--base``) for
 p=3 and p=4 and prints, for each instantiation of the tiled kernel
-templates, its instruction count and the instructions of its loops
-(backward branches) as ``cuobjdump -sass`` shows them: the obs pass is the
-loop that holds the MUFU.EX2 operations.
+templates and of the noise fill, its instruction count and the
+instructions of its loops (backward branches) as ``cuobjdump -sass`` shows
+them: the obs pass is the loop that holds the MUFU.EX2 operations.
 """
 
 from __future__ import annotations
@@ -72,14 +80,16 @@ from pathlib import Path
 
 import torch
 
-SHAPES = ("mala-100k", "judged", "bucket", "config3", "segment", "rw")
+SHAPES = ("mala-100k", "judged", "bucket", "config3", "segment", "rw",
+          "fill")
 # the Logit case groups of each logistic shape (logistic_cases)
 GROUPS = {"mala-100k": ("obs", "mala", "rw"),
           "judged": ("obs", "mala", "newton"),
           "bucket": ("obs", "mala", "newton"), "rw": ("rw",)}
-# the kernel templates on the (unit x chain) tile of csrc/cell_tile.cuh
+# the kernel templates whose registers, spills and SASS loops are reported:
+# those on the (unit x chain) tile of csrc/cell_tile.cuh, and the noise fill
 TILED = (r"logp_grad_kernel|loglik_kernel|rwmh_step_kernel|mala_step_kernel|"
-         r"newton_step_kernel|segment_kernel")
+         r"newton_step_kernel|segment_kernel|philox_fill_kernel")
 
 
 # the values behind the device pointers this script passes: {data_ptr:
@@ -361,6 +371,18 @@ def segment_cases(dev, seed):
     ]
 
 
+def fill_cases(dev):
+    """The noise fill at ragged-10k's (1024, 10000, 3) draw, each mode."""
+    from nestmc_torch.ops.cuda.philox_fill import MODES, philox_fill
+
+    shape = (1024, 10_000, 3)
+    key = torch.tensor([0x2468ACE, -0x13579BD], dtype=torch.int32,
+                       device=dev)
+    return (shape[0], shape[1], 0, shape[2]), [
+        (f"philox_fill {m}", lambda m=m: (philox_fill(
+            shape, key, 0, 0, shape[1], m, dev),)) for m in MODES]
+
+
 def warp_idle_share(sizes, tg: int) -> float:
     """The share of a segment tile's warp slots left idle while its warps
     wait for the longest: warp w of a tile of tg groups takes the groups
@@ -439,8 +461,8 @@ def ptxas_report(log: str) -> list:
 
 
 def _max_diff(a, b) -> float:
-    return max(float((s - t).abs().max()) if s.numel() else 0.0
-               for s, t in zip(a, b))
+    return max(float((s.double() - t.double()).abs().max()) if s.numel()
+               else 0.0 for s, t in zip(a, b))
 
 
 def main(argv=None) -> int:
@@ -514,7 +536,17 @@ def main(argv=None) -> int:
             _build.SRC_DIR = new_src
             _build.library = library
 
-    def report(shape_name, shape, cases, extra=None):
+    def report(shape_name, shape, cases, extra=None, mapping=None):
+        """``mapping``: the case whose outputs show whether the two trees
+        map alike (the fill's words); else the outputs are bitwise
+        comparable."""
+        same = None
+        if mapping is not None:
+            fn = dict(cases)[mapping]
+            a, b = on(base_src, fn), on(new_src, fn)
+            same = all(torch.equal(s, t) for s, t in zip(a, b))
+            del a, b
+            extra = {**(extra or {}), "same_mapping": same}
         for name, fn in cases:
             if not re.search(args.cases, name):
                 continue
@@ -529,7 +561,8 @@ def main(argv=None) -> int:
                  on(base_src, lambda: timed(fn))]
             line = json.dumps({
                 "shape": shape_name, "C_G_n_p": list(shape), "kernel": name,
-                "max_abs_diff": diff, "bitwise_equal": diff == 0.0,
+                "max_abs_diff": diff,
+                "bitwise_equal": None if same is False else diff == 0.0,
                 "base_ms": [t[0], t[3]], "new_ms": [t[1], t[2]],
                 "speedup": (t[0] + t[3]) / (t[1] + t[2]), "card": smi,
                 **(extra or {}),
@@ -540,8 +573,11 @@ def main(argv=None) -> int:
                 out.flush()
 
     for shape_name in args.shapes.split(","):
-        extra = None
-        if shape_name == "config3":
+        extra = mapping = None
+        if shape_name == "fill":
+            shape, cases = fill_cases(dev)
+            mapping = "philox_fill words"
+        elif shape_name == "config3":
             shape, cases = poisson_cases(dev, 6)
         elif shape_name == "segment":
             shape, idle, cases = segment_cases(dev, 10)
@@ -555,7 +591,7 @@ def main(argv=None) -> int:
                          "rw": (64, 100, 50, 4)}[shape_name]
                 r = _logistic_inputs(shape, dev, 8)
             cases = logistic_cases(shape, r, GROUPS[shape_name])
-        report(shape_name, shape, cases, extra)
+        report(shape_name, shape, cases, extra, mapping)
         del cases
         torch.cuda.empty_cache()
     if out:

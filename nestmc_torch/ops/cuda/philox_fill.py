@@ -1,21 +1,26 @@
 """The counter-indexed noise fill on the card (csrc/philox_fill.cu).
 
 A draw whose tensor has a unit axis, shape (C, U, *rest) in the unsharded
-run, is filled element by element from Philox-4x32-10 keyed by one pair of
-key words (a launch's, SweepRNG.key_words) with the element's row-major
-index g in the unsharded tensor as its counter: (g mod 2^32, g div 2^32,
-0, 0). A rank that holds chains c0.. of its block and units u0.. of U
-fills only its (chain span x unit span) block, with the unsharded run's
-values. Modes: "words" (the first output word, as int32 bits), "uniform"
-(its top 24 bits, offset off zero: csrc/philox.cuh::bits_to_unit),
-"log_uniform" (their log) and "normal" (Box-Muller, cos branch, of the
-first two words), the in-kernel draws' conversions.
+run, is filled from Philox-4x32-10 keyed by one pair of key words (a
+launch's, SweepRNG.key_words), four elements a call. Element g of the
+unsharded tensor (its row-major index) belongs to call q = g >> 2, at
+counter (q mod 2^32, q >> 32, 0, 0), and takes output word g & 3 of it.
+A rank that holds chains c0.. of its block and units u0.. of U fills only
+its (chain span x unit span) block, with the unsharded run's values: an
+element's value depends on g and the key alone. Modes: "words" (the
+element's word, as int32 bits), "uniform" (its top 24 bits, offset off
+zero: csrc/philox.cuh::bits_to_unit), "log_uniform" (their log) and
+"normal" (Box-Muller on both branches: lanes 0 and 1 are r cos(2 pi u2)
+and r sin(2 pi u2) with u1, u2 the uniforms of words 0 and 1 and r =
+sqrt(-2 log u1); lanes 2 and 3 the same on words 2 and 3), the in-kernel
+draws' conversions.
 
 :func:`philox_fill` launches the kernel for a CUDA device and runs
-:func:`philox_fill_plain` (integer Philox on int64 tensors) for the CPU.
-The plain version's words and uniforms are the kernel's bit for bit; its
-normals and logs are computed in float64 and rounded once, so the kernel's
-(float32 logf, sqrtf, cospif) lie within a few ulps of them.
+:func:`philox_fill_plain` (integer Philox on int64 tensors, one call a quad
+of elements that the block touches) for the CPU. The plain version's words
+and uniforms are the kernel's bit for bit; its normals and logs are
+computed in float64 and rounded once, so the kernel's (float32 logf,
+sqrtf, sincospif) lie within a few ulps of them.
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ from nestmc_torch.ops.cuda.common import ptr, stream_of
 
 MODES = {"words": 0, "uniform": 1, "log_uniform": 2, "normal": 3}
 # float32 operations of an element's conversion (the cost model's n): the
-# uniform's scale and offset, its log, Box-Muller's log, square root,
-# cospi and scalings
-FLOAT_OPS = {"words": 0, "uniform": 2, "log_uniform": 3, "normal": 10}
+# uniform's scale and offset; its log; a normal pair's two uniforms, one
+# log, its -2 scaling, one square root, 2 u2, one sincospi (two values)
+# and two products: 12 a pair
+FLOAT_OPS = {"words": 0, "uniform": 2, "log_uniform": 3, "normal": 6}
 _M32 = 0xFFFFFFFF
 _MUL = (0xD2511F53, 0xCD9E8D57)
 _WEYL = (0x9E3779B9, 0xBB67AE85)
@@ -88,29 +94,44 @@ def philox_fill_plain(shape, key, c0: int, u0: int, U: int, mode: str,
     """The fill of a (C, Ul, *rest) block (see the module), computed with
     PyTorch's integer ops on ``device``: the CPU wherever the port runs
     it; the card only to hold the kernel against it."""
-    _, _, base, stride = block_layout(shape, c0, u0, U)
-    k0, k1 = (int(w) & _M32 for w in key.tolist())
-    # g in the block's own (C, Ul, K) shape, then flat
-    K = math.prod(int(s) for s in shape[2:])
-    g = (base + torch.arange(int(shape[0]), dtype=torch.int64,
-                             device=device).reshape(-1, 1, 1) * stride
-         + torch.arange(int(shape[1]) * K, dtype=torch.int64,
-                        device=device).reshape(1, -1, K))
-    x, y, _, _ = philox_words(g.reshape(-1), k0, k1)
-    if mode == "words":
-        out = torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
-    elif mode == "uniform":
-        out = _unit(x)
-    elif mode == "log_uniform":
-        out = torch.log(_unit(x).to(torch.float64)).to(torch.float32)
-    elif mode == "normal":
-        u1 = _unit(x).to(torch.float64)
-        u2 = _unit(y).to(torch.float64)
-        out = (torch.sqrt(-2.0 * torch.log(u1))
-               * torch.cos(2.0 * math.pi * u2)).to(torch.float32)
-    else:
+    if mode not in MODES:
         raise ValueError(f"philox_fill: unknown mode {mode!r}")
-    return out.reshape(tuple(shape))
+    rows, n, base, stride = block_layout(shape, c0, u0, U)
+    dtype = torch.int32 if mode == "words" else torch.float32
+    if rows * n == 0:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    k0, k1 = (int(w) & _M32 for w in key.tolist())
+    # row r's elements g = gs + j, j < n, are lanes (gs & 3) + j of the
+    # quads from gs >> 2 on, laid end to end. Every tensor is flat or
+    # shaped like the block (a (rows, n) tensor would be one of the
+    # unsharded run's extents for some blocks)
+    gs = base + torch.arange(rows, dtype=torch.int64, device=device) * stride
+    lead = gs & 3
+    nq = (int(lead.max()) + n + 3) // 4
+    i = torch.arange(rows * nq, dtype=torch.int64, device=device)
+    x, y, z, w = philox_words((gs >> 2).repeat_interleave(nq) + i % nq,
+                              k0, k1)
+    lanes = torch.empty(4 * rows * nq, dtype=dtype, device=device)
+    if mode == "words":
+        for at, v in enumerate((x, y, z, w)):
+            lanes[at::4] = torch.where(v >= 2 ** 31, v - 2 ** 32, v)
+    elif mode == "uniform":
+        for at, v in enumerate((x, y, z, w)):
+            lanes[at::4] = _unit(v)
+    elif mode == "log_uniform":
+        for at, v in enumerate((x, y, z, w)):
+            lanes[at::4] = torch.log(_unit(v).to(torch.float64))
+    else:
+        for at, (a, b) in ((0, (x, y)), (2, (z, w))):
+            r = torch.sqrt(-2.0 * torch.log(_unit(a).to(torch.float64)))
+            t = 2.0 * math.pi * _unit(b).to(torch.float64)
+            lanes[at::4] = r * torch.cos(t)
+            lanes[at + 1::4] = r * torch.sin(t)
+    start = torch.arange(rows, dtype=torch.int64, device=device) * (4 * nq)
+    idx = ((start + lead).reshape((-1,) + (1,) * (len(shape) - 1))
+           + torch.arange(n, dtype=torch.int64,
+                          device=device).reshape((1,) + tuple(shape[1:])))
+    return lanes[idx]
 
 
 @costed(_describe)

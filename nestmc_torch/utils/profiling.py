@@ -92,8 +92,8 @@ def kernel_work(kernel: str, C: int, G: int, n: int, p: int,
     C x G is the block's rows x their elements and ``n`` the float32
     operations of an element's conversion (ops/cuda/philox_fill.FLOAT_OPS);
     it writes 4 bytes an element and reads two key words. Its Philox
-    rounds are integer instructions, which the float32 rate does not
-    bound."""
+    rounds (one call a quad of four elements) are integer instructions,
+    which the float32 rate does not bound."""
     if kernel == "philox_fill":
         return 4 * C * G + 8, C * G * n
     if kernel.startswith("seg_"):

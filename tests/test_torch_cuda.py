@@ -1528,31 +1528,44 @@ def test_group_sharded_gloo_run_on_the_card_steps_eagerly(graph_ranks):
     assert [s["groups_sweep"] for _, s in graph_ranks] == ["eager", "eager"]
 
 
+# (whole shape, U, block shape, c0, u0): a K=3 block on quads; a K=1 (9,
+# 11) fill whose rows straddle quads, its block of chains 1.. and units 6..
+# starting at a quad's lane 1; a K=3 fill of an odd unit count (rows 39
+# elements apart), its block starting at element 87 (lane 3)
+FILL_CASES = [((33, 100, 3), 100, (28, 30, 3), 5, 40),
+              ((9, 11), 11, (8, 5), 1, 6),
+              ((7, 13, 3), 13, (5, 7, 3), 2, 3)]
+
+
 @pytest.mark.parametrize("mode", ["words", "uniform", "log_uniform",
                                   "normal"])
 def test_philox_fill_matches_plain(dev, mode):
     """The unit-axis noise fill (csrc/philox_fill.cu) against its plain
-    version run on the card: words and uniforms bitwise, log uniforms and
-    normals within 8 ulps, an ulp counted at least 2^-23 (float32 logf,
-    sqrtf, cospif against float64 rounded once; cospif is good to about
-    4e-7 absolute near its zeros); a block of chains 5.. and units 40..69
-    bitwise that block of the whole fill; one launch counted a call."""
+    version run on the card, whole and on a block, for each of FILL_CASES:
+    words and uniforms bitwise, log uniforms and normals within 8 ulps, an
+    ulp counted at least 2^-23 (float32 logf, sqrtf, sincospif against
+    float64 rounded once; sincospif is good to about 4e-7 absolute near
+    its zeros); the block bitwise that block of the whole fill; one launch
+    counted a call."""
     from nestmc_torch.ops.cuda.philox_fill import (
         philox_fill,
         philox_fill_plain,
     )
 
     key = torch.tensor([12345, -678], dtype=torch.int32, device=dev)
-    reset_launch_counts()
-    out = philox_fill((33, 100, 3), key, 0, 0, 100, mode, dev)
-    part = philox_fill((28, 30, 3), key, 5, 40, 100, mode, dev)
-    torch.cuda.synchronize()
-    assert LAUNCHES["philox_fill"] == 2
-    assert torch.equal(part, out[5:, 40:70])
-    ref = philox_fill_plain((33, 100, 3), key, 0, 0, 100, mode, device=dev)
-    if mode in ("words", "uniform"):
-        assert torch.equal(out, ref)
-    else:
-        ulp = (torch.nextafter(ref.abs(), torch.full_like(
-            ref, float("inf"))) - ref.abs()).clamp_min(2.0 ** -23)
-        assert bool(((out - ref).abs() <= 8 * ulp).all())
+    for shape, U, bshape, c0, u0 in FILL_CASES:
+        reset_launch_counts()
+        out = philox_fill(shape, key, 0, 0, U, mode, dev)
+        part = philox_fill(bshape, key, c0, u0, U, mode, dev)
+        torch.cuda.synchronize()
+        assert LAUNCHES["philox_fill"] == 2
+        assert torch.equal(part, out[c0:, u0:u0 + bshape[1]]), shape
+        for got, args in ((out, (shape, key, 0, 0, U)),
+                          (part, (bshape, key, c0, u0, U))):
+            ref = philox_fill_plain(*args, mode, device=dev)
+            if mode in ("words", "uniform"):
+                assert torch.equal(got, ref), args[0]
+            else:
+                ulp = (torch.nextafter(ref.abs(), torch.full_like(
+                    ref, float("inf"))) - ref.abs()).clamp_min(2.0 ** -23)
+                assert bool(((got - ref).abs() <= 8 * ulp).all()), args[0]

@@ -14,6 +14,11 @@ The fill (ops/cuda/philox_fill, plain version on the CPU): a chain slice,
 a unit slice and a block of it equal that slice of the whole fill bit for
 bit, SweepRNG's unit-axis draws on a shard are the unsharded draws' slice,
 and its normals and uniforms pass Kolmogorov-Smirnov tests at n = 1e6.
+Its mapping is pinned against an independent scalar Philox-4x32-10 (itself
+held to Random123's known answers): element g takes word g & 3 of the call
+at counter g >> 2, at every lane, across row edges and from a block that
+starts off a quad; the normals' Box-Muller pairs have radii x0^2 + x1^2
+exponential with mean 2, and the lanes of a quad are uncorrelated.
 """
 
 import os
@@ -25,7 +30,11 @@ import torch
 
 from nestmc_torch import sample
 from nestmc_torch.checkpoint import latest_tag
-from nestmc_torch.ops.cuda.philox_fill import MODES, philox_fill_plain
+from nestmc_torch.ops.cuda.philox_fill import (
+    MODES,
+    philox_fill_plain,
+    philox_words,
+)
 from nestmc_torch.rng import SweepRNG
 from tests._torch_dist_worker import (
     SHARE_C,
@@ -159,6 +168,126 @@ def test_sweep_rng_fill_is_the_unsharded_draws_slice():
                            lu[3:, 2:6])
     for k, st in whole.get_state().items():
         assert torch.equal(part.get_state()[k], st), k
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _philox_scalar(ctr, key):
+    """Philox-4x32-10 (Salmon et al. 2011) on Python ints, written from the
+    paper's round function: hi(M0 x0) ^ x1 ^ k0, lo(M1 x2), hi(M1 x2)...
+    with the Weyl key bumps; an independent reference for the port's."""
+    x0, x1, x2, x3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        p0, p1 = 0xD2511F53 * x0, 0xCD9E8D57 * x2
+        x0, x1, x2, x3 = (((p1 >> 32) ^ x1 ^ k0) & _M32, p1 & _M32,
+                          ((p0 >> 32) ^ x3 ^ k1) & _M32, p0 & _M32)
+        k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+    return x0, x1, x2, x3
+
+
+# Random123's known answers for philox4x32 with 10 rounds (kat_vectors):
+# (counter, key, output)
+_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((_M32,) * 4, (_M32, _M32),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", _KAT)
+def test_philox_round_function_gives_random123s_known_answers(ctr, key, want):
+    assert _philox_scalar(ctr, key) == want
+    if ctr[2:] == (0, 0):     # philox_words takes counters (g lo, g hi, 0, 0)
+        g = torch.tensor([ctr[0] | ctr[1] << 32], dtype=torch.int64)
+        got = tuple(int(w[0]) for w in philox_words(g, *key))
+        assert got == want
+
+
+def _unit_f32(word: int) -> float:
+    """bits_to_unit: (b >> 8) 2^-24 + 2^-25 rounded once to float32."""
+    return float(np.float32((word >> 8) * 2.0 ** -24 + 2.0 ** -25))
+
+
+def _element(g: int, key, mode: str) -> float:
+    """Element g of the fill from the scalar Philox: word g & 3 of the
+    call at counter (g >> 2 mod 2^32, g >> 34, 0, 0)."""
+    q, lane = g >> 2, g & 3
+    w = _philox_scalar((q & _M32, q >> 32, 0, 0), key)
+    if mode == "words":
+        return float(np.uint32(w[lane]).view(np.int32))
+    if mode == "uniform":
+        return _unit_f32(w[lane])
+    if mode == "log_uniform":
+        return float(np.float32(np.log(np.float64(_unit_f32(w[lane])))))
+    pair = 2 * (lane // 2)
+    r = np.sqrt(-2.0 * np.log(np.float64(_unit_f32(w[pair]))))
+    t = 2.0 * np.pi * np.float64(_unit_f32(w[pair + 1]))
+    return float(np.float32(r * (np.cos(t) if lane % 2 == 0 else np.sin(t))))
+
+
+# (shape, c0, u0, U): the whole of a (2, 3) K=1 fill, whose quads straddle
+# its rows; a K=3 block of chains 1.. and units 2..6 of 7 (base 27, a
+# quad's lane 3; rows 21 elements apart start at lanes 3, 0, 1); a block
+# near 2^36 elements (the counter's high words 3 and 5)
+_MAP_CASES = [((2, 3), 0, 0, 3), ((3, 5, 3), 1, 2, 7),
+              ((2, 6), 1, 2 ** 35 - 9, 2 ** 35)]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_fill_maps_each_element_to_its_quads_lane(mode):
+    key = torch.tensor([-123456789, 987654321], dtype=torch.int32)
+    kw = tuple(int(w) & _M32 for w in key.tolist())
+    lanes = set()
+    for shape, c0, u0, U in _MAP_CASES:
+        out = philox_fill_plain(shape, key, c0, u0, U, mode)
+        K = int(np.prod(shape[2:], dtype=np.int64))
+        base, stride = (c0 * U + u0) * K, U * K
+        flat = out.reshape(shape[0], -1)
+        for r in range(shape[0]):
+            for j in range(flat.shape[1]):
+                g = base + r * stride + j
+                lanes.add(g & 3)
+                want = _element(g, kw, mode)
+                got = float(flat[r, j])
+                if mode in ("words", "uniform"):
+                    assert got == want, (shape, r, j)
+                else:   # float64 libm against torch's: one float32 ulp
+                    assert abs(got - want) <= abs(float(np.spacing(
+                        np.float32(want)))), (shape, r, j, got, want)
+    assert lanes == {0, 1, 2, 3}
+
+
+def test_normal_pairs_have_exponential_radii_at_a_million():
+    """x0^2 + x1^2 and x2^2 + x3^2 of a quad's normals are -2 log u1:
+    exponential with mean 2 (KS), for each pair of the 250,000 quads."""
+    key = torch.tensor([77, -99], dtype=torch.int32)
+    x = philox_fill_plain((1000, 1000), key, 0, 0, 1000,
+                          "normal").double().reshape(-1, 4).numpy()
+    for a in (0, 2):
+        r2 = x[:, a] ** 2 + x[:, a + 1] ** 2
+        p = scipy.stats.kstest(r2, scipy.stats.expon(scale=2.0).cdf).pvalue
+        assert p > 1e-3, (a, p)
+
+
+@pytest.mark.parametrize("mode", ["normal", "uniform"])
+def test_lanes_of_a_quad_are_uncorrelated_at_a_million(mode):
+    """The four lanes of 250,000 quads, and for normals their squares
+    (a shared radius or angle shows there): every correlation between two
+    lanes within 4 / sqrt(n)."""
+    key = torch.tensor([31337, 4242], dtype=torch.int32)
+    x = philox_fill_plain((1000, 1000), key, 0, 0, 1000,
+                          mode).double().reshape(-1, 4).numpy()
+    bound = 4.0 / np.sqrt(x.shape[0])
+    for v in ((x, x ** 2) if mode == "normal" else (x,)):
+        rho = np.corrcoef(v, rowvar=False)
+        off = np.abs(rho[~np.eye(4, dtype=bool)])
+        assert off.max() < bound, (rho, bound)
 
 
 @pytest.mark.parametrize("mode", ["normal", "uniform"])
