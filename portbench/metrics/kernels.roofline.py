@@ -1,0 +1,10 @@
+"""kernels.roofline (%): the summed least times of the hand-written
+kernels' launches in the traced stretch (portbench/roofline.py at this
+process's shapes), over their summed device times."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t.counted_s <= 0.0:
+        return None
+    return 100.0 * t.bound_s / t.counted_s
