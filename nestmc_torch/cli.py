@@ -13,7 +13,9 @@ recovery: the carry, the RNG and the streamed R-hat accumulators), --scale
 (shrink a preset), --collect and --save-draws (an npz of the draws in the
 reference's layout, with ``__meta__`` a JSON string, and the streamed
 all-parameter R-hat as ``__full_rhat__.<block>``), --metric-json (the
-benchmark metric line), --profile DIR (a torch.profiler trace),
+benchmark metric line), --profile DIR (a torch.profiler trace with the
+draw step's device-timed spans as a track of their own; ``timings`` then
+holds each span's ms a sweep, which --metric-json prints),
 --debug-nans (fail at the first segment whose position holds a NaN).
 --cost-analysis (one sweep's flops, bytes and speed-of-light sweeps/s on
 stderr before the run: utils/profiling.sweep_cost, the kernels' work and
@@ -78,7 +80,8 @@ def _build_parser():
                    help="resume from the latest checkpoint in "
                         "--checkpoint-dir")
     r.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler trace to DIR")
+                   help="write a torch.profiler trace to DIR, with the draw "
+                        "step's device-timed spans (timings['spans'])")
     r.add_argument("--log-rhat", action="store_true",
                    help="log the worst split R-hat of the draws so far "
                         "each segment")
@@ -274,7 +277,7 @@ def cmd_run(args) -> int:
     try:
         with prof:
             post = sample(model, data, cfg, debug_nans=args.debug_nans,
-                          **kw)
+                          spans=bool(args.profile), **kw)
     except FloatingPointError as e:
         print(f"run: {e}", file=sys.stderr)
         return 1
@@ -284,10 +287,12 @@ def cmd_run(args) -> int:
     if not primary:
         return 0
     if args.profile:
-        from nestmc_torch.utils.profiling import trace_path
+        from nestmc_torch.utils.profiling import add_track, trace_path
 
-        print("profile trace written to "
-              f"{trace_path(args.profile, args.preset)}", file=sys.stderr)
+        path = trace_path(args.profile, args.preset)
+        if post.spans is not None:
+            add_track(path, post.spans.events())
+        print(f"profile trace written to {path}", file=sys.stderr)
 
     if args.save_draws:
         full = {f"__full_rhat__.{k}": v.cpu().numpy()

@@ -74,7 +74,15 @@ allocated at that entry (the caller's own tensors), in GB:
 ``peak_mem_gb`` through the last sweep and the finalize, and
 ``peak_mem_gb_gather`` through the final gathers (the draws) too. Each
 segment runs under a profiler span, ``nestmc.warmup.seg{i}`` or
-``nestmc.sample.seg{i}`` (utils/profiling.annotate), as the reference's.
+``nestmc.sample.seg{i}`` (utils/profiling.span), as the reference's, and
+the fold flush and the finalize of the streamed R-hat under
+``nestmc.finalize``. With ``spans`` the draw step records its
+device-timed spans (segments.py, kernels/gibbs.py): ``timings`` gains
+``"spans"`` (utils/profiling.Spans.summary: each span's parent, role and
+ms a sweep) and ``"spans_clock"`` (the stamps' offset from the profiler's
+clock, utils/profiling.clock_offset), and ``Posterior.spans`` holds the
+recorder (its ``events()`` are the track utils/profiling.add_track adds
+to a trace).
 
 Not ported: the reference's remote-backend warm-up and compile retries.
 """
@@ -126,7 +134,7 @@ from nestmc_torch.posterior import Posterior
 from nestmc_torch.rng import SweepRNG
 from nestmc_torch.segments import DrawProgram, WarmupProgram, capturable
 from nestmc_torch.utils.logging import get_logger
-from nestmc_torch.utils.profiling import annotate
+from nestmc_torch.utils.profiling import span
 
 log = get_logger()
 
@@ -342,6 +350,7 @@ def sample(
     init_acc=None,
     draws_offset: int = 0,
     debug_nans: bool = False,
+    spans: bool = False,
     _eager: bool = False,
 ) -> Posterior:
     """Run the sampler on the data's device (data_device: its ``device``,
@@ -356,7 +365,9 @@ def sample(
     schedule and only the remaining draws run. A full_rhat run resumed
     past draw 0 without them raises: its gate would cover the remaining
     draws only. debug_nans: raise FloatingPointError at the first segment
-    whose position holds a NaN. A sharded config (cfg.sharding) runs as
+    whose position holds a NaN. spans: record the draw step's
+    device-timed spans (off by default; the module's notes). A sharded
+    config (cfg.sharding) runs as
     one rank of a multi-process run: every rank passes the same full
     data, and init_state and init_acc either in the global layout (cut
     here) or as this rank's part on the same mesh (a sharded run's
@@ -413,7 +424,7 @@ def sample(
         with activate(shard):
             return _run(model, data, cfg, rng, state, sweep, timings, shard,
                         skip_warmup, resumed, init_acc,
-                        draws_offset, debug_nans, mem0, graph)
+                        draws_offset, debug_nans, mem0, graph, spans)
     finally:
         if shard is not None:
             rng.chains = None
@@ -421,10 +432,11 @@ def sample(
 
 def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
          resumed, init_acc, draws_offset, debug_nans, mem0,
-         graph) -> Posterior:
+         graph, spans) -> Posterior:
     """sample()'s two phases on this rank's carry (the whole carry
     unsharded), then the gather of what the Posterior holds. graph: replay
-    each phase's captured step (segments.py), else step eagerly."""
+    each phase's captured step (segments.py), else step eagerly. spans:
+    the draw step records its spans."""
     rc = cfg.run
     D = rc.draws
     streamed = rc.full_rhat and D > 0
@@ -486,7 +498,7 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
                              max(n for _, n in segs), graph, pool, agree)
         state = prog.state()
         for i, (start, n) in enumerate(segs):
-            with annotate(f"nestmc.warmup.seg{i}"):
+            with span(f"warmup.seg{i}"):
                 prog.run(n)
             state = prog.state()
             if rc.log_every_segment and primary:
@@ -532,20 +544,21 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
     _sync(device)
     t_s = time.perf_counter()
     capture_s = 0.0
+    recorded = None
     if remaining > 0:
         segs = list(_segments(remaining, rc.segment_size))
         prog = DrawProgram(
             sweep, state, data, rng, cfg, std_acc, fold_acc,
             lambda pos: _collect(pos, rc.collect, model.derived, index),
             remaining, draws_offset, half_len, max(n for _, n in segs),
-            graph, pool, agree)
+            graph, pool, agree, spans)
         # the program's copies from here: the engine's first accumulators
         # and carry are let go
         state = prog.state()
         std_acc, fold_acc = prog.acc()
         draws = prog.draws
         for i, (start, n) in enumerate(segs):
-            with annotate(f"nestmc.sample.seg{i}"):
+            with span(f"sample.seg{i}"):
                 prog.run(n, draws_offset + start)
             state = prog.state()
             std_acc, fold_acc = prog.acc()
@@ -570,27 +583,33 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
                        {"draws_done": done, "has_acc": streamed})
         prog.close()
         capture_s = prog.capture_s
+        recorded = prog.spans
     _sync(device)
     timings["sample_s"] = time.perf_counter() - t_s - capture_s
     timings["capture_s"] = capture_w + capture_s
     timings["draws_run"] = remaining
+    if recorded is not None:
+        timings["spans"] = recorded.summary(model.unit_axes, rc.thin)
+        timings["spans_clock"] = recorded.clock
 
     full_rhat = full_ess = None
-    if streamed:
-        if fold_names:
-            # the in-sweep fold lags one draw: flush the last retained
-            # draw, the position, if the thinning selects it
-            last = D - 1
-            last_t = last // rthin if last % rthin == 0 else -1
-            fold_acc = dict(fold_acc)
-            for k in fold_names:
-                count, mean, m2 = fold_acc[k]
-                sc = fold_rhat_scalars(count, last_t, half_len)
-                nm, nm2 = fold_rhat_update(
-                    mean, m2, state.position[k].movedim(0, -1), sc
-                )
-                fold_acc[k] = (count + sc[:, 1], nm, nm2)
-        full_rhat, full_ess = _finalize((std_acc, fold_acc), shard, specs)
+    with span("finalize"):
+        if streamed:
+            if fold_names:
+                # the in-sweep fold lags one draw: flush the last retained
+                # draw, the position, if the thinning selects it
+                last = D - 1
+                last_t = last // rthin if last % rthin == 0 else -1
+                fold_acc = dict(fold_acc)
+                for k in fold_names:
+                    count, mean, m2 = fold_acc[k]
+                    sc = fold_rhat_scalars(count, last_t, half_len)
+                    nm, nm2 = fold_rhat_update(
+                        mean, m2, state.position[k].movedim(0, -1), sc
+                    )
+                    fold_acc[k] = (count + sc[:, 1], nm, nm2)
+            full_rhat, full_ess = _finalize((std_acc, fold_acc), shard,
+                                            specs)
     _mem_peak(timings, "peak_mem_gb", device, mem0)
 
     rates = {k: v / max(remaining * rc.thin, 1)
@@ -615,6 +634,7 @@ def _run(model, data, cfg, rng, state, sweep, timings, shard, skip_warmup,
         full_ess=full_ess,
         placement=placement,
         accept_mean=accept_mean,
+        spans=recorded,
     )
     post.final_state = state
     return post

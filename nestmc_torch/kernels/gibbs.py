@@ -15,6 +15,11 @@ Robbins-Monro (adapt.py) to their targets, and the blocks' preconditioner
 moments by their EMA; Newton-MH and a parameter-free (Laplace) move
 are never adapted, and ``adapt`` also selects the Newton metric's refresh
 (warmup) or frozen (sampling) form.
+
+Each sweep runs in a ``sweep`` span (utils/profiling.span), each block in
+``block.<name>`` (with the plain R-hat fold of a block whose fused step
+does not fold it) and each joint move in ``move.<name>``: device-timed
+spans when the caller records them (``sample(..., spans=True)``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from nestmc_torch.kernels.rwmh import rwmh_update
 from nestmc_torch.kernels.state import KernelState
 from nestmc_torch.model import ModelSpec
 from nestmc_torch.parallel.collectives import groups_sum, unit_span
+from nestmc_torch.utils.profiling import SWEEP, span
 
 _UPDATES = {"rwmh": rwmh_update, "mala": mala_update, "newton": newton_update}
 
@@ -168,81 +174,92 @@ def make_sweep(model: ModelSpec, cfg: SamplerConfig):
         fold_out = {}
         folds = rhat_fold or {}
 
-        for block in model.blocks:
-            name = block.name
-            if name in model.gibbs_draws:
-                position[name] = model.gibbs_draws[name](rng, position, data)
-                accept_sum[name] = accept_sum[name] + 1.0
-                continue
-            algorithm, hook, hook_folds, target = plan[name]
-            pstd = precond_std(precond.get(name), cfg.kernel)
-            if pstd is not None:
-                hook, hook_folds = None, False
-            kw = {"frozen": frozen} if algorithm == "newton" else {}
-            # Newton-MH's metric is the conditional's own Hessian: no pstd
-            plain_kw = kw if algorithm == "newton" else {"pstd": pstd}
-            fold_args = folds.get(name)
-            if fold_args is not None and not hook_folds:
-                fold_out[name] = fold_rhat_update(
-                    fold_args[0], fold_args[1],
-                    position[name].movedim(0, -1), fold_args[2],
-                )
-                fold_args = None
-            alphas = []
-            for r in range(max(1, block.repeats)):
-                if hook is None:
-                    new_value, alpha, new_cache = _UPDATES[algorithm](
-                        rng, block, model, position, log_scale[name], data,
-                        cache=cache.get(name), **plain_kw,
-                    )
-                elif fold_args is not None and r == 0:
-                    out = hook(rng, position, cache, log_scale[name], data,
-                               rhat_fold=fold_args, **kw)
-                    new_value, new_cache, alpha = out[:3]
-                    fold_out[name] = out[3]
-                else:
-                    new_value, new_cache, alpha = hook(
-                        rng, position, cache, log_scale[name], data, **kw
-                    )
-                position[name] = new_value
-                cache[name] = new_cache
-                alphas.append(alpha)
-            alpha = sum(alphas) / len(alphas)
-            accept_sum[name] = accept_sum[name] + alpha
-            if adapt and algorithm != "newton":
-                # scales shared across units see the mean over units (of
-                # every group shard when the block's units are split)
-                if alpha.shape[1] != log_scale[name].shape[1]:
-                    axis = model.unit_axes.get(name)
-                    if axis is not None and unit_span(axis) is not None:
-                        alpha = groups_sum(alpha, 1, keepdim=True) / (
-                            block.units)
-                    else:
-                        alpha = alpha.mean(dim=1, keepdim=True)
-                log_scale[name] = adapt_log_scale(
-                    log_scale[name], alpha, t, target, cfg.kernel, gain
-                )
-                precond[name] = update_precond(precond.get(name), new_value,
-                                               cfg.kernel)
+        with span(SWEEP):
+            for block in model.blocks:
+                name = block.name
+                with span("block." + name):
+                    if name in model.gibbs_draws:
+                        position[name] = model.gibbs_draws[name](
+                            rng, position, data)
+                        accept_sum[name] = accept_sum[name] + 1.0
+                        continue
+                    algorithm, hook, hook_folds, target = plan[name]
+                    pstd = precond_std(precond.get(name), cfg.kernel)
+                    if pstd is not None:
+                        hook, hook_folds = None, False
+                    kw = {"frozen": frozen} if algorithm == "newton" else {}
+                    # Newton-MH's metric is the conditional's own Hessian:
+                    # no pstd
+                    plain_kw = kw if algorithm == "newton" else {"pstd": pstd}
+                    fold_args = folds.get(name)
+                    if fold_args is not None and not hook_folds:
+                        fold_out[name] = fold_rhat_update(
+                            fold_args[0], fold_args[1],
+                            position[name].movedim(0, -1), fold_args[2],
+                        )
+                        fold_args = None
+                    alphas = []
+                    for r in range(max(1, block.repeats)):
+                        if hook is None:
+                            new_value, alpha, new_cache = _UPDATES[
+                                algorithm](
+                                rng, block, model, position, log_scale[name],
+                                data, cache=cache.get(name), **plain_kw,
+                            )
+                        elif fold_args is not None and r == 0:
+                            out = hook(rng, position, cache, log_scale[name],
+                                       data, rhat_fold=fold_args, **kw)
+                            new_value, new_cache, alpha = out[:3]
+                            fold_out[name] = out[3]
+                        else:
+                            new_value, new_cache, alpha = hook(
+                                rng, position, cache, log_scale[name], data,
+                                **kw
+                            )
+                        position[name] = new_value
+                        cache[name] = new_cache
+                        alphas.append(alpha)
+                    alpha = sum(alphas) / len(alphas)
+                    accept_sum[name] = accept_sum[name] + alpha
+                    if adapt and algorithm != "newton":
+                        # scales shared across units see the mean over
+                        # units (of every group shard when the block's units
+                        # are split)
+                        if alpha.shape[1] != log_scale[name].shape[1]:
+                            axis = model.unit_axes.get(name)
+                            if (axis is not None
+                                    and unit_span(axis) is not None):
+                                alpha = groups_sum(alpha, 1, keepdim=True) / (
+                                    block.units)
+                            else:
+                                alpha = alpha.mean(dim=1, keepdim=True)
+                        log_scale[name] = adapt_log_scale(
+                            log_scale[name], alpha, t, target, cfg.kernel,
+                            gain
+                        )
+                        precond[name] = update_precond(
+                            precond.get(name), new_value, cfg.kernel)
 
-        for mname, move in model.joint_moves.items():
-            alphas = []
-            for _ in range(max(1, model.joint_move_repeats.get(mname, 1))):
-                pos_up, cache_up, alpha = move(
-                    rng, position, cache, log_scale[mname].exp(), data,
-                    **({"frozen": frozen} if move_takes_frozen[mname]
-                       else {}),
-                )
-                position.update(pos_up)
-                cache.update(cache_up)
-                alphas.append(alpha[:, None])
-            alpha = sum(alphas) / len(alphas)
-            accept_sum[mname] = accept_sum[mname] + alpha
-            if adapt and move_target[mname] is not None:
-                log_scale[mname] = adapt_log_scale(
-                    log_scale[mname], alpha, t, move_target[mname],
-                    cfg.kernel, gain,
-                )
+            for mname, move in model.joint_moves.items():
+                with span("move." + mname):
+                    alphas = []
+                    repeats = model.joint_move_repeats.get(mname, 1)
+                    for _ in range(max(1, repeats)):
+                        pos_up, cache_up, alpha = move(
+                            rng, position, cache, log_scale[mname].exp(), data,
+                            **({"frozen": frozen} if move_takes_frozen[mname]
+                               else {}),
+                        )
+                        position.update(pos_up)
+                        cache.update(cache_up)
+                        alphas.append(alpha[:, None])
+                    alpha = sum(alphas) / len(alphas)
+                    accept_sum[mname] = accept_sum[mname] + alpha
+                    if adapt and move_target[mname] is not None:
+                        log_scale[mname] = adapt_log_scale(
+                            log_scale[mname], alpha, t, move_target[mname],
+                            cfg.kernel, gain,
+                        )
 
         new_state = KernelState(
             position=position,

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "nestmc_seg_loglik": [_P] * 5 + [_I] * 2 + [_P],
     "nestmc_seg_logp_grad": [_P] * 6 + [_I] * 2 + [_P],
     "nestmc_tile_plan": [_I, _I, _P],
+    "nestmc_span_mark": [_P, _P, _I, _I, _I, _P],
     "nestmc_scalar_abi": [],
 }
 

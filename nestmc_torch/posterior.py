@@ -30,6 +30,9 @@ class Posterior:
     give the global layout, a collective every rank calls), and
     accept_mean holds each block's global mean acceptance, which the
     summaries report. Both are None unsharded.
+
+    spans: the draw step's span recorder (utils/profiling.Spans) of a
+    ``sample(..., spans=True)`` run, else None.
     """
 
     draws: dict
@@ -41,6 +44,7 @@ class Posterior:
     full_ess: dict | None = None
     placement: object | None = None
     accept_mean: dict | None = None
+    spans: object | None = None
     _diag_cache: dict | None = None
 
     def _mean_accept(self, name: str):

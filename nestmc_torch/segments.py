@@ -53,6 +53,16 @@ with XLA's psums over groups inside them):
   kernel launches (ops/cuda.LAUNCHES) and collective calls
   (collectives.STATS), are counted again at each replay. A capture that
   fails raises; there is no eager retry.
+- A step runs in the span ``step`` (utils/profiling.span), its copy back
+  in ``step.copy_back``, and the draw step's streamed R-hat update and
+  collection in ``step.rhat_update`` and ``step.collect``; the host's
+  work on a segment in ``segment.tables``, ``segment.lockstep``,
+  ``segment.keys`` and ``segment.replay``, a capture's in
+  ``capture.probe`` and ``capture.graph``. A program made with ``spans``
+  records each step's device-timed spans (utils/profiling.Spans): the
+  marks of a captured step are nodes of its graph, written at the row of
+  the step counter, and the rows are read to the host after each
+  segment.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from nestmc_torch.diagnostics import (
 from nestmc_torch.kernels.state import KernelState
 from nestmc_torch.ops.cuda import LAUNCHES
 from nestmc_torch.parallel.collectives import STATS
+from nestmc_torch.utils.profiling import Spans, recording, span
 
 # key word pairs the probe step offers one sweep (a sweep of a built-in
 # model takes one a fused step, a few with size buckets)
@@ -120,10 +131,12 @@ class _Program:
     its own, all sharing the pool (replayed one at a time on one stream,
     and no graph's memory holds a value past its replay). agree: in a
     sharded run that captures, collectives.lockstep on the run's device
-    (failed, digest) -> (some rank failed, all digests equal)."""
+    (failed, digest) -> (some rank failed, all digests equal). spans: record
+    each step's device-timed spans (utils/profiling.Spans, in
+    :attr:`spans`), read after each segment."""
 
     def __init__(self, carry, device, capacity: int, sweeps: int, rng,
-                 graph: bool, pool, agree=None):
+                 graph: bool, pool, agree=None, spans: bool = False):
         self.device = torch.device(device)
         leaves, self._spec = tree_flatten(carry)
         # the step's buffers: copies, so a caller's carry is never written
@@ -145,6 +158,8 @@ class _Program:
         self._graphs = {}               # {variant: captured CUDA graph}
         self._replay_counts = {}        # {variant: host counts a replay}
         self.capture_s = 0.0
+        self.spans = (Spans(self.device, capacity, sweeps, self.step_i)
+                      if spans else None)
 
     # ---- the carry ----
     def carry(self):
@@ -207,8 +222,15 @@ class _Program:
 
     # ---- a step ----
     def _step(self, variant) -> None:
-        new = self._compute(self.carry(), self._rows(), variant)
-        self._assign(new)
+        """One step: the root span ``step`` over the step's work and its
+        copy back, recorded when the program records spans; the step
+        counter advanced after it (so that its exit mark is the step's
+        row)."""
+        with recording(self.spans, variant):
+            with span("step"):
+                new = self._compute(self.carry(), self._rows(), variant)
+                with span("step.copy_back"):
+                    self._assign(new)
         self.step_i.add_(1)
 
     def _variants(self, n: int, *table_args) -> list:
@@ -220,11 +242,13 @@ class _Program:
         """Run the next n steps: fill the tables for them, then step
         eagerly or replay each step's captured variant (capturing it at
         its first use; sharded, after the ranks' lockstep check)."""
-        variants = self._variants(n, *table_args)
-        self._fill(self._tables(n, *table_args))
+        with span("segment.tables"):
+            variants = self._variants(n, *table_args)
+            self._fill(self._tables(n, *table_args))
         if not self.graph:
             for v in variants:
                 self._step(v)
+            self._read_spans(variants)
             return
         failed = True
         try:
@@ -234,17 +258,25 @@ class _Program:
             failed = False
         finally:
             if self.agree is not None:
-                self._lockstep(failed, variants)
+                with span("segment.lockstep"):
+                    self._lockstep(failed, variants)
         K = self.keys_per_sweep
         if K:
-            words = self.rng.key_table(n * self.sweeps * K)
-            self._keys[:n * self.sweeps].copy_(
-                words.reshape(n * self.sweeps, K, 2).to(self.device))
-        for v in variants:
-            self._graphs[v].replay()
+            with span("segment.keys"):
+                words = self.rng.key_table(n * self.sweeps * K)
+                self._keys[:n * self.sweeps].copy_(
+                    words.reshape(n * self.sweeps, K, 2).to(self.device))
+        with span("segment.replay"):
+            for v in variants:
+                self._graphs[v].replay()
         for v in variants:
             for (kind, k), c in self._replay_counts[v].items():
                 (LAUNCHES if kind == "launch" else STATS)[k] += c
+        self._read_spans(variants)
+
+    def _read_spans(self, variants) -> None:
+        if self.spans is not None:
+            self.spans.read(variants)
 
     def _lockstep(self, failed: bool, variants) -> None:
         """A sharded run's check before a segment's replays: every rank
@@ -284,7 +316,7 @@ class _Program:
         side.wait_stream(torch.cuda.current_stream(self.device))
         self._mode, self._taken = "probe", []
         try:
-            with torch.cuda.stream(side):
+            with span("capture.probe"), torch.cuda.stream(side):
                 self._compute(self.carry(), self._rows(), variant)
             self._taken.append(rng.keys_taken)
         finally:
@@ -316,7 +348,8 @@ class _Program:
             # collectives too, since ProcessGroupNCCL's watchdog thread
             # does not track captured work (checked on four H100s, torch
             # 2.11, NCCL 2.28)
-            with torch.cuda.graph(g, pool=self.pool, stream=side):
+            with span("capture.graph"), torch.cuda.graph(
+                    g, pool=self.pool, stream=side):
                 self._step(variant)
             self._taken.append(rng.keys_taken)
         finally:
@@ -385,14 +418,14 @@ class DrawProgram(_Program):
     def __init__(self, sweep, state: KernelState, data, rng, cfg, std_acc,
                  fold_acc, collect, draws_len: int, draws_offset: int,
                  half_len: int, capacity: int, graph: bool, pool,
-                 agree=None):
+                 agree=None, spans: bool = False):
         carry = {
             "state": _state_tree(state),
             "fold": {k: (m, m2) for k, (_, m, m2) in fold_acc.items()},
             "std": {k: (m, m2) for k, (_, m, m2) in std_acc.items()},
         }
         super().__init__(carry, state_device(state), capacity,
-                         cfg.run.thin, rng, graph, pool, agree)
+                         cfg.run.thin, rng, graph, pool, agree, spans)
         self.sweep = sweep
         self.data = data
         self.thin = cfg.run.thin
@@ -445,19 +478,22 @@ class DrawProgram(_Program):
             state = self._sweep(state, self.data, False, self.rng)
         std = carry["std"]
         if update:
-            std = {k: streaming_rhat_update_at(
-                {k: (None, m, m2)}, state.position, rows["act." + k],
-                rows["cnt." + k])[k] for k, (m, m2) in std.items()}
-        views = self.collect(state.position)
-        if not self.draws:
-            # allocated at the first draw (captured: the probe's), outside
-            # any graph's pool
-            self.draws.update({k: torch.empty(
-                (v.shape[0], self.draws_len) + tuple(v.shape[1:]),
-                dtype=v.dtype, device=v.device) for k, v in views.items()})
-        col = rows["col"].reshape(1)
-        for k, v in views.items():
-            self.draws[k].index_copy_(1, col, v.unsqueeze(1))
+            with span("step.rhat_update"):
+                std = {k: streaming_rhat_update_at(
+                    {k: (None, m, m2)}, state.position, rows["act." + k],
+                    rows["cnt." + k])[k] for k, (m, m2) in std.items()}
+        with span("step.collect"):
+            views = self.collect(state.position)
+            if not self.draws:
+                # allocated at the first draw (captured: the probe's),
+                # outside any graph's pool
+                self.draws.update({k: torch.empty(
+                    (v.shape[0], self.draws_len) + tuple(v.shape[1:]),
+                    dtype=v.dtype, device=v.device)
+                    for k, v in views.items()})
+            col = rows["col"].reshape(1)
+            for k, v in views.items():
+                self.draws[k].index_copy_(1, col, v.unsqueeze(1))
         return {"state": _state_tree(state), "fold": fold, "std": std}
 
     def state(self) -> KernelState:

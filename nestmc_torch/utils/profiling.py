@@ -1,10 +1,38 @@
 """Profiling helpers: port of :mod:`nestmc.utils.profiling`.
 
 - ``trace(directory)``: torch.profiler over a block, its Chrome trace
-  written to the directory (the command line's ``--profile DIR``), and
-  ``annotate(name)``: a labelled span in that trace (the engine's
-  ``nestmc.warmup.seg{i}`` and ``nestmc.sample.seg{i}``).
+  written to the directory (the command line's ``--profile DIR``);
+  :func:`add_track` adds a finished call's device-timed spans to it as a
+  track of their own.
+- ``span(name)``: a labelled region, the one span system of the port
+  (below).
 - ``sweep_cost``: the cost of one sweep, below.
+
+Spans. ``span(name)`` is a ``torch.profiler.record_function`` named
+``nestmc.<name>`` (the engine's ``nestmc.warmup.seg{i}`` and
+``nestmc.sample.seg{i}``, as the reference's; the segment programs'
+``nestmc.segment.*`` and ``nestmc.capture.*``; the engine's
+``nestmc.finalize``), so trace reductions treat its device mirror as an
+annotation. While a :class:`Spans` recorder is armed (:data:`RECORDER`,
+set by :func:`recording` around a step of a program that records spans:
+``engine.sample(..., spans=True)``'s draw step), the span is also timed
+where its work runs: its entry and exit each write a stamp into the
+program's stamp table, an int64 (steps, slots) tensor allocated once
+when the recorder is made, at the row of the program's step counter. On
+the card a stamp is a one-thread kernel (csrc/span_mark.cu) that writes
+``%globaltimer``, so a captured step's marks are nodes of its graph and
+every replay writes its own row with no host step between replays; on
+the CPU it is the host's ``time.perf_counter_ns``. Slots are given out in
+the order the step records them (at capture, for a graph); a span opened
+right after its previous sibling closed shares that sibling's exit mark,
+and work issued between two siblings counts in the second. Each span's
+record holds its name, its parent, the sweep of its step it belongs to
+(the spans inside the k-th ``sweep`` span share index k), its two slots
+and the counts taken inside it as it was recorded: hand-written kernel
+launches (ops/cuda.LAUNCHES) and ``groups_sum`` calls (collectives.STATS).
+Disarmed, a span costs one global read besides the record_function: no
+mark is launched or captured, no table allocated and nothing copied to
+the host.
 
 The cost of one sweep: port of :func:`nestmc.utils.profiling.sweep_cost`.
 
@@ -37,11 +65,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
+import re
+import time
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from nestmc_torch.ops.cuda import LAUNCHES, _build
+from nestmc_torch.parallel.collectives import STATS
 
 @contextlib.contextmanager
 def trace(directory: str, name: str = "trace", cuda: bool | None = None):
@@ -64,10 +99,312 @@ def trace_path(directory: str, name: str = "trace") -> str:
     return os.path.join(directory, f"{name}.trace.json")
 
 
-def annotate(name: str):
-    """Label a region in the profiler timeline (a no-op's cost when no
-    profiler runs)."""
-    return torch.profiler.record_function(name)
+def add_track(path: str, events: list) -> None:
+    """Insert the spans ``events`` [(name, start ns, end ns, args)], on
+    the profiler's clock (Unix ns; :meth:`Spans.events`), at the head of the traceEvents of the
+    Chrome trace at ``path`` as the track 'nestmc spans (device)' (into
+    the text: a whole run's trace is too large to decode and encode
+    again)."""
+    with open(path) as f:
+        text = f.read()
+    m = re.search(r'"baseTimeNanoseconds"\s*:\s*(\d+)', text)
+    base = int(m.group(1)) if m else 0
+    pid = "nestmc spans (device)"
+    items = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+              "args": {"name": pid}}]
+    items += [{"name": "nestmc." + name, "ph": "X", "cat": "span",
+               "pid": pid, "tid": 0, "ts": (t0 - base) / 1e3,
+               "dur": (t1 - t0) / 1e3, "args": args}
+              for name, t0, t1, args in events]
+    at = re.search(r'"traceEvents"\s*:\s*\[', text).end()
+    sep = "" if text[at:].lstrip().startswith("]") else ","
+    with open(path, "w") as f:
+        f.write(text[:at] + ",".join(map(json.dumps, items)) + sep
+                + text[at:])
+
+
+# the armed span recorder (a program's Spans while a step of it records),
+# else None: a disarmed span reads this one global
+RECORDER = None
+# the span of one sweep: the spans inside the k-th of a step share index k
+SWEEP = "sweep"
+# the stamp table's slots a sweep (at most two marks a span: the sweep's
+# and those of up to 31 blocks and joint moves) and a step's own (the step,
+# the streamed update, the collection, the copy back)
+SLOTS_PER_SWEEP = 64
+SLOTS_PER_STEP = 16
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A labelled region: the profiler span ``nestmc.<name>`` and, while a
+    recorder is armed, a device-timed span of its program (the module's
+    notes)."""
+    rec = RECORDER
+    with torch.profiler.record_function("nestmc." + name):
+        if rec is None:
+            yield
+            return
+        rec.enter(name)
+        try:
+            yield
+        finally:
+            rec.exit()
+
+
+@contextlib.contextmanager
+def recording(rec, variant):
+    """Arm ``rec`` (a :class:`Spans`, or None: nothing) for one step of
+    its program, the step's variant ``variant``."""
+    global RECORDER
+    if rec is None:
+        yield
+        return
+    rec.begin()
+    RECORDER = rec
+    try:
+        yield
+    finally:
+        RECORDER = None
+    rec.end(variant)
+
+
+def span_role(name: str, unit_blocks) -> str:
+    """The role of span ``name``: a block whose name is in
+    ``unit_blocks`` (the model's unit_axes) is a unit block, every other
+    block a population block; ``move.*`` a joint move; ``step.copy_back``
+    the copy back; the rest (the step, the sweep, the streamed R-hat
+    update, the collection) rest."""
+    if name.startswith("block."):
+        return ("unit block" if name[len("block."):] in unit_blocks
+                else "population block")
+    if name.startswith("move."):
+        return "joint move"
+    return "copy back" if name == "step.copy_back" else "rest"
+
+
+def clock_offset(device, tries: int = 8) -> dict:
+    """{'offset_ns', 'uncertainty_ns'}: the ns to add to a stamp of
+    ``device`` (the card's %globaltimer; the CPU's perf_counter_ns) to put
+    it on the clock torch.profiler stamps its events with (Unix time,
+    time.time_ns), from the tightest of ``tries`` host readings around one
+    synchronised mark: the mark ran between them, the offset is taken at
+    their middle and the uncertainty is half their distance."""
+    device = torch.device(device)
+    best = None
+    if device.type == "cuda":
+        lib = _build.shared_library()
+        table = torch.zeros(1, dtype=torch.long, device=device)
+        row = torch.zeros(1, dtype=torch.long, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+    for _ in range(tries):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            h0 = time.time_ns()
+            _build.check(lib.nestmc_span_mark(table.data_ptr(),
+                                              row.data_ptr(), 0, 1, 1,
+                                              stream), "span_mark")
+            torch.cuda.synchronize(device)
+            h1 = time.time_ns()
+            stamp = int(table.item())
+        else:
+            h0 = time.time_ns()
+            stamp = time.perf_counter_ns()
+            h1 = time.time_ns()
+        if best is None or h1 - h0 < best[1]:
+            best = ((h0 + h1) // 2 - stamp, h1 - h0)
+    return {"offset_ns": int(best[0]), "uncertainty_ns": best[1] / 2}
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span of a recorded step: its name, its parent's index in the
+    step's records (None for the root), the sweep of the step it belongs
+    to (None outside every sweep), the slots of its entry and exit marks,
+    and the hand-written kernel launches and groups_sum calls taken inside
+    it as it was recorded."""
+    name: str
+    parent: int | None
+    sweep: int | None
+    start: int
+    end: int = -1
+    launches: int = 0
+    groups_sum: int = 0
+
+
+class Spans:
+    """The device-timed spans of one program's steps (segments._Program
+    with spans on): the stamp table of ``rows`` steps (the program's
+    segment capacity) of ``sweeps`` sweeps each, read at ``counter``, the
+    program's step counter (a (1,) long tensor on ``device``); the records
+    of each step variant, as its first step (its capture, for a graph)
+    recorded them; the rows read after each segment; and the offset of
+    the stamps from the profiler's clock (:func:`clock_offset`), measured
+    when the recorder is made. The table is allocated here, before any
+    capture, at SLOTS_PER_SWEEP slots a sweep and SLOTS_PER_STEP more; a
+    step that makes more marks raises."""
+
+    def __init__(self, device, rows: int, sweeps: int,
+                 counter: torch.Tensor):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.rows = rows
+        self.counter = counter
+        self.width = SLOTS_PER_SWEEP * sweeps + SLOTS_PER_STEP
+        self.table = torch.zeros(rows, self.width, dtype=torch.long,
+                                 device=self.device)
+        self.layouts = {}           # {variant: [SpanRecord, ...]}
+        self.slots = {}             # {variant: marks a step}
+        self.segments = []          # [(variants, (n, width) int64 host)]
+        self.clock = clock_offset(self.device)
+
+    # ---- recording one step ----
+    def begin(self) -> None:
+        self._records, self._stack, self._slot = [], [], 0
+        self._sweep = -1
+        self._prev = None           # (depth, slot) of the last exit
+        self._host = []             # CPU: this step's stamps, by slot
+
+    def enter(self, name: str) -> None:
+        depth = len(self._stack)
+        parent = self._stack[-1][0] if self._stack else None
+        if name == SWEEP:
+            self._sweep += 1
+            sweep = self._sweep
+        else:
+            sweep = None if parent is None else self._records[parent].sweep
+        if self._prev is not None and self._prev[0] == depth:
+            start = self._prev[1]
+        else:
+            start = self._mark()
+        self._records.append(SpanRecord(name, parent, sweep, start))
+        self._stack.append((len(self._records) - 1, sum(LAUNCHES.values()),
+                            STATS["groups_sum_calls"]))
+        self._prev = None
+
+    def exit(self) -> None:
+        i, launches, calls = self._stack.pop()
+        rec = self._records[i]
+        rec.end = self._mark()
+        rec.launches = sum(LAUNCHES.values()) - launches
+        rec.groups_sum = STATS["groups_sum_calls"] - calls
+        self._prev = (len(self._stack), rec.end)
+
+    def _mark(self) -> int:
+        slot = self._slot
+        if slot >= self.width:
+            raise RuntimeError(f"a step made more than {self.width} span "
+                               f"marks, the stamp table's width")
+        self._slot += 1
+        if self.cuda:
+            _build.check(_build.shared_library().nestmc_span_mark(
+                self.table.data_ptr(), self.counter.data_ptr(), slot,
+                self.width, self.rows,
+                torch.cuda.current_stream(self.device).cuda_stream),
+                "span_mark")
+        else:
+            self._host.append(time.perf_counter_ns())
+        return slot
+
+    def end(self, variant) -> None:
+        """Close a step: keep its records as its variant's (the first
+        step's), and on the CPU write its stamps into its row."""
+        n = self._slot
+        if variant not in self.layouts:
+            self.layouts[variant], self.slots[variant] = self._records, n
+        elif self.slots[variant] != n:
+            raise RuntimeError(f"a step of variant {variant!r} made {n} "
+                               f"span marks, its first "
+                               f"{self.slots[variant]}")
+        if not self.cuda:
+            self.table[int(self.counter), :n] = torch.tensor(self._host)
+
+    def read(self, variants: list) -> None:
+        """Copy the stamps of a segment's steps (its variants in order) to
+        the host and clear their rows, in stream order: on the card into
+        pinned memory without waiting, so the host goes on to the next
+        segment while the replays run (the rows are read after the call's
+        closing synchronise)."""
+        if not variants:
+            return
+        n = len(variants)
+        rows = torch.empty((n, self.width), dtype=torch.long,
+                           pin_memory=self.cuda)
+        rows.copy_(self.table[:n], non_blocking=self.cuda)
+        self.table[:n].zero_()
+        self.segments.append((list(variants), rows))
+
+    # ---- what the rows read ----
+    def _steps(self):
+        """(records, stamps) of each step read."""
+        for variants, rows in self.segments:
+            for v, row in zip(variants, rows.numpy()):
+                yield self.layouts[v], row
+
+    def summary(self, unit_blocks, thin: int) -> dict:
+        """{span name: its parent's name, role (:func:`span_role`), the
+        mean, median and 90th-percentile ms a sweep, the mean self ms a
+        sweep (its time less its children's), the hand-written launches
+        and groups_sum calls a sweep, and the sweeps read}, over the steps
+        read, each step's time over its ``thin`` sweeps; a span that a
+        step's variant lacks counts 0 in that step."""
+        names = {}
+        for recs in self.layouts.values():
+            for r in recs:
+                if r.name not in names:
+                    names[r.name] = (None if r.parent is None
+                                     else recs[r.parent].name)
+        index = {k: i for i, k in enumerate(names)}
+        dur, own, cnt = [], [], []
+        for recs, row in self._steps():
+            d = np.zeros(len(names))
+            s = np.zeros(len(names))
+            c = np.zeros((len(names), 2))
+            times = [int(row[r.end]) - int(row[r.start]) for r in recs]
+            selfs = list(times)
+            for r, t in zip(recs, times):
+                if r.parent is not None:
+                    selfs[r.parent] -= t
+            for r, t, st in zip(recs, times, selfs):
+                j = index[r.name]
+                d[j] += t
+                s[j] += st
+                c[j] += (r.launches, r.groups_sum)
+            dur.append(d)
+            own.append(s)
+            cnt.append(c)
+        if not dur:
+            return {}
+        dur = np.stack(dur) / (1e6 * thin)
+        own = np.stack(own) / (1e6 * thin)
+        cnt = np.stack(cnt).mean(axis=0) / thin
+        out = {}
+        for name, j in index.items():
+            col = dur[:, j]
+            out[name] = {
+                "parent": names[name], "role": span_role(name, unit_blocks),
+                "mean_ms": float(col.mean()),
+                "median_ms": float(np.median(col)),
+                "p90_ms": float(np.percentile(col, 90)),
+                "self_ms": float(own[:, j].mean()),
+                "launches": float(cnt[j, 0]),
+                "groups_sum": float(cnt[j, 1]),
+                "sweeps": int(len(col) * thin)}
+        return out
+
+    def events(self) -> list:
+        """[(name, start ns, end ns, args)] of every span of every step
+        read, on the profiler's clock."""
+        off = self.clock["offset_ns"]
+        out = []
+        step = 0
+        for recs, row in self._steps():
+            for r in recs:
+                out.append((r.name, int(row[r.start]) + off,
+                            int(row[r.end]) + off,
+                            {"step": step, "sweep": r.sweep}))
+            step += 1
+        return out
 
 
 # NVIDIA H100 80GB HBM3 (SXM), 700 W power limit: HBM3 memory rate and

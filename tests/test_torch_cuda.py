@@ -1569,3 +1569,94 @@ def test_philox_fill_matches_plain(dev, mode):
                 ulp = (torch.nextafter(ref.abs(), torch.full_like(
                     ref, float("inf"))) - ref.abs()).clamp_min(2.0 ** -23)
                 assert bool(((got - ref).abs() <= 8 * ulp).all()), args[0]
+
+
+def _profiled_draws(dev, spans):
+    """(Posterior, the device kernels of the replayed graphs grouped by
+    their cudaGraphLaunch's correlation id, in launch order, the card's
+    kernels) of a small judged-path run under torch.profiler, with the
+    draw step's spans on or off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nestmc_torch import sample
+
+    data, _ = synth_logistic(21, G=40, n=12, p=3, device=dev)
+    cfg = SamplerConfig(run=RunConfig(chains=64, warmup=4, draws=6,
+                                      segment_size=3, full_rhat=True,
+                                      log_every_segment=False))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        post = sample(make_hier_logistic(data, tau_prior="invgamma"), data,
+                      cfg, rng=SweepRNG(7, dev), spans=spans)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e for e in events if "CUDA" in str(e.device_type())
+               and not e.is_user_annotation()
+               and not e.name().startswith("nestmc.")]
+    launches = [e.correlation_id() for e in sorted(
+        (e for e in events if "CUDA" not in str(e.device_type())
+         and "GraphLaunch" in e.name()), key=lambda e: e.start_ns())]
+    replays = {c: [] for c in launches}
+    for e in sorted(on_card, key=lambda e: e.start_ns()):
+        if e.correlation_id() in replays:
+            replays[e.correlation_id()].append(e)
+    return post, replays, on_card
+
+
+def test_spans_graph_is_the_graph_plus_one_mark_a_boundary(dev):
+    """The replayed graphs with spans on hold exactly the kernels of the
+    graphs with spans off, plus span_mark kernels: none in a warmup
+    replay, and in each draw replay one a boundary of its spans (step,
+    sweep, the four blocks and moves with one mark between siblings, the
+    sweep's end, then the streamed update, the collection and the copy
+    back, and the step's end: 12)."""
+    from collections import Counter
+
+    _, off, _ = _profiled_draws(dev, False)
+    post, on, _ = _profiled_draws(dev, True)
+    assert len(off) == len(on) == 4 + 6
+    marks = []
+    for a, b in zip(off.values(), on.values()):
+        names = [e.name() for e in b if "span_mark" not in e.name()]
+        assert Counter(names) == Counter(e.name() for e in a)
+        marks.append(sum("span_mark" in e.name() for e in b))
+    assert marks == [0] * 4 + [12] * 6
+    assert set(post.timings["spans"]) == {
+        "step", "sweep", "block.beta", "block.mu", "block.log_tau",
+        "move.asis_tau", "step.rhat_update", "step.collect",
+        "step.copy_back"}
+
+
+def test_span_stamps_are_on_the_trace_clock(dev):
+    """Spans on, under torch.profiler: each replayed span_mark kernel's
+    trace start lies within 3 us of its stamp shifted by one offset fitted
+    over the call (the median), and the program's own offset
+    (timings['spans_clock'], measured around a synchronised mark) within
+    50 us of the fitted one. Prints the residuals and globaltimer's least
+    step between stamps (pytest -s)."""
+    import numpy as np
+
+    post, replays, on_card = _profiled_draws(dev, True)
+    rec = post.spans
+    used = max(rec.slots.values())
+    stamps = np.concatenate([rows[:, :used].numpy().reshape(-1)
+                             for _, rows in rec.segments])
+    starts = np.array([e.start_ns() for e in sorted(
+        (e for e in on_card if "span_mark" in e.name()
+         and e.correlation_id() in replays),
+        key=lambda e: e.start_ns())], dtype=np.int64)
+    assert len(stamps) == len(starts) == 6 * 12
+    assert bool((np.diff(stamps) >= 0).all())
+    d = starts - stamps
+    fitted = int(np.median(d))
+    res = d - fitted
+    own = post.timings["spans_clock"]
+    assert own == rec.clock
+    steps = np.diff(np.unique(stamps))
+    print(f"\nspan clock: residuals {res.min()}..{res.max()} ns, "
+          f"|res| p50 {np.median(np.abs(res)):.0f} ns; program offset - "
+          f"fitted {own['offset_ns'] - fitted} ns (uncertainty "
+          f"{own['uncertainty_ns']:.0f}); least stamp step "
+          f"{steps.min() if len(steps) else 0} ns")
+    assert int(np.abs(res).max()) <= 3000
+    assert abs(own["offset_ns"] - fitted) <= 50_000

@@ -11,7 +11,7 @@
 - The count stops inside a kernel wrapper: a wrapper's plain version
   adds its kernel_work and nothing else.
 - trace() writes a torch.profiler trace that holds the engine's segment
-  spans under the reference's names (annotate).
+  spans under the reference's names (utils/profiling.span).
 """
 
 import json
