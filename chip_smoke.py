@@ -44,7 +44,16 @@ Needs one CUDA card and this checkout (it builds the kernels from
    zero-weight runs inside groups, y the fraction of successes: what
    models/hier_glm.py's binomial delegate feeds the logistic kernels) for
    loglik, logp_grad and newton_step refresh and frozen+fold, as more
-   cells. mala_step's record times the
+   cells; (3g) the interweave's kernels (asis_stats at the current point
+   and at the proposal, asis_propose, asis_accept; port-only, no Pallas
+   kernel) in the Laplace mode with a Hessian a chain at the judged shape
+   and in the Langevin mode with the shared bound metric at a mala-100k
+   rank's (C=256, G=50,000, n=20, p=3), each wrapper against its plain
+   version on the same inputs (rows, proposal, log alpha within 1e-3 +
+   1e-4 |ref|, alpha within 1e-3 + 2e-3 |ref|; log u drawn within 1 of
+   log alpha, so about half the chains accept, and the decisions equal
+   wherever |log alpha - log u| > 1e-3), both timed as replays of ten
+   captured calls. mala_step's record times the
    main path's mode at mala-100k (Philox noise, no fold; bound without the
    noise operands) and keeps the external-noise time beside it. Dense and
    masked data, with and without the R-hat fold. Each line: the max error
@@ -315,9 +324,16 @@ BUDGET_S = 1200.0           # the whole script, build included
 TARGET_S = 0.6 * BUDGET_S   # where the cut paths aim to end on one card
 JUDGED = (1024, 1000, 50, 4)        # C, G, n, p
 M100K = (512, 100_000, 20, 3)
+MRANK = (256, 50_000, 20, 3)        # a rank of mala-100k's 2 x 2 mesh
 RW = (64, 100, 50, 4)                # config 2 (both its presets)
 HL1K = (256, 1000, 50, 4)           # hier-logistic-1k (and -mala)
 POIS = (512, 4000, 10, 3)           # C, S (subjects), n, p: config 3
+# the launches of the hierarchical logistic interweave's gradient modes
+# (ops/cuda/asis.py) in W warmup and D sampling sweeps: one move a sweep,
+# two statistics passes, a proposal and an accept each
+ASIS = {"asis_stats": lambda W, D: 2 * (W + D),
+        "asis_propose": lambda W, D: W + D,
+        "asis_accept": lambda W, D: W + D}
 FILL = (1024, 10_000, 3)            # ragged-10k's (C, G, p) normal draw
 # the fill's normals and log uniforms against the plain version's float64
 # conversions rounded once: within FILL_ULPS ulps, an ulp counted at least
@@ -368,6 +384,10 @@ SRC = {
     # Philox draws' conversions (mh_accept.py:48, 72, 80)
     "philox_fill": ("nestmc_torch/csrc/philox_fill.cu",
                     "nestmc/ops/pallas/mh_accept.py:48"),
+    # the interweave's kernels: port-only (the reference's move is XLA's)
+    "asis_stats": ("nestmc_torch/csrc/asis_move.cu", "none"),
+    "asis_propose": ("nestmc_torch/csrc/asis_move.cu", "none"),
+    "asis_accept": ("nestmc_torch/csrc/asis_move.cu", "none"),
 }
 
 
@@ -1808,6 +1828,7 @@ def phase10c(dev, smi: str, rk: list, ranks: int, shared: bool) -> dict:
             else:
                 want = {"seg_logp_grad": 1 + 2 * (W + D),
                         "philox_fill": 2 * (W + D)}
+            want |= {k: f(W, D) for k, f in ASIS.items()}
             want = {k: want.get(k, 0) for k in la}
             if la != want:
                 fail(f"10c {route} rank {res['rank']}: launches {la} != "
@@ -1909,7 +1930,7 @@ def main() -> int:
 
     # fails outside a checkout of the repo
     from nestmc_torch import KernelConfig, RunConfig, SamplerConfig, sample
-    from nestmc_torch import bench
+    from nestmc_torch import bench, kernel_ab
     from nestmc_torch.diagnostics import diagnose, ess, fold_rhat_scalars
     from nestmc_torch.models import (
         analytic_hier_normal_posterior,
@@ -1921,7 +1942,8 @@ def main() -> int:
         synth_poisson3,
     )
     from nestmc_torch.ops import bucket, loglik
-    from nestmc_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+    from nestmc_torch.ops.cuda import _build, asis, launch_counts
+    from nestmc_torch.ops.cuda import reset_launch_counts
     from nestmc_torch.ops.cuda import loglik_poisson as pois
     from nestmc_torch.ops.cuda import poisson_accept as pacc
     from nestmc_torch.ops.cuda.loglik_logistic import (
@@ -2949,6 +2971,84 @@ def main() -> int:
     del d, beta, mu, lt, eps, logu, x, gen, wm, yb, v, g, h, ls
     torch.cuda.empty_cache()
 
+    # ---- 3g. the interweave's kernels (ops/cuda/asis.py) at the main
+    # paths' shapes: the Laplace mode with a Hessian a chain at judged's,
+    # the Langevin mode with the shared bound metric at a mala-100k rank's;
+    # each wrapper against its plain version on the same inputs, both
+    # timed as replays of ten captured calls (the wrappers' host work
+    # outlasts their kernels; kernel_ab.timed_graph)
+    for shape, laplace in ((JUDGED, True), (MRANK, False)):
+        C, G, N, P = shape
+        a = kernel_ab.asis_inputs(
+            shape, kernel_ab.logistic_inputs(shape, dev, 8), laplace)
+        beta, mu, lt, g, h, scale, prior = (a[k] for k in (
+            "beta", "mu", "lt", "g", "h", "scale", "prior"))
+        hn = 0 if h.shape[0] == 1 else P * (P + 1) // 2
+        mode = "laplace" if laplace else "langevin"
+        vv = (a["v_new"], a["v"])
+        prop = (a["row"], mu, lt, a["eps"], scale, beta, prior)
+        # log u within 1 of the plain version's log alpha: about half the
+        # chains accept, so the decisions are held both ways
+        gen = torch.Generator(device=dev).manual_seed(9)
+        acc = (a["row_new"], a["th_new"], mu, lt, a["aux"], scale)
+        logu = (asis.asis_accept_plain(*acc, a["logu"], prior)[0]
+                + 2.0 * torch.rand(C, generator=gen, device=dev) - 1.0)
+        acc += (logu, prior)
+        calls = [
+            ("asis_stats", "current",
+             lambda: (asis.asis_stats(beta, mu, g, h),),
+             lambda: (asis.asis_stats_plain(beta, mu, g, h),),
+             work("asis_stats", C, G, 2 * P + hn, P)),
+            ("asis_stats", "proposal",
+             lambda: (asis.asis_stats(beta, mu, a["g_new"], h, a["aux"],
+                                      vv),),
+             lambda: (asis.asis_stats_plain(beta, mu, a["g_new"], h,
+                                            a["aux"], vv),),
+             work("asis_stats", C, G, 2 * P + hn + 2, P)),
+            ("asis_propose", "", lambda: asis.asis_propose(*prop),
+             lambda: asis.asis_propose_plain(*prop),
+             work("asis_propose", C, G, 0, P)),
+            ("asis_accept", "", lambda: asis.asis_accept(*acc),
+             lambda: asis.asis_accept_plain(*acc),
+             work("asis_accept", C, 0, 0, P)),
+        ]
+        for name, call, kern, plain, w in calls:
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            extra = ""
+            if name == "asis_accept":
+                # log alpha (atol 1e-3 + rtol 1e-4) and alpha (rtol 2e-3);
+                # the decisions equal wherever |log alpha - log u| > 1e-3
+                # and each the kernel's own log u < log alpha
+                errs = [max_err(out[0], ref[0], 1e-4),
+                        max_err(out[2], ref[2], 2e-3)]
+                clear = (ref[0] - logu).abs() > 1e-3
+                n_bad = int((out[1] != ref[1])[clear].sum())
+                own = bool(torch.equal(out[1], logu < out[0]))
+                errs.append((0.0, n_bad == 0 and own))
+                extra = (f"; accepted {int(out[1].sum())} of {C} chains, "
+                         f"{n_bad} decisions differ clear of log u")
+            else:
+                errs = [max_err(o, r, 1e-4) for o, r in zip(out, ref)]
+            err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+            del out, ref
+            ms = kernel_ab.timed_graph(kern)
+            pms = kernel_ab.timed_graph(plain)
+            label = f"{name}{' ' + call if call else ''}"
+            say(f"kernel {label} [{mode}, C={C} G={G} n={N} p={P}]: "
+                f"max_abs_err {err:.3e} (tol 1e-3 + 1e-4|ref|) "
+                f"{'ok' if ok else 'FAIL'}{extra}; kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms (graph replays); {bound_str(w)}")
+            if not ok:
+                fail(f"{label} [{mode}] disagrees with its plain version")
+            if laplace and call != "proposal":
+                record(name, err, ms, pms, shape, w)
+            else:
+                cell(name, shape, err, ms, pms, w, "full width", mode=mode,
+                     call=call or None)
+        del a, beta, mu, lt, g, h, scale, prior, prop, acc, logu, calls
+        torch.cuda.empty_cache()
+
     # ---- 4. Philox moments ----
     nrm, uni = philox_probe(512 * 256, (1234, 99), dev, p=4)
     x = nrm.double().cpu()
@@ -3161,7 +3261,7 @@ def main() -> int:
     newton_path = {"newton_step_refresh": lambda W, D: W,
                    "newton_step_frozen": lambda W, D: D,
                    "logp_grad_hess": lambda W, D: W + 1,
-                   "logp_grad": lambda W, D: D}
+                   "logp_grad": lambda W, D: D, **ASIS}
     run_path("hier-logistic-100", newton_path, "beta", (0.5, 1.0),
              logistic_shapes(64, 4, 16))
 
@@ -3257,7 +3357,7 @@ def main() -> int:
              {"newton_step_refresh": lambda W, D: B * W,
               "newton_step_frozen": lambda W, D: B * D,
               "logp_grad_hess": lambda W, D: B * (W + 1),
-              "logp_grad": lambda W, D: B * D},
+              "logp_grad": lambda W, D: B * D, **ASIS},
              "beta", (0.5, 1.0), logistic_shapes(1024, 3, 8))
 
     # config 5's Newton variant at full width, depth cut: its launches
@@ -3333,7 +3433,8 @@ def main() -> int:
     line, sec_a = cli_run("run hier-logistic-100", base + [
         "--checkpoint-dir", ck_a, "--save-draws", path_a],
         {"newton_step_refresh": W2, "newton_step_frozen": D2,
-         "logp_grad_hess": W2 + 1, "logp_grad": D2, "loglik": D2})
+         "logp_grad_hess": W2 + 1, "logp_grad": D2, "loglik": D2,
+         **{k: f(W2, D2) for k, f in ASIS.items()}})
     res_a = json.loads(line)
     za = dict(np.load(path_a))
     gll = za["group_loglik"]
@@ -3391,7 +3492,8 @@ def main() -> int:
     line, sec_b = cli_run("run --resume", base + [
         "--checkpoint-dir", ck_r, "--resume", "--save-draws", path_r],
         {"newton_step_frozen": D2 - HALF, "logp_grad": D2 - HALF,
-         "loglik": D2 - HALF, "logp_grad_hess": 1})
+         "loglik": D2 - HALF, "logp_grad_hess": 1,
+         **{k: f(0, D2 - HALF) for k, f in ASIS.items()}})
     res_r = json.loads(line)
     zr = dict(np.load(path_r))
     if res_r["timings"]["draws_run"] != D2 - HALF or zr["mu"].shape[1] != (
@@ -3729,7 +3831,7 @@ def main() -> int:
              {"newton_step_refresh": lambda W, D: B8 * W,
               "newton_step_frozen": lambda W, D: B8 * D,
               "logp_grad_hess": lambda W, D: B8 * (W + 1),
-              "logp_grad": lambda W, D: B8 * D},
+              "logp_grad": lambda W, D: B8 * D, **ASIS},
              "beta", (0.5, 1.0), logistic_shapes(1024, 3, 8),
              warmup=20, draws=30, gate=False,
              runner=glm_runner(
@@ -4017,7 +4119,7 @@ def main() -> int:
 
     det_check("ragged-10k pallas-segment mala", seg_build, (80, 100),
               {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D),
-               "philox_fill": lambda W, D: 2 * (W + D)})
+               "philox_fill": lambda W, D: 2 * (W + D), **ASIS})
 
     # the plain segment sum (the segment route's Hessian pass and every
     # segment kernel's plain version) at config 4's shape: the segmented
@@ -4144,7 +4246,7 @@ def main() -> int:
             f"{m_sched[1]} at full width")
     run_path("mala-100k",
              {"mala_step": lambda W, D: W + D,
-              "logp_grad": lambda W, D: W + D + 1},
+              "logp_grad": lambda W, D: W + D + 1, **ASIS},
              "beta", (0.3, 0.9), logistic_shapes(512, 3, 8),
              warmup=m_sched[0], draws=m_sched[1], gate=m_sched == full)
 
@@ -4170,7 +4272,7 @@ def main() -> int:
             "width")
     run_path("ragged-10k pallas-segment mala",
              {"seg_logp_grad": lambda W, D: 1 + 2 * (W + D),
-              "philox_fill": lambda W, D: 2 * (W + D)},
+              "philox_fill": lambda W, D: 2 * (W + D), **ASIS},
              "beta", (0.3, 0.9), logistic_shapes(1024, 3, 8),
              warmup=sm_sched[0], draws=sm_sched[1], gate=sm_sched == s_full,
              runner=seg_mala)

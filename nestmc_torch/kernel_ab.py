@@ -25,12 +25,25 @@ and the same Philox key, at the shapes the main paths give it:
   ``config3``);
 - ``segment_kernel``: seg_loglik and seg_logp_grad (at ``segment``);
 - ``philox_fill_kernel``: the unit-axis noise fill in each mode (at
-  ``fill``).
+  ``fill``);
+- the interweave's kernels (ops/cuda/asis.py): ``asis_stats`` at the
+  current point and at the proposal, ``asis_propose`` and ``asis_accept``,
+  in the Laplace mode with a Hessian a chain (at ``judged``) and in the
+  Langevin mode with the shared bound metric (at ``mala-rank``). Their
+  lines add the plain version's time and difference on the same inputs
+  (``plain_ms``, ``plain_max_abs_diff``) and the bound (``bound_ms``,
+  utils/profiling.kernel_work); a base tree without them gives
+  ``base_ms`` null. Their wrappers take longer on the host than the
+  kernels on the card, so these cases (``"timing": "graph"``) time ten
+  calls captured as a CUDA graph and replayed, the plain version too
+  (:func:`timed_graph`).
 
 The shapes:
 
 - ``mala-100k``: C=512 chains, G=100,000 groups, n=20, p=3;
 - ``judged``: C=1024, G=1000, n=50, p=4;
+- ``mala-rank``: a rank of mala-100k's 2 x 2 mesh, C=256, G=50,000, n=20,
+  p=3 (the interweave's kernels only);
 - ``bucket``: ragged-10k's widest size bucket at seed 0 (C=1024, 5,419
   groups, cap 32, p=3, masked);
 - ``config3``: C=512, S=4000 subjects, n=10, p=3 (the Poisson modes);
@@ -81,11 +94,12 @@ from pathlib import Path
 import torch
 
 SHAPES = ("mala-100k", "judged", "bucket", "config3", "segment", "rw",
-          "fill")
+          "fill", "mala-rank")
 # the Logit case groups of each logistic shape (logistic_cases)
 GROUPS = {"mala-100k": ("obs", "mala", "rw"),
-          "judged": ("obs", "mala", "newton"),
-          "bucket": ("obs", "mala", "newton"), "rw": ("rw",)}
+          "judged": ("obs", "mala", "newton", "asis"),
+          "bucket": ("obs", "mala", "newton"), "rw": ("rw",),
+          "mala-rank": ("asis",)}
 # the kernel templates whose registers, spills and SASS loops are reported:
 # those on the (unit x chain) tile of csrc/cell_tile.cuh, and the noise fill
 TILED = (r"logp_grad_kernel|loglik_kernel|rwmh_step_kernel|mala_step_kernel|"
@@ -192,7 +206,27 @@ def timed(fn, batches: int = 7, per: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def _logistic_inputs(shape, dev, seed):
+def timed_graph(fn, batches: int = 7, per: int = 10) -> float:
+    """ms a call as :func:`timed` gives it, with the ``per`` calls
+    captured once as a CUDA graph and the graph replayed: the device time
+    of calls whose Python costs more than their kernels take, as the
+    engine's replayed steps run them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    return timed(graph.replay, batches, 1) / per
+
+
+def logistic_inputs(shape, dev, seed):
+    """synth_logistic's data at ``shape`` (C, G, n, p) on ``dev`` and a
+    state and noise drawn from ``seed``."""
     from nestmc_torch.models import synth_logistic
 
     C, G, n, p = shape
@@ -221,7 +255,7 @@ def _bucket_inputs(dev, seed):
                                        x=rdata.x, y=rdata.y)
     wb = layout.buckets[-1]
     C, G, p = 1024, len(wb.obs_index), rdata.num_covariates
-    r = _logistic_inputs((C, G, wb.cap, p), dev, seed)
+    r = logistic_inputs((C, G, wb.cap, p), dev, seed)
     r.update(x=wb.x, y=wb.y, mask=wb.mask)
     return (C, G, wb.cap, p), r
 
@@ -275,6 +309,8 @@ def logistic_cases(shape, r, groups):
             ("mala_step philox", lambda: fused_mala_logistic_step(
                 *args, rng=_Key(1234, 99))),
         ]
+    if "asis" in groups:
+        cases += asis_cases(shape, r, laplace="newton" in groups)
     if "newton" not in groups:
         return cases
     v, g, h = logistic_logp_grad_hess(beta, x, y, m)
@@ -291,6 +327,89 @@ def logistic_cases(shape, r, groups):
                  *nargs, rng=_Key(1234, 99), **kw)),
         ]
     return cases
+
+
+def asis_inputs(shape, r, laplace: bool) -> dict:
+    """The operands of one interweaving move at ``shape`` on the state of
+    ``r``: the Laplace mode on the obs pass's Hessian, a chain each
+    (``laplace``, the inverse-gamma tau prior), or the Langevin mode on the
+    data's bound metric, shared by the chains (the half-normal prior).
+    Keys: the arguments of ops/cuda/asis.py's wrappers, the current point's
+    row and the proposal's (``row``, ``th_new``, ``aux``, ``row_new``)
+    as the kernels give them, and the loglik and gradient there."""
+    from nestmc_torch.models.hier_logistic import PopulationPrior
+    from nestmc_torch.ops.cuda import asis
+    from nestmc_torch.ops.cuda.loglik_logistic import (
+        logistic_logp_grad,
+        logistic_logp_grad_hess,
+    )
+
+    C, G, n, p = shape
+    x, y, m, beta, mu, lt = (r[k] for k in ("x", "y", "mask", "beta", "mu",
+                                            "lt"))
+    dev = beta.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prior = PopulationPrior(1.0 / 25.0, laplace, 2.0, 0.5, 2.0)
+    if laplace:
+        v, g, h = logistic_logp_grad_hess(beta, x, y, m)
+        scale = None
+    else:
+        v, g = logistic_logp_grad(beta, x, y, m)
+        h = torch.stack([0.25 * (m * x[..., i] * x[..., j]).sum(-1)
+                         for i in range(p) for j in range(i + 1)], -1)[None]
+        scale = torch.full((C, 1), 0.3, device=dev)
+    eps = torch.randn(C, 2 * p, generator=gen, device=dev)
+    logu = torch.log(torch.rand(C, generator=gen, device=dev))
+    row = asis.asis_stats(beta, mu, g, h)
+    th_new, aux, beta_new = asis.asis_propose(row, mu, lt, eps, scale, beta,
+                                              prior)
+    v_new, g_new = logistic_logp_grad(beta_new, x, y, m)
+    row_new = asis.asis_stats(beta, mu, g_new, h, aux, (v_new, v))
+    return dict(beta=beta, mu=mu, lt=lt, g=g, h=h, v=v, scale=scale,
+                eps=eps, logu=logu, prior=prior, row=row, th_new=th_new,
+                aux=aux, v_new=v_new, g_new=g_new, row_new=row_new)
+
+
+def asis_cases(shape, r, laplace: bool):
+    """(name, fn, extra) of the interweave's kernels at ``shape`` on the
+    operands of :func:`asis_inputs`; ``extra`` holds the plain version of
+    the call, its bound in ms and the library's entry point, which a base
+    tree without the kernel lacks."""
+    from nestmc_torch.ops.cuda import asis
+    from nestmc_torch.utils.profiling import bound_ms, kernel_work
+
+    C, G, n, p = shape
+    a = asis_inputs(shape, r, laplace)
+    beta, mu, lt, g, h, scale, prior = (a[k] for k in (
+        "beta", "mu", "lt", "g", "h", "scale", "prior"))
+    vv = (a["v_new"], a["v"])
+    prop = (a["row"], mu, lt, a["eps"], scale, beta, prior)
+    acc = (a["row_new"], a["th_new"], mu, lt, a["aux"], scale, a["logu"],
+           prior)
+    hn = 0 if h.shape[0] == 1 else p * (p + 1) // 2  # h's floats a cell
+
+    def bound(*rec):
+        return bound_ms(*kernel_work(*rec))[0]
+    return [
+        ("asis_stats current", lambda: (asis.asis_stats(beta, mu, g, h),),
+         {"plain": lambda: (asis.asis_stats_plain(beta, mu, g, h),),
+          "bound_ms": bound("asis_stats", C, G, 2 * p + hn, p),
+          "timing": "graph", "entry": "nestmc_asis_stats"}),
+        ("asis_stats proposal", lambda: (asis.asis_stats(
+            beta, mu, a["g_new"], h, a["aux"], vv),),
+         {"plain": lambda: (asis.asis_stats_plain(
+             beta, mu, a["g_new"], h, a["aux"], vv),),
+          "bound_ms": bound("asis_stats", C, G, 2 * p + hn + 2, p),
+          "timing": "graph", "entry": "nestmc_asis_stats"}),
+        ("asis_propose", lambda: asis.asis_propose(*prop),
+         {"plain": lambda: asis.asis_propose_plain(*prop),
+          "bound_ms": bound("asis_propose", C, G, 0, p),
+          "timing": "graph", "entry": "nestmc_asis_propose"}),
+        ("asis_accept", lambda: asis.asis_accept(*acc),
+         {"plain": lambda: asis.asis_accept_plain(*acc),
+          "bound_ms": bound("asis_accept", C, 0, 0, p),
+          "timing": "graph", "entry": "nestmc_asis_accept"}),
+    ]
 
 
 def poisson_cases(dev, seed):
@@ -547,25 +666,36 @@ def main(argv=None) -> int:
             same = all(torch.equal(s, t) for s, t in zip(a, b))
             del a, b
             extra = {**(extra or {}), "same_mapping": same}
-        for name, fn in cases:
+        for name, fn, *more in cases:
             if not re.search(args.cases, name):
                 continue
-            a = on(base_src, fn)
+            more = dict(more[0]) if more else {}
+            plain = more.pop("plain", None)
+            clock = timed_graph if more.get("timing") == "graph" else timed
+            entry = more.pop("entry", None)
+            base_has = entry is None or on(
+                base_src, lambda: hasattr(_build.library(shape[-1]), entry))
+            a = on(base_src, fn) if base_has else None
             b = on(new_src, fn)
             torch.cuda.synchronize()
-            diff = _max_diff(a, b)
+            diff = None if a is None else _max_diff(a, b)
+            if plain is not None:
+                more["plain_max_abs_diff"] = _max_diff(plain(), b)
+                more["plain_ms"] = clock(plain)
             del a, b
-            t = [on(base_src, lambda: timed(fn)),
-                 on(new_src, lambda: timed(fn)),
-                 on(new_src, lambda: timed(fn)),
-                 on(base_src, lambda: timed(fn))]
+            t = [None if diff is None else on(base_src, lambda: clock(fn)),
+                 on(new_src, lambda: clock(fn)),
+                 on(new_src, lambda: clock(fn)),
+                 None if diff is None else on(base_src, lambda: clock(fn))]
             line = json.dumps({
                 "shape": shape_name, "C_G_n_p": list(shape), "kernel": name,
                 "max_abs_diff": diff,
-                "bitwise_equal": None if same is False else diff == 0.0,
+                "bitwise_equal": (None if same is False or diff is None
+                                  else diff == 0.0),
                 "base_ms": [t[0], t[3]], "new_ms": [t[1], t[2]],
-                "speedup": (t[0] + t[3]) / (t[1] + t[2]), "card": smi,
-                **(extra or {}),
+                "speedup": (None if diff is None
+                            else (t[0] + t[3]) / (t[1] + t[2])),
+                "card": smi, **(extra or {}), **more,
             })
             print(line, flush=True)
             if out:
@@ -588,8 +718,9 @@ def main(argv=None) -> int:
             else:
                 shape = {"mala-100k": (512, 100_000, 20, 3),
                          "judged": (1024, 1000, 50, 4),
-                         "rw": (64, 100, 50, 4)}[shape_name]
-                r = _logistic_inputs(shape, dev, 8)
+                         "rw": (64, 100, 50, 4),
+                         "mala-rank": (256, 50_000, 20, 3)}[shape_name]
+                r = logistic_inputs(shape, dev, 8)
             cases = logistic_cases(shape, r, GROUPS[shape_name])
         report(shape_name, shape, cases, extra, mapping)
         del cases

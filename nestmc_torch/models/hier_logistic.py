@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import math
 import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ from nestmc_torch.distributions import (
 from nestmc_torch.model import Block, ModelSpec
 from nestmc_torch.ops import bucket as _bucket
 from nestmc_torch.ops import loglik as _plain
+from nestmc_torch.ops.cuda.asis import asis_accept, asis_propose, asis_stats
 from nestmc_torch.ops.cuda.loglik_logistic import (
     logistic_logp_grad,
     logistic_logp_grad_hess,
@@ -66,24 +68,61 @@ from nestmc_torch.ops.cuda.mala_accept import fused_mala_logistic_step
 from nestmc_torch.ops.cuda.mh_accept import fused_rwmh_logistic_step
 from nestmc_torch.ops.cuda.newton_accept import fused_newton_logistic_step
 from nestmc_torch.ops.segment import SegmentLayout
-from nestmc_torch.ops.smallchol import (
-    chol_packed,
-    half_logdet,
-    lt_vec,
-    pack_diag,
-    packed_index,
-    solve_upper_t,
-    spd_solve,
-)
+from nestmc_torch.ops.smallchol import pack_diag
 from nestmc_torch.parallel.collectives import (
     active,
     groups_sum,
+    groups_total,
     local_data,
     local_units,
     unit_span,
 )
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+@dataclass(frozen=True)
+class PopulationPrior:
+    """The population prior: mu_k ~ N(0, 1 / inv_s0_2); tau_k^2 ~
+    InvGamma(a, b) (``conj``) or tau_k ~ HalfNormal(tau_scale), each as a
+    density of log tau with its Jacobian. The interweaving move's kernels
+    (ops/cuda/asis.py) read its constants, their plain versions its
+    methods."""
+
+    inv_s0_2: float
+    conj: bool
+    a: float
+    b: float
+    tau_scale: float
+
+    @property
+    def lp_const(self) -> float:
+        return self.a * math.log(self.b) - math.lgamma(self.a)
+
+    @property
+    def inv_S2(self) -> float:
+        return 1.0 / self.tau_scale**2
+
+    def tau_logprior(self, lt):
+        """log p(log tau) elementwise, with the Jacobian to log space."""
+        if self.conj:
+            # tau^2 ~ IG(a, b); |d tau^2 / d log tau| = 2 e^{2 lt}
+            return (
+                self.lp_const - 2.0 * (self.a + 1.0) * lt
+                - self.b * torch.exp(-2.0 * lt) + math.log(2.0) + 2.0 * lt
+            )
+        return logpdf_halfnormal(torch.exp(lt), self.tau_scale) + lt
+
+    def tau_logprior_grad(self, lt):
+        if self.conj:
+            return -2.0 * self.a + 2.0 * self.b * torch.exp(-2.0 * lt)
+        return 1.0 - torch.exp(2.0 * lt) * self.inv_S2
+
+    def tau_logprior_metric(self, lt):
+        """-d^2/d(log tau)^2 of tau_logprior: positive for both priors."""
+        if self.conj:
+            return 4.0 * self.b * torch.exp(-2.0 * lt)
+        return 2.0 * torch.exp(2.0 * lt) * self.inv_S2
 
 
 def _per_shard(layout, build):
@@ -189,18 +228,10 @@ def make_hier_logistic(
     p = data.num_covariates
     q = 2 * p                                       # joint (mu, lt) dim
     a_ig, b_ig = tau_ig_shape, tau_ig_scale
-    lp_const = a_ig * math.log(b_ig) - math.lgamma(a_ig)
     inv_s0_2 = 1.0 / prior_mu_scale**2
-    inv_S2 = 1.0 / prior_tau_scale**2
+    prior = PopulationPrior(inv_s0_2, conj_tau, a_ig, b_ig,
+                            prior_tau_scale)
     dev = data.device
-    hidx = torch.tensor(
-        [[packed_index(i, j) for j in range(p)] for i in range(p)],
-        device=dev,
-    )
-    qidx = torch.tensor(
-        [i * q + j for i in range(q) for j in range(i + 1)], device=dev
-    )
-    eye_p = torch.eye(p, device=dev)
 
     # Data-constant packed Hessian BOUND 0.25 sum_i x x^T per group (the
     # logistic curvature w = s(1 - s) <= 1/4): the metric of the joint
@@ -220,27 +251,6 @@ def make_hier_logistic(
                 for i in range(p) for j in range(i + 1)]
     xxt_bound = torch.tensor(np.stack(cols, axis=-1), dtype=torch.float32,
                              device=dev)[None]              # (1, G, T)
-
-    def _tau_logprior(lt):
-        """log p(log tau) elementwise, with the Jacobian to log space."""
-        if conj_tau:
-            # tau^2 ~ IG(a, b); |d tau^2 / d log tau| = 2 e^{2 lt}
-            return (
-                lp_const - 2.0 * (a_ig + 1.0) * lt
-                - b_ig * torch.exp(-2.0 * lt) + math.log(2.0) + 2.0 * lt
-            )
-        return logpdf_halfnormal(torch.exp(lt), prior_tau_scale) + lt
-
-    def _tau_logprior_grad(lt):
-        if conj_tau:
-            return -2.0 * a_ig + 2.0 * b_ig * torch.exp(-2.0 * lt)
-        return 1.0 - torch.exp(2.0 * lt) * inv_S2
-
-    def _tau_logprior_metric(lt):
-        """-d^2/d(log tau)^2 of _tau_logprior: positive for both priors."""
-        if conj_tau:
-            return 4.0 * b_ig * torch.exp(-2.0 * lt)
-        return 2.0 * torch.exp(2.0 * lt) * inv_S2
 
     _suff_of = {}
 
@@ -288,7 +298,7 @@ def make_hier_logistic(
             lt = state["log_tau"]
             return (
                 _gprior_perk_from_suff(s1, s2, state["mu"], lt)
-                + _tau_logprior(lt) + log_scale_guard(lt)
+                + prior.tau_logprior(lt) + log_scale_guard(lt)
             )
         raise KeyError(name)
 
@@ -324,9 +334,9 @@ def make_hier_logistic(
             quad_tau2 = _quad(s1, s2, state["mu"]) / torch.exp(2.0 * value)
             val = (
                 -0.5 * quad_tau2 - G * value - 0.5 * G * _LOG_2PI
-                + _tau_logprior(value) + log_scale_guard(value)
+                + prior.tau_logprior(value) + log_scale_guard(value)
             )
-            return val, quad_tau2 - G + _tau_logprior_grad(value)
+            return val, quad_tau2 - G + prior.tau_logprior_grad(value)
         return None
 
     def fused_beta_update(rng, position, cache, log_scale, data):
@@ -406,31 +416,47 @@ def make_hier_logistic(
             return nb, new_cache, alpha, (out[5], out[6])
         return nb, new_cache, alpha
 
-    def _asis_joint_grad(g_lik, d, mu_at, lt_at):
-        """(C, 2p) gradient of the z-fixed target F(mu, lt)."""
-        return torch.cat([
-            groups_sum(g_lik, 1) - mu_at * inv_s0_2,
-            groups_sum(g_lik * d, 1) + _tau_logprior_grad(lt_at),
-        ], dim=-1)
-
-    def _asis_joint_metric(h_packed, d, lt_at):
-        """Packed (C, q(q+1)/2) Gauss-Newton metric of the z-fixed target,
-        theta = (mu, lt): sum_g J_g^T (-H_g) J_g with J_g = [I, diag(d_g)]
-        plus the prior precision (nestmc: _asis_joint_metric). h_packed is
-        (C, G, T), or (1, G, T) for the data-constant bound."""
-        C = d.shape[0]
-        H = h_packed[..., hidx]                          # (C|1, G, p, p)
-        dk = d[..., :, None]
-        m_mm = (groups_sum(H, 1) + inv_s0_2 * eye_p).expand(C, p, p)
-        m_lm = groups_sum(H * dk, 1)                     # [lt_k, mu_l]
-        m_ll = groups_sum(H * dk * d[..., None, :], 1) + torch.diag_embed(
-            _tau_logprior_metric(lt_at)
-        )
-        M = torch.cat([
-            torch.cat([m_mm, m_lm.transpose(-1, -2)], dim=-1),
-            torch.cat([m_lm, m_ll], dim=-1),
-        ], dim=-2)
-        return M.reshape(C, q * q)[:, qidx]
+    def _asis_grad_move(rng, beta, mu, lt, lik_cache, scale, data,
+                        frozen):
+        """The Laplace (carried h) or Langevin (bound metric) move through
+        ops/cuda/asis.py: the statistics rows at the current point, the
+        proposal and beta', the obs pass at beta', the rows there, the
+        decision. Returns (pos_up, cache_up, alpha)."""
+        C = lt.shape[0]
+        newton_mode = "h" in lik_cache
+        s = None if newton_mode else scale               # (C, 1) adapted
+        h_old = (lik_cache["h"] if newton_mode
+                 else local_units(xxt_bound, 1))
+        eps_q = rng.normal((C, q))
+        row = groups_total(asis_stats(beta, mu, lik_cache["g"], h_old))
+        th_new, aux, beta_new = asis_propose(row, mu, lt, eps_q, s, beta,
+                                             prior)
+        if newton_mode and not frozen:
+            lik_new, grad_new, h_new = lik_value_grad_hess(beta_new, data)
+        else:
+            lik_new, grad_new = lik_value_and_grad(beta_new, data)
+            h_new = h_old
+        lik_old = lik_cache["v"]
+        row_new = groups_total(asis_stats(beta, mu, grad_new, h_new, aux,
+                                          (lik_new, lik_old)))
+        logu = rng.log_uniform((C,))
+        _, accept, alpha = asis_accept(row_new, th_new, mu, lt, aux, s, logu,
+                                       prior)
+        acc2 = accept[:, None]
+        acc3 = accept[:, None, None]
+        pos_up = {
+            "beta": torch.where(acc3, beta_new, beta),
+            "log_tau": torch.where(acc2, th_new[:, p:], lt),
+            "mu": torch.where(acc2, th_new[:, :p], mu),
+        }
+        cache_up = {"beta": {
+            "v": torch.where(acc2, lik_new, lik_old),
+            "g": torch.where(acc3, grad_new, lik_cache["g"]),
+        }}
+        if newton_mode:
+            cache_up["beta"]["h"] = (
+                h_old if frozen else torch.where(acc3, h_new, h_old))
+        return pos_up, cache_up, alpha
 
     def asis_tau_move(rng, position, cache, scale, data, frozen=False):
         """Interweaving move (Yu & Meng 2011) on the z-fixed target, z =
@@ -447,101 +473,40 @@ def make_hier_logistic(
         - a (C, G) loglik or None (RW): log tau' = log tau + s eps, mu
           kept, s adapted to 0.234.
 
+        The two gradient modes run the kernels of ops/cuda/asis.py on the
+        card (their plain versions on the CPU); the RW mode is plain code.
         Noise: the grad modes draw eps (C, 2p), the RW mode eps (C, p),
         then every mode draws log u (C,).
         """
         beta, mu, lt = position["beta"], position["mu"], position["log_tau"]
-        C = lt.shape[0]
-        diff = beta - mu[:, None, :]                     # tau z, (C, G, p)
         lik_cache = cache.get("beta")
-        grad_mode = isinstance(lik_cache, dict)
-        newton_mode = grad_mode and "h" in lik_cache
-        if grad_mode:
-            eps_q = rng.normal((C, q))
-            h_src = (lik_cache["h"] if newton_mode
-                     else local_units(xxt_bound, 1))
-            if newton_mode:
-                s, drift = 1.0, 1.0
-            else:
-                s = scale                                # (C, 1) adapted
-                drift = 0.5 * s * s
-            f_old = _asis_joint_grad(lik_cache["g"], diff, mu, lt)
-            L_old = chol_packed(_asis_joint_metric(h_src, diff, lt), q)
-            th_old = torch.cat([mu, lt], dim=-1)
-            mean_old = th_old + drift * spd_solve(L_old, f_old, q)
-            th_new = mean_old + s * solve_upper_t(L_old, eps_q, q)
-            mu_new, lt_new = th_new[:, :p], th_new[:, p:]
-        else:
-            eps = rng.normal((C, p))
-            mu_new, lt_new = mu, lt + scale * eps
-        ratio = torch.exp(lt_new - lt)[:, None, :]
-        diff_new = diff * ratio                          # e^{lt'} z
-        beta_new = mu_new[:, None, :] + diff_new
-        if grad_mode:
-            lik_old = lik_cache["v"]
-            if newton_mode and not frozen:
-                lik_new, grad_new, hess_new = lik_value_grad_hess(
-                    beta_new, data
-                )
-            else:
-                lik_new, grad_new = lik_value_and_grad(beta_new, data)
-                hess_new = (lik_cache["h"] if newton_mode
-                            else local_units(xxt_bound, 1))
-            f_new = _asis_joint_grad(grad_new, diff_new, mu_new, lt_new)
-            L_new = chol_packed(
-                _asis_joint_metric(hess_new, diff_new, lt_new), q
-            )
-            mean_new = th_new + drift * spd_solve(L_new, f_new, q)
-            w_rev = lt_vec(L_new, th_old - mean_new, q)
-            # the forward whitened residual is exactly s eps_q; the
-            # 1/(2 s^2) normalisation cancels the s
-            inv_2s2 = 0.5 if newton_mode else 0.5 / (s * s)[:, 0]
-            q_corr = (
-                -inv_2s2 * torch.sum(w_rev * w_rev, dim=-1)
-                + half_logdet(L_new, q)
-                + 0.5 * torch.sum(eps_q * eps_q, dim=-1)
-                - half_logdet(L_old, q)
-            )
-        else:
-            lik_new = lik_fn(beta_new, data)             # (C, G)
-            lik_old = lik_cache
-            if lik_old is None:
-                lik_old = lik_fn(beta, data)
-            q_corr = 0.0
+        if isinstance(lik_cache, dict):
+            return _asis_grad_move(rng, beta, mu, lt, lik_cache, scale, data,
+                                   frozen)
+        C = lt.shape[0]
+        eps = rng.normal((C, p))
+        lt_new = lt + scale * eps
+        beta_new = mu[:, None, :] + (beta - mu[:, None, :]) * torch.exp(
+            lt_new - lt)[:, None, :]                     # mu + e^{lt'} z
+        lik_new = lik_fn(beta_new, data)                 # (C, G)
+        lik_old = lik_cache
+        if lik_old is None:
+            lik_old = lik_fn(beta, data)
         prior_delta = torch.sum(
-            _tau_logprior(lt_new) + log_scale_guard(lt_new)
-            - _tau_logprior(lt),
+            prior.tau_logprior(lt_new) + log_scale_guard(lt_new)
+            - prior.tau_logprior(lt),
             dim=-1,
         )
-        if grad_mode:
-            prior_delta = prior_delta + torch.sum(
-                -0.5 * (mu_new * mu_new - mu * mu) * inv_s0_2, dim=-1
-            )
-        log_alpha = (
-            groups_sum(lik_new - lik_old, -1) + prior_delta + q_corr
-        )
+        log_alpha = groups_sum(lik_new - lik_old, -1) + prior_delta
         logu = rng.log_uniform((C,))
         accept = logu < log_alpha
-        acc2 = accept[:, None]
-        acc3 = accept[:, None, None]
         pos_up = {
-            "beta": torch.where(acc3, beta_new, beta),
-            "log_tau": torch.where(acc2, lt_new, lt),
+            "beta": torch.where(accept[:, None, None], beta_new, beta),
+            "log_tau": torch.where(accept[:, None], lt_new, lt),
         }
         cache_up = {}
-        if grad_mode:
-            pos_up["mu"] = torch.where(acc2, mu_new, mu)
-            cache_up["beta"] = {
-                "v": torch.where(acc2, lik_new, lik_old),
-                "g": torch.where(acc3, grad_new, lik_cache["g"]),
-            }
-            if newton_mode:
-                cache_up["beta"]["h"] = (
-                    lik_cache["h"] if frozen
-                    else torch.where(acc3, hess_new, lik_cache["h"])
-                )
-        elif lik_cache is not None:
-            cache_up["beta"] = torch.where(acc2, lik_new, lik_old)
+        if lik_cache is not None:
+            cache_up["beta"] = torch.where(accept[:, None], lik_new, lik_old)
         alpha = torch.where(
             torch.isnan(log_alpha), torch.zeros_like(log_alpha),
             torch.exp(log_alpha.clamp_max(0.0)),
@@ -574,7 +539,7 @@ def make_hier_logistic(
             + groups_sum(_gprior(state), -1)
             + torch.sum(logpdf_normal(state["mu"], 0.0, prior_mu_scale),
                         dim=-1)
-            + torch.sum(_tau_logprior(state["log_tau"]), dim=-1)
+            + torch.sum(prior.tau_logprior(state["log_tau"]), dim=-1)
         )
 
     def init_state(rng, data, chains):

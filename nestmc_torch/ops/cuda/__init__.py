@@ -33,6 +33,9 @@ LAUNCHES = {
     "seg_loglik": 0,
     "seg_logp_grad": 0,
     "philox_fill": 0,
+    "asis_stats": 0,
+    "asis_propose": 0,
+    "asis_accept": 0,
 }
 
 

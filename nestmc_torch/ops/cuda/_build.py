@@ -56,6 +56,10 @@ _SIGNATURES = {
     "nestmc_tile_plan": [_I, _I, _P],
     "nestmc_span_mark": [_P, _P, _I, _I, _I, _P],
     "nestmc_scalar_abi": [],
+    "nestmc_asis_row": [],
+    "nestmc_asis_stats": [_P] * 5 + [_L] + [_P] * 3 + [_I] * 2 + [_P],
+    "nestmc_asis_propose": [_P] * 9 + [_I] * 2 + [_F] * 7 + [_I, _P],
+    "nestmc_asis_accept": [_P] * 10 + [_I] + [_F] * 7 + [_I, _P],
 }
 
 _libs: dict = {}

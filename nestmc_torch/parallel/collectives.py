@@ -139,12 +139,21 @@ def groups_sum(x, dim, keepdim: bool = False):
     path, kernels/mala.py)."""
     out = x.sum(dim=dim, keepdim=keepdim)
     s = _ACTIVE
-    if s is None or s.mesh.group_shards == 1:
-        return out
-    if out.requires_grad:
+    if s is not None and s.mesh.group_shards > 1 and out.requires_grad:
         return _GroupsSum.apply(out, s.mesh.groups_group,
                                 s.mesh.group_shards)
-    return _all_reduce_groups(out, s.mesh.groups_group)
+    return groups_total(out)
+
+
+def groups_total(partial):
+    """The sum over the group shards of ``partial``, a sum this rank took
+    over its own units (a kernel's per-chain row): one all_reduce(SUM), in
+    place, over the ranks that share this rank's chains, as in
+    :func:`groups_sum`; the identity on one group shard."""
+    s = _ACTIVE
+    if s is None or s.mesh.group_shards == 1:
+        return partial
+    return _all_reduce_groups(partial, s.mesh.groups_group)
 
 
 def groups_mean(x):

@@ -430,9 +430,26 @@ def kernel_work(kernel: str, C: int, G: int, n: int, p: int,
     operations of an element's conversion (ops/cuda/philox_fill.FLOAT_OPS);
     it writes 4 bytes an element and reads two key words. Its Philox
     rounds (one call a quad of four elements) are integer instructions,
-    which the float32 rate does not bound."""
+    which the float32 rate does not bound. The interweaving move's kernels
+    (asis_*, ops/cuda/asis.py) on C chains of G groups: for asis_stats
+    ``n`` is the floats it reads a (chain, group) cell (beta and g, the
+    Hessian's T when every chain has its own, the two loglik rows at the
+    proposal; a Hessian bound shared by the chains is read from L2, not
+    counted); asis_propose reads beta and writes beta' besides its
+    per-chain algebra; asis_accept is per-chain algebra alone (G 0)."""
     if kernel == "philox_fill":
         return 4 * C * G + 8, C * G * n
+    if kernel.startswith("asis_"):
+        T, q = p * (p + 1) // 2, 2 * p
+        K = 2 * p + 2 * T + p * p + 1
+        algebra = q ** 3 // 3 + 4 * q * q + 20 * q   # a factor, three solves
+        if kernel == "asis_stats":
+            return (4 * C * G * n + 4 * C * (2 * p + 1 + K),
+                    C * G * (2 * p * p + 5 * p + 4 * T + 2))
+        if kernel == "asis_propose":
+            return (8 * C * G * p + 4 * C * (K + 7 * p + 1),
+                    C * algebra + 3 * C * G * p)
+        return 4 * C * (K + 7 * p + 5), C * algebra
     if kernel.startswith("seg_"):
         val_ops = 2 * p + 9
         data = 4 * n * (p + 1) + 4 * (G + 1)

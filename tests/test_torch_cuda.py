@@ -262,13 +262,18 @@ def test_default_config_sweep_launches_kernels(dev):
     assert LAUNCHES["newton_step_frozen"] == 1
     assert LAUNCHES["logp_grad_hess"] == 2   # init cache + warmup ASIS eval
     assert LAUNCHES["logp_grad"] == 1        # sampling ASIS eval
+    # the interweave's kernels: two statistics passes, a proposal and an
+    # accept a move
+    assert LAUNCHES["asis_stats"] == 4
+    assert LAUNCHES["asis_propose"] == LAUNCHES["asis_accept"] == 2
     assert all(bool(torch.isfinite(v).all()) for v in state.position.values())
 
 
 @pytest.mark.parametrize("algorithm", ["mala", "rwmh"])
 def test_default_config_mala_rw_sweeps_launch_kernels(dev, algorithm):
     """A default-config MALA or RW-MH sweep (half-normal tau) runs its
-    fused step and its obs-pass kernel on the card in both phases."""
+    fused step and its obs-pass kernel on the card in both phases; MALA's
+    interweave its four kernels a move (the RW move is plain code)."""
     data, _ = synth_logistic(4, G=9, n=13, p=3, device=dev)
     model = make_hier_logistic(data)
     cfg = SamplerConfig(kernel=KernelConfig(algorithm=algorithm),
@@ -284,7 +289,9 @@ def test_default_config_mala_rw_sweeps_launch_kernels(dev, algorithm):
                  else ("rwmh_step", "loglik"))
     assert LAUNCHES[step] == 2
     assert LAUNCHES[obs] == 3          # init cache + one move eval a sweep
-    assert sum(LAUNCHES.values()) == 5
+    asis = 8 if algorithm == "mala" else 0
+    assert LAUNCHES["asis_stats"] == asis // 2
+    assert sum(LAUNCHES.values()) == 5 + asis
     assert all(bool(torch.isfinite(v).all()) for v in state.position.values())
 
 
@@ -570,7 +577,8 @@ def test_ragged_sweeps_launch_their_kernels(dev):
     """One warmup and one sampling sweep of config 4's two routes: the
     bucket route runs B Newton launches and B Hessian or gradient passes a
     sweep; the segment route's MALA and RW-MH run the segment kernel and
-    the noise fill of beta's unfused update (proposal and accept draws)."""
+    the noise fill of beta's unfused update (proposal and accept draws);
+    the Newton and MALA interweaves their four kernels a move."""
     data, _ = synth_logistic(4, G=90, n=32, p=3, ragged=True, min_obs=1,
                              device=dev)
     for impl, algorithm, tau in (("auto", "newton", "invgamma"),
@@ -594,6 +602,8 @@ def test_ragged_sweeps_launch_their_kernels(dev):
         else:
             want = {"seg_logp_grad" if algorithm == "mala"
                     else "seg_loglik": 5, "philox_fill": 4}
+        if algorithm != "rwmh":     # the interweave's kernels, two moves
+            want |= {"asis_stats": 4, "asis_propose": 2, "asis_accept": 2}
         assert {k: n for k, n in LAUNCHES.items() if n} == want
         assert all(bool(torch.isfinite(t).all())
                    for t in state.position.values())
@@ -1196,7 +1206,8 @@ def test_poisson_steps_with_a_broadcast_prior_mean(dev):
                  "pois_logp_grad_hess": 7, "pois_logp_grad": 8,
                  "pois_loglik": 8}),
     ("binomial", {"newton_step_refresh": 6, "newton_step_frozen": 8,
-                  "logp_grad_hess": 7, "logp_grad": 8, "loglik": 8}),
+                  "logp_grad_hess": 7, "logp_grad": 8, "loglik": 8,
+                  "asis_stats": 28, "asis_propose": 14, "asis_accept": 14}),
 ])
 def test_glm_kernel_families_launch_their_kernels(dev, family, expect):
     """A short Newton run of hier_glm's kernel families on the card: the
