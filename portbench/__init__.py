@@ -4,8 +4,9 @@
 runs one cell of ``BENCHMARK.json`` once and prints one JSON line. Every
 configuration, cell, sharding layout ("traffic") and metric lives in a file
 of its own under this folder (configs/, workloads/, traffic/, metrics/),
-found by the name ``BENCHMARK.json`` gives it. The yardstick (the data
-generator, the bulk-ESS estimator, the roofline counts and the plain
-reference that decides ``correct``) is frozen here and imports nothing of
-the program.
+found by the name ``BENCHMARK.json`` gives it, and every model that a
+configuration names in a module of its own (models/). The yardstick (the
+data generators, the bulk-ESS estimator, the peaks and work counts of the
+roofline and the plain references that decide ``correct``) is frozen here
+and imports nothing of the program.
 """

@@ -1,34 +1,40 @@
 """The comparison that decides ``correct``: what the timed path produced,
-held against the plain reference (portbench/reference.py).
+held against the plain reference of the cell's model
+(portbench/models/<model>_reference.py, driven by the model's module).
 
 The reference starts from carries and generator states that the run
 hands it (:class:`Taken`): the carry the window started from, and two
 carries that the program makes again after the window from the same
 seed, each one sweep short of what it checks (the draw step's first
-``k`` draws, warmup's first W - 1 sweeps). Four numbers, each with its
-limit from the cell's file:
+``k`` draws, warmup's first W - 1 sweeps). The model's module works out
+from them, by the reference and as the program made them, {'first',
+'late': the collected scalars of the window's first draw and of draw k,
+'warm': the state after the last warmup sweep, 'carry': the caches of
+the window's starting positions}. Four numbers, each with its limit from
+the cell's file:
 
 - ``step_gap``: the window's draws. From the window's starting carry and
   the generators as they stood before the window, the reference works
   out the first draw; from the carry after k draws (k inside the window's
   second segment, not its first row), with the starting carry's scales
-  and frozen Hessian, draw k. The number is the larger of the two 90th
-  percentiles over chains and collected scalars (mu, log tau, the first
-  groups' beta) of |program - reference|. A percentile, and not the
-  widest gap, because a float32 rounding apart in an accept ratio flips
-  the odd group's accept decision (a fraction of a percent of chains);
-  every fault of the step moves most entries.
-- ``carry_gap``: what set-up left in the carry: the loglik, gradient (and
-  frozen Hessian) caches of the adapted positions, against the
-  reference's, as the widest gap of each over its largest magnitude.
+  and frozen metric, draw k. The number is the larger of the two 90th
+  percentiles over chains and collected scalars of |program -
+  reference|. A percentile, and not the widest gap, because a float32
+  rounding apart in an accept ratio flips the odd unit's accept decision
+  (a fraction of a percent of chains); every fault of the step moves
+  most entries.
+- ``carry_gap``: what set-up left in the carry: the caches (loglik,
+  gradient, and a frozen Hessian where there is one) of the adapted
+  positions, against the reference's, as the widest gap of each over its
+  largest magnitude.
 - ``rhat_gap``: the streamed split R-hat of the collected scalars after
   the window, against the split R-hat the reference computes from the
   collected draws themselves (float64, two passes): the widest gap.
 - ``warmup_gap``: the adapted carry. From the carry after W - 1 warmup
-  sweeps, the reference works out the last warmup sweep (Newton's
-  Hessian refreshed, the MALA scales' Robbins-Monro update with the gain
-  of sweep W - 1) and the number is the largest, over the positions and
-  the log scales, of each one's 90th percentile of |program - reference|.
+  sweeps, the reference works out the last warmup sweep (the metric
+  refreshed, the scales' Robbins-Monro update with the gain of sweep
+  W - 1) and the number is the largest, over the positions and the log
+  scales, of each one's 90th percentile of |program - reference|.
   It is infinite unless the key-word generator stood where W - 1 and W
   sweeps leave it, counted from a fresh generator of the seed: so a
   warmup of fewer sweeps is caught even where its last sweep is sound.
@@ -59,60 +65,11 @@ class Taken:
     host0: torch.Tensor  # the key-word generator of a fresh SweepRNG
 
 
-def ref_model(cfg: dict, arrays: dict, device, tf32: bool = False):
-    model = R.Model(cfg, R.Data(arrays, device))
-    model.tf32 = tf32
-    return model
-
-
-def ref_state(s) -> dict:
-    """The reference's view of a carry: positions and log scales."""
-    ls = s.log_scale
-    return {"beta": s.position["beta"], "mu": s.position["mu"],
-            "log_tau": s.position["log_tau"],
-            "log_scale_beta": ls["beta"],
-            "log_scale_lt": ls.get("log_tau"),
-            "log_scale_asis": ls.get("asis_tau")}
-
-
-def _mode(device) -> str:
+def mode(device) -> str:
+    """The program's noise mode on ``device``: 'kernel' (the fused step
+    draws its Philox noise inside the kernel) on the card, 'fill' (two
+    counter-indexed fills) on the CPU."""
     return "kernel" if torch.device(device).type == "cuda" else "fill"
-
-
-def outputs(model, taken: Taken, collect: dict, warmup: int,
-            device) -> dict:
-    """What ``model`` works out from ``taken``: {'first', 'late': the
-    collected scalars of the window's first draw and of draw k, 'warm':
-    the state after the last warmup sweep, 'carry': the caches of the
-    window's starting positions}."""
-    mode = _mode(device)
-    C = taken.s0.position["beta"].shape[0]
-
-    def noise(state):
-        return R.Noise(model, C, state["host"], state["device"], device,
-                       mode)
-
-    with R.no_tf32():
-        cache = R.carry(model, taken.s0.position["beta"])
-        h = cache.get("h")
-        st0 = ref_state(taken.s0)
-        first = R.collected(R.sweep(model, st0, noise(taken.snapshot),
-                                    h=h), collect)
-        stk = dict(st0, **{k: taken.sk.position[k]
-                           for k in ("beta", "mu", "log_tau")})
-        late = R.collected(R.sweep(model, stk, noise(taken.snap_k), h=h),
-                           collect)
-        warm = R.sweep(model, ref_state(taken.sw), noise(taken.snap_w),
-                       warmup=True, t=warmup - 1)
-    return {"first": first, "late": late, "warm": warm, "carry": cache}
-
-
-def program(taken: Taken, draws: dict) -> dict:
-    """The same quantities as the program made them."""
-    return {"first": {k: v[:, 0] for k, v in draws.items()},
-            "late": {k: v[:, taken.k] for k, v in draws.items()},
-            "warm": ref_state(taken.s0),
-            "carry": taken.s0.cache["beta"]}
 
 
 def p90(x: torch.Tensor) -> float:
@@ -152,10 +109,10 @@ def warm_gap(prog: dict, ref: dict) -> dict:
             for k, r in ref.items() if prog.get(k) is not None}
 
 
-def keys_counted(taken: Taken, warmup: int, device) -> bool:
+def keys_counted(taken: Taken, warmup: int, keys: int) -> bool:
     """Whether the key-word generator stood where W - 1 sweeps (the
-    rerun) and W sweeps (the window's start) leave a fresh one."""
-    keys = R.KEYS[_mode(device)]
+    rerun) and W sweeps (the window's start) leave a fresh one, each sweep
+    taking ``keys`` pairs of words (the model's KEYS of the mode)."""
     w1 = R.advance_keys(taken.host0, warmup - 1, keys)
     w = R.advance_keys(w1, 1, keys)
     return (torch.equal(w1, taken.snap_w["host"].cpu())

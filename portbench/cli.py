@@ -88,7 +88,8 @@ def main(argv=None, t_start: float | None = None) -> int:
     a = _args(argv)
     try:
         cell = harness.load_cell(a.workload)
-    except (OSError, KeyError, ValueError, StopIteration) as e:
+    except (OSError, ImportError, KeyError, ValueError,
+            StopIteration) as e:
         harness.log(f"cannot read the cell {a.workload!r}: {e!r}")
         return 2
     try:
@@ -149,9 +150,7 @@ def _free_port() -> int:
 def _launch(cell, a, t_start: float) -> int:
     """Build the kernels once, start a process a rank, wait for all of
     them, then write out their output (rank 0's last)."""
-    from nestmc_torch.ops.cuda import _build
-
-    _build.build([int(cell.config["covariates"])])
+    cell.model.prepare(cell.config)
     port = _free_port()
     out = Path(tempfile.mkdtemp(prefix="portbench-ranks-"))
     procs, files = [], []

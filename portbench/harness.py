@@ -2,12 +2,16 @@
 
 The order of a run:
 
-1. Inputs: the configuration's data (portbench/gen.py from the file's
-   ``data_seed``: one data set a configuration, so that a seed changes
-   the chains and not the posterior they sample), handed to the program
-   through its public constructors with the values of the configuration's
-   file; ``--seed`` seeds the chains.
-2. Set-up: the configuration's warmup through
+1. Inputs: the configuration's data (its model's frozen generator,
+   portbench/models/<model>_reference.py, from the file's ``data_seed``:
+   one data set a configuration, so that a seed changes the chains and
+   not the posterior they sample), handed to the program through its
+   public constructors with the values of the configuration's file (the
+   model's module, portbench/models/<model>.py); ``--seed`` seeds the
+   chains.
+2. Set-up: a short warmup of ``PREWARM_SWEEPS`` sweeps on a generator of
+   its own (the process's first call of the warmup step), then the
+   configuration's warmup through
    ``nestmc_torch.engine.warmup_then_state`` (timed: warmup_sweeps_per_s),
    then a short calibration call of the draw step on a copy of the
    generators, from which the window's draw count D is sized so that the
@@ -24,6 +28,10 @@ The order of a run:
    generators, and warmup's first W - 1 sweeps); then the ESS of the
    collected draws (portbench/ess.py) and the comparison with the plain
    reference (portbench/check.py).
+
+Whatever knows the model (its data, its constructors, the kernels it
+builds, the shapes of its carry, its reference, its work counts) is asked
+of the model's module (``Cell.model``); this file names no model.
 """
 
 from __future__ import annotations
@@ -37,9 +45,13 @@ import time
 import types
 from pathlib import Path
 
+from portbench import models
+
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "nestmc")
 GATE = 1.01
+# warmup sweeps run before the timed warmup (see run)
+PREWARM_SWEEPS = 32
 
 
 def log(msg: str) -> None:
@@ -62,7 +74,8 @@ class Cell:
     """A cell of BENCHMARK.json with the files it names: its configuration,
     its traffic (the sharding layout and the lengths of the calibration
     and the traced stretch) and its own file (the limits of the check),
-    and the metrics it reports."""
+    the metrics it reports, and the module of the configuration's model
+    (portbench/models/<model>.py)."""
     name: str
     config: dict
     traffic: dict
@@ -70,6 +83,7 @@ class Cell:
     limits: dict
     end_to_end: list
     per_layer: list
+    model: types.ModuleType
 
 
 def load_cell(name: str, bench: str | Path = "BENCHMARK.json",
@@ -89,11 +103,13 @@ def load_cell(name: str, bench: str | Path = "BENCHMARK.json",
     per = [m for m in spec["per_layer"]
            if (name in m["workloads"] if "workloads" in m
                else m["moves"] in names)]
-    return Cell(name=name, config=_json(root / cfg["file"]),
+    config = _json(root / cfg["file"])
+    return Cell(name=name, config=config,
                 traffic=_json(here / "traffic" / f"{w['traffic']}.json"),
                 chips=int(w["chips"]),
                 limits=_json(here / "workloads" / f"{name}.json")["limits"],
-                end_to_end=e2e, per_layer=per)
+                end_to_end=e2e, per_layer=per,
+                model=models.load(config["model"]))
 
 
 def reader(name: str, here: Path = HERE):
@@ -111,7 +127,7 @@ def reader(name: str, here: Path = HERE):
 class Context:
     """What a metric reads: the cell, the host-clock results of the run
     (``run``), the traced stretch's summary (``trace``, None without one)
-    and this process's shapes {'C', 'G', 'n', 'p'}."""
+    and this process's shapes (the model's ``shapes``)."""
     cell: Cell
     run: dict
     trace: object
@@ -160,38 +176,10 @@ def _all(values: list, device) -> list:
 
 def program(cell: Cell, seed: int, device):
     """(model, data, SamplerConfig, data arrays) of the cell, built
-    through the program's public constructors."""
-    from nestmc_torch import (
-        KernelConfig,
-        RunConfig,
-        SamplerConfig,
-        ShardingConfig,
-        from_numpy,
-    )
-    from nestmc_torch.models import make_hier_logistic
-
-    from portbench import gen
-
-    c, tr = cell.config, cell.traffic
-    arrays = gen.synth_logistic(c["data_seed"], c["groups"],
-                                c["obs_per_group"], c["covariates"])
-    data = from_numpy(arrays["x"], arrays["y"], arrays["mask"],
-                      device=device)
-    model = make_hier_logistic(
-        data, prior_mu_scale=c["prior_mu_scale"],
-        prior_tau_scale=c["prior_tau_scale"], tau_prior=c["tau_prior"],
-        tau_ig_shape=c["tau_ig_shape"], tau_ig_scale=c["tau_ig_scale"],
-        asis_repeats=c["asis_repeats"])
-    cfg = SamplerConfig(
-        kernel=KernelConfig(algorithm=c["algorithm"], fused_accept=True),
-        run=RunConfig(chains=c["chains"], warmup=c["warmup"], draws=0,
-                      thin=c["thin"], seed=seed,
-                      segment_size=c["segment_size"],
-                      collect=dict(c["collect"]), full_rhat=True,
-                      full_rhat_thin=c["full_rhat_thin"],
-                      log_every_segment=False),
-        sharding=ShardingConfig(chain_shards=tr["chain_shards"],
-                                group_shards=tr["group_shards"]))
+    through the program's public constructors by the model's module."""
+    arrays = cell.model.data(cell.config)
+    model, data, cfg = cell.model.build(cell.config, cell.traffic, arrays,
+                                        seed, device)
     return model, data, cfg, arrays
 
 
@@ -318,13 +306,18 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     # ---- set-up: the kernels (built on a checkout's first run), warmup,
     # then the calibration of the draw step ----
     if cuda:
-        from nestmc_torch.ops.cuda import _build
-
-        _build.library(int(c["covariates"]))
+        cell.model.prepare(c)
     phases["kernels"] = time.monotonic()
     if dist:
         _connect(cfg, device)
     phases["connected"] = time.monotonic()
+    # the warmup step once, short and on a generator of its own, so that
+    # a process's first-call costs (module loads, first allocations) fall
+    # in set-up and not inside warmup_sweeps_per_s's clock
+    warmup_then_state(model, data, _with(cfg, warmup=min(
+        PREWARM_SWEEPS, int(c["warmup"]))), SweepRNG(seed, device))
+    _sync(device)
+    phases["prewarmed"] = time.monotonic()
     rng = SweepRNG(seed, device)
     _sync(device)
     t_w = time.monotonic()
@@ -369,9 +362,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         f"{post.timings['capture_s']:.4f} s); set-up phases "
         + json.dumps({k: round(v - t_start, 4) for k, v in phases.items()}))
 
-    C_rank, G_rank = s0.position["beta"].shape[:2]
-    shapes = {"C": int(C_rank), "G": int(G_rank), "n": c["obs_per_group"],
-              "p": c["covariates"]}
+    shapes = cell.model.shapes(c, s0)
     summary, busy = None, None
     if trace:
         S = int(tr["trace_draws"])
@@ -379,7 +370,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         events = T.profile(lambda: sample(model, data, tcfg, rng=rng,
                                           init_state=post.final_state,
                                           skip_warmup=True))
-        summary = T.summarize(events, c["thin"], shapes)
+        summary = T.summarize(
+            events, c["thin"],
+            work=lambda name, i: cell.model.launch_work(name, i, c, shapes),
+            extra=cell.model.HAND_WRITTEN)
         del events
         mine = ([summary.busy_s, summary.stretch_s] if summary
                 else [0.0, 0.0])
@@ -450,22 +444,20 @@ def _check(cell, taken, draws, full_rhat, arrays, device, control):
 
     from portbench import check
 
-    c = cell.config
-    collect = {k: v for k, v in c["collect"].items() if v is not None}
+    c, M = cell.config, cell.model
     rthin, warmup = c["full_rhat_thin"], int(c["warmup"])
     t = time.monotonic()
-    ref = check.outputs(check.ref_model(c, arrays, device), taken, collect,
-                        warmup, device)
-    numbers, read = check.gaps(check.program(taken, draws), ref)
+    ref = M.outputs(M.reference(c, arrays, device), taken, c, device)
+    numbers, read = check.gaps(M.program_outputs(taken, draws), ref)
     numbers["rhat_gap"] = check.rhat_gap(full_rhat, draws, rthin)
-    read["keys_counted"] = check.keys_counted(taken, warmup, device)
+    read["keys_counted"] = check.keys_counted(
+        taken, warmup, M.KEYS[check.mode(device)])
     if not read["keys_counted"]:
         numbers["warmup_gap"] = float("inf")
     extra = {"program": numbers, "read": read}
     if control:
-        low = check.ref_model(c, arrays, device, tf32=True)
-        numbers, read = check.gaps(
-            check.outputs(low, taken, collect, warmup, device), ref)
+        low = M.reference(c, arrays, device, tf32=True)
+        numbers, read = check.gaps(M.outputs(low, taken, c, device), ref)
         numbers["rhat_gap"] = check.rhat_gap(full_rhat, draws, rthin,
                                              tf32=True)
         extra["control"], extra["control_read"] = numbers, read

@@ -1,6 +1,7 @@
 """kernels.roofline (%): the summed least times of the hand-written
-kernels' launches in the traced stretch (portbench/roofline.py at this
-process's shapes), over their summed device times."""
+kernels' launches that the model counts in the traced stretch (its
+``launch_work`` at this process's shapes, over portbench/roofline.py's
+peaks), over their summed device times."""
 
 
 def read(ctx):

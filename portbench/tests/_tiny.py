@@ -15,9 +15,7 @@ def tiny_cell(name: str, shards=(1, 1)):
     from portbench import harness
 
     cell = harness.load_cell(name, ROOT / "BENCHMARK.json")
-    cfg = dict(cell.config, chains=16, warmup=40, obs_per_group=10,
-               segment_size=8,
-               groups=16 if cell.config["algorithm"] == "newton" else 24)
+    cfg = cell.model.tiny(cell.config)
     traffic = dict(cell.traffic, chain_shards=shards[0],
                    group_shards=shards[1], calibrate_draws=4)
     return dataclasses.replace(cell, config=cfg, traffic=traffic)
@@ -48,12 +46,16 @@ def plant(fault: str | None) -> None:
             return (state, out[1]) if isinstance(out, tuple) else state
         segments.DrawProgram._sweep = sweep
     elif fault == "half":
-        from nestmc_torch.models import hier_logistic
+        import nestmc_torch.models  # noqa: F401  (loads every model)
 
         def half(t, dim, keepdim=False):
             n = t.shape[dim] // 2
             return 2.0 * t.narrow(dim, 0, n).sum(dim, keepdim=keepdim)
-        hier_logistic.groups_sum = half
+        for mod in list(sys.modules.values()):
+            if (getattr(mod, "__name__", "").startswith(
+                    "nestmc_torch.models.")
+                    and hasattr(mod, "groups_sum")):
+                mod.groups_sum = half
     elif fault == "altered":
         from nestmc_torch import engine
 
@@ -61,9 +63,10 @@ def plant(fault: str | None) -> None:
 
         def collect(position, spec, derived, index):
             out = dict(orig(position, spec, derived, index))
-            b = out["beta"].clone()
-            b[0, 0, 0] += 1.0
-            out["beta"] = b
+            k = list(out)[-1]
+            t = out[k].clone()
+            t.view(-1)[0] += 1.0
+            out[k] = t
             return out
         engine._collect = collect
     elif fault == "late":

@@ -4,8 +4,11 @@ kept apart from the JAX package (and the reference from the program)."""
 import ast
 import hashlib
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -37,9 +40,39 @@ def test_no_module_under_portbench_imports_jax_or_the_jax_package():
 
 
 def test_the_yardstick_imports_nothing_of_the_program():
-    for name in ("reference.py", "check.py", "gen.py", "ess.py",
-                 "roofline.py", "trace.py"):
-        assert "nestmc_torch" not in _imports(PKG / name), name
+    refs = sorted((PKG / "models").glob("*_reference.py"))
+    assert refs
+    for path in [PKG / name for name in ("reference.py", "check.py",
+                                         "ess.py", "roofline.py",
+                                         "trace.py")] + refs:
+        assert "nestmc_torch" not in _imports(path), path
+
+
+def test_a_model_module_imports_the_program_inside_its_functions_only():
+    for f in (PKG / "models").glob("*.py"):
+        tree = ast.parse(f.read_text())
+        top = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                top.add(node.module.split(".")[0])
+        assert "nestmc_torch" not in top, f
+
+
+# what only a model's module may know
+MODEL_WORDS = ("hier_logistic", "beta", "Logit", "obs_per_group",
+               "covariates")
+
+
+def test_no_code_outside_the_models_names_a_model():
+    for f in PKG.rglob("*.py"):
+        rel = f.relative_to(PKG)
+        if rel.parts[0] in ("models", "tests"):
+            continue
+        text = f.read_text()
+        assert not [w for w in MODEL_WORDS if w in text], (rel, [
+            w for w in MODEL_WORDS if w in text])
 
 
 def test_forbidden_modules_are_compared_by_whole_top_level_names(
@@ -143,6 +176,48 @@ def test_a_new_config_cell_and_metric_are_files_and_entries(tmp_path):
     old = harness.load_cell("judged.sample", bench, here=pkg)
     assert "device.busy_ms_per_sweep" not in [m["name"]
                                               for m in old.per_layer]
+    after = _digest(pkg)
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+def test_a_config_of_a_new_model_module_runs_through_the_harness(tmp_path):
+    """A later change adds a model by adding its module under
+    portbench/models/ (here a copy of the hierarchical logistic one under
+    another name), a configuration that names it, a cell and its limits:
+    the harness runs it through the tiny CPU path, and no file it had
+    changes."""
+    pkg = tmp_path / "portbench"
+    shutil.copytree(PKG, pkg, ignore=shutil.ignore_patterns("__pycache__"))
+    before = _digest(pkg)
+    shutil.copy(PKG / "models" / "hier_logistic.py",
+                pkg / "models" / "other_model.py")
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cfg = json.loads((PKG / "configs" / "judged.json").read_text())
+    (pkg / "configs" / "other.json").write_text(json.dumps(
+        dict(cfg, name="other", model="other_model")))
+    (pkg / "workloads" / "other.sample.json").write_text(
+        (PKG / "workloads" / "judged.sample.json").read_text())
+    spec["configs"].append({"name": "other", "source": "x",
+                            "file": "portbench/configs/other.json",
+                            "reduced": [], "why": "x"})
+    spec["workloads"].append({"name": "other.sample", "config": "other",
+                              "traffic": "sample", "chips": 1, "why": "x"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    code = ("import json, sys, portbench; from portbench.tests import _tiny; "
+            "r = _tiny.run_tiny('other.sample'); "
+            "print(json.dumps([portbench.__file__, "
+            "'portbench.models.other_model' in sys.modules, r]))")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+            [str(tmp_path), str(ROOT)])))
+    assert out.returncode == 0, out.stderr[-3000:]
+    where, loaded, r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert Path(where).resolve().parent == pkg.resolve()
+    assert loaded
+    assert r["correct"] is True, r["check"]
+    assert r["attempted"] == (16 + 2) * cfg["covariates"]
     after = _digest(pkg)
     assert {k: v for k, v in after.items() if k in before} == before
 

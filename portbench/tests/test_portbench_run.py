@@ -14,7 +14,9 @@ from portbench import check
 from portbench.tests import _tiny
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ("judged.sample", "mala-100k.sample.2x2")
+# every cell of the benchmark, each in one process here
+CELLS = tuple(w["name"] for w in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["workloads"])
 
 
 def _in_subprocess(cell, fault, control=False):
@@ -36,8 +38,8 @@ def test_the_result_line(cell):
                            "device"]
     assert list(r)[-1] == "check"
     assert r["correct"] is True
-    assert r["attempted"] == (16 if "judged" in cell else 24) * (
-        3 if "mala" in cell else 4) + 2 * (3 if "mala" in cell else 4)
+    tiny = _tiny.tiny_cell(cell)
+    assert r["attempted"] == tiny.model.parameters(tiny.config)
     assert set(r["metrics"]) == {"ess_per_s", "min_ess_per_s",
                                  "sweeps_per_s", "warmup_sweeps_per_s",
                                  "setup_s"}

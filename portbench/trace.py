@@ -98,39 +98,52 @@ def _union(intervals) -> int:
     return total
 
 
-def summarize(events: list, sweeps_per_replay: int,
-              shapes: dict) -> Summary | None:
+def summarize(events: list, sweeps_per_replay: int, work=None,
+              extra=()) -> Summary | None:
     """The stretch of ``events`` (see the module); None when no replayed
-    kernel ran. shapes: {'C', 'G', 'n', 'p'} of this process's part of the
-    cell, at which the hand-written kernels' bounds are counted."""
+    kernel ran. ``work(name, ordinal)``: (bytes, operations) of a
+    hand-written kernel's launch, the ordinal-th (from 0) of its name in
+    its sweep, or None where it is not counted (the model's
+    ``launch_work`` at this process's shapes); ``extra``: the model's own
+    hand-written kernel names (roofline.classify)."""
     launches = {e.corr for e in events
                 if not e.device and "GraphLaunch" in e.name}
-    work = [e for e in events if e.device and e.kind in _DEVICE_WORK]
-    replayed = [e for e in work if e.corr in launches]
+    device_work = [e for e in events
+                   if e.device and e.kind in _DEVICE_WORK]
+    replayed = [e for e in device_work if e.corr in launches]
     if not replayed:
         return None
     t0 = min(e.start for e in replayed)
     t1 = max(e.end for e in replayed)
-    inside = sorted((e for e in work if e.start >= t0 and e.end <= t1),
+    inside = sorted((e for e in device_work
+                     if e.start >= t0 and e.end <= t1),
                     key=lambda e: e.start)
     seconds = {"kernels": 0.0, "plain": 0.0, "nccl": 0.0}
     counts = {"kernels": 0, "plain": 0, "nccl": 0}
     by_name = {}
+    cats = [roofline.classify(e.name, extra) for e in inside]
+    # launches of each name in each replay: a replay holds
+    # sweeps_per_replay sweeps
+    per_replay = {}
+    for e, cat in zip(inside, cats):
+        if cat == "kernels":
+            per_replay[e.corr, e.name] = per_replay.get((e.corr, e.name),
+                                                        0) + 1
+    seen = {}
     bound = counted = 0.0
-    for e in inside:
-        cat = roofline.classify(e.name)
+    for e, cat in zip(inside, cats):
         dt = (e.end - e.start) * 1e-9
         seconds[cat] += dt
         counts[cat] += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + dt
-        if cat == "kernels":
-            call = roofline.kernel_call(e.name)
-            if call is not None:
-                kernel, noise, fold = call
-                nbytes, ops = roofline.kernel_work(
-                    kernel, shapes["C"], shapes["G"], shapes["n"],
-                    shapes["p"], noise=noise, fold=fold)
-                bound += roofline.bound_ms(nbytes, ops) * 1e-3
+        if cat == "kernels" and work is not None:
+            key = (e.corr, e.name)
+            i = seen.get(key, 0)
+            seen[key] = i + 1
+            per_sweep = max(1, per_replay[key] // sweeps_per_replay)
+            w = work(e.name, i % per_sweep)
+            if w is not None:
+                bound += roofline.bound_ms(*w) * 1e-3
                 counted += dt
     busy = _union((e.start, e.end) for e in inside)
     gaps, last = [], t0
